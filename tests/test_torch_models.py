@@ -54,7 +54,7 @@ def test_preintegrate_matches_jax():
     ba, bg = rng.standard_normal(3) * 0.05, rng.standard_normal(3) * 0.01
     jp = jimu.preintegrate(*map(jnp.asarray, (dts, accs, gyrs, mask, ba, bg)),
                            jimu.default_params())
-    tp = timu.preintegrate(*map(T, (dts, accs, gyrs, mask, ba, bg)), timu.default_params())
+    tp = timu.preintegrate(*map(T, (dts, accs, gyrs, mask, ba, bg)), timu.default_params(device="cpu"))
     for f in jp._fields:
         close(getattr(jp, f), getattr(tp, f), atol=1e-13)
     # whitening: f64 Cholesky of the same covariance
@@ -66,14 +66,14 @@ def test_evaluate_matches_jax():
     dts, accs, gyrs, mask = imu_interval(rng)
     jp = jimu.preintegrate(*map(jnp.asarray, (dts, accs, gyrs, mask)),
                            jnp.zeros(3), jnp.zeros(3), jimu.default_params())
-    tp = convert.to_torch(jp)
+    tp = convert.to_torch(jp, device="cpu")
     q = rng.standard_normal((2, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     args = [rng.standard_normal(3), q[0], rng.standard_normal(3), rng.standard_normal(3) * 0.1,
             rng.standard_normal(3) * 0.01, rng.standard_normal(3), q[1], rng.standard_normal(3),
             rng.standard_normal(3) * 0.1, rng.standard_normal(3) * 0.01]
     close(jimu.evaluate(jp, jimu.default_params(), *map(jnp.asarray, args)),
-          timu.evaluate(tp, timu.default_params(), *map(T, args)), atol=1e-12)
+          timu.evaluate(tp, timu.default_params(device="cpu"), *map(T, args)), atol=1e-12)
 
 
 def test_midpoint_propagate_matches_jax():
@@ -139,13 +139,13 @@ def test_tracker_step_matches_jax(f_threshold):
     rng = np.random.default_rng(3)
     frames = blob_frames(rng, 3, movers=8)
     K = (100.0, 100.0, 80.0, 60.0, -0.1, 0.02, 0.0, 0.0)
-    jc, tc = jcam.pinhole(*K, width=160, height=120), tcam.pinhole(*K, width=160, height=120)
+    jc, tc = jcam.pinhole(*K, width=160, height=120), tcam.pinhole(*K, width=160, height=120, device="cpu")
     kw = dict(max_features=32, min_dist=15, quality=0.01, f_threshold=f_threshold,
               ransac_hyps=4)
     jcfg = jft.TrackerConfig(equalize=False, klt=jklt.KLTConfig(levels=2), **kw)
     tcfg = tft.TrackerConfig(klt=tklt.KLTConfig(levels=2), **kw)
     js = jft.init_state(jcfg, 120, 160, jnp.float64)
-    ts = convert.to_torch(js)
+    ts = convert.to_torch(js, device="cpu")
     n_rejected = 0
     for k, img in enumerate(frames):
         key, ridx, n_ok = tracker_key(js, jnp.asarray(img), jcfg, seed=k)
@@ -178,7 +178,7 @@ def test_convert_round_trip():
     batch = (jnp.zeros(4), jnp.ones((5, 3)), jnp.ones((5, 3)), jnp.ones(4, bool),
              jnp.asarray(True))
     for obj in (state, data, fe, jimu.default_params(), cam, batch):
-        t = convert.to_torch(obj)
+        t = convert.to_torch(obj, device="cpu")
         back = convert.from_torch(t)
         ja = jax.tree_util.tree_leaves(obj)
         tb = jax.tree_util.tree_leaves(back)
@@ -186,10 +186,10 @@ def test_convert_round_trip():
         for a, b in zip(ja, tb):
             a, b = np.asarray(a), np.asarray(b)
             assert a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
-    t = convert.to_torch(data)
+    t = convert.to_torch(data, device="cpu")
     assert t.pt_id.dtype == torch.int64 and t.pt_mask.dtype == torch.bool
     assert type(t.prior).__module__.startswith("vplines_slam_tpu_torch")
-    assert convert.to_torch(cam).width == 16
+    assert convert.to_torch(cam, device="cpu").width == 16
 
 
 def test_port_imports_no_jax():

@@ -97,7 +97,7 @@ def test_camera_project_lift_match_jax():
     rng = np.random.default_rng(2)
     K = (461.6, 460.3, 363.0, 248.1, -2.917e-01, 8.228e-02, 5.333e-05, -1.578e-04)
     jc = jcam.pinhole(*K)
-    tc = tcam.pinhole(*K)
+    tc = tcam.pinhole(*K, device="cpu")
     X = np.concatenate([rng.uniform(-1, 1, (64, 2)), rng.uniform(1, 4, (64, 1))], 1)
     juv, jv = jcam.project(jc, jnp.asarray(X))
     tuv, tv = tcam.project(tc, T(X))

@@ -53,22 +53,23 @@ N_STEPS = 6
 
 def test_device_loop_matches_jax_frame_by_frame():
     f64 = torch.float64
-    cam, jc = tcam.pinhole(*K, width=W, height=H), jcam.pinhole(*K, width=W, height=H)
+    cam, jc = tcam.pinhole(*K, width=W, height=H, device="cpu"), jcam.pinhole(*K, width=W, height=H)
     cfg, jcfg = WindowConfig(**WKW), jwin.WindowConfig(**WKW)
     tcfg = tft.TrackerConfig(klt=tklt.KLTConfig(levels=2), **TKW)
     jtcfg = jft.TrackerConfig(equalize=False, klt=jklt.KLTConfig(levels=2), **TKW)
-    params, jparams = timu.default_params(f64), jimu.default_params()
+    params, jparams = timu.default_params(f64, device="cpu"), jimu.default_params()
     nf = cfg.nf
     T = nf - 1 + N_STEPS
     r = round(FRAME_DT / IMU_DT)
 
     # ---- the world, rendered by the port; IMU from the analytic trajectory
-    q_ic, p_ic = demo.forward_camera_extrinsic(f64)
+    q_ic, p_ic = demo.forward_camera_extrinsic(f64, device="cpu")
     traj = synthetic.figure8_trajectory(radius=1.2, ypr_amp=(12.0, 5.0, 4.0))
     frame_t = np.arange(T) * FRAME_DT
     accs, gyrs = synthetic.imu_samples(traj, torch.arange(T * r + 1, dtype=f64) * IMU_DT)
     p_gt, q_gt, v_gt = synthetic.ground_truth_states(traj, torch.tensor(frame_t))
-    rend = demo.BlobWorldRenderer(cam, q_ic, p_ic, n_pts=300, dtype=torch.float32)
+    rend = demo.BlobWorldRenderer(cam, q_ic, p_ic, n_pts=300, dtype=torch.float32,
+                                  device="cpu")
     imgs = torch.stack([rend.render(q_gt[k], p_gt[k]) for k in range(T)]).to(f64)
     batches = demo.imu_batches(accs, gyrs, IMU_DT, r, T - 1, cfg.max_imu)
 
@@ -109,7 +110,7 @@ def test_device_loop_matches_jax_frame_by_frame():
     _, jouts = jloop.run(jcarry, jimgs[s:], tuple(b[s - 1:] for b in jb),
                          jnp.full((N_STEPS,), FRAME_DT), keys[s:])
     loop = make_device_loop(cam, tcfg, cfg, params)
-    carry = loop.init_carry(*(convert.to_torch(x) for x in jcarry))
+    carry = loop.init_carry(*(convert.to_torch(x, device="cpu") for x in jcarry))
     _, outs = loop.run(carry, imgs[s:], tuple(b[s - 1:] for b in batches),
                        torch.full((N_STEPS,), FRAME_DT, dtype=f64), torch.as_tensor(ridx[s:]))
 

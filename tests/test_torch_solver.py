@@ -78,7 +78,7 @@ def window():
         state, data, prior)
     state = state._replace(p=state.p.at[-1].set(state.p[-2] + 0.05),
                            q=state.q.at[-1].set(state.q[-2]))
-    return (state, data, params), tuple(convert.to_torch(x) for x in (state, data, params))
+    return (state, data, params), tuple(convert.to_torch(x, device="cpu") for x in (state, data, params))
 
 
 def jax_rows(r, layout):
@@ -172,7 +172,7 @@ def test_marginalize_old_matches_jax(window):
 def test_slide_window_old_matches_jax(window):
     (js, jd, jp), (ts, td, tp) = window
     jpr = jax.jit(lambda s, d: jslide.marginalize_old(s, d, JCFG, jp))(js, jd)
-    tpr = convert.to_torch(jpr)  # same prior in: compare the slide alone
+    tpr = convert.to_torch(jpr, device="cpu")  # same prior in: compare the slide alone
     js2, jd2 = jax.jit(lambda s, d, p: jslide.slide_window_old(s, d, JCFG, jp, p))(js, jd, jpr)
     ts2, td2 = tslide.slide_window_old(ts, td, TCFG, tp, tpr)
     close_tree(js2, ts2, atol=0.0)
@@ -184,7 +184,7 @@ def test_slide_window_new_matches_jax(window):
     # fill the newest interval so the merge overflows the capacity (2:1 path)
     jd = jslide.set_imu_interval(jd, JCFG.nf - 2, jd.imu_dt[0], jd.imu_acc[0],
                                  jd.imu_gyr[0], jd.imu_mask[0], params=jp)
-    td = convert.to_torch(jd)
+    td = convert.to_torch(jd, device="cpu")
     js2, jd2 = jax.jit(lambda s, d: jslide.slide_window_new(s, d, JCFG, jp))(js, jd)
     ts2, td2 = tslide.slide_window_new(ts, td, TCFG, tp)
     close_tree(js2, ts2, atol=0.0)
@@ -208,7 +208,7 @@ def test_track_step_matches_jax(window):
         s, d, i, r, (), b, JCFG, jp, False))(
         js, jd, jnp.asarray(ids), jnp.asarray(rays), tuple(map(jnp.asarray, batch)))
     ts2, td2, to = tvio.track_step(ts, td, torch.as_tensor(ids).long(),
-                                   torch.as_tensor(rays), convert.to_torch(batch), TCFG, tp)
+                                   torch.as_tensor(rays), convert.to_torch(batch, device="cpu"), TCFG, tp)
     for f in ("p", "q", "v", "ba", "bg", "ba_cost"):
         close(getattr(jo, f), getattr(to, f), atol=1e-8, rtol=1e-8)
     assert bool(jo.is_keyframe) == bool(to.is_keyframe)

@@ -2,7 +2,7 @@
 
 ``to_torch`` takes any of the reference's state NamedTuples (``WindowState``,
 ``TrackData`` with its ``Preintegration`` and ``Prior``, ``TrackerState``,
-``ImuParams``, ``CameraModel``) or a plain tuple such as the IMU batch
+``LineTrackerState``, ``ImuParams``, ``CameraModel``) or a plain tuple such as the IMU batch
 ``(dts, accs, gyrs, mask, has_imu)``, with leaves given as numpy arrays (or
 anything ``np.asarray`` accepts), and returns the port's NamedTuple of the
 same name with tensors on ``device``.  Integer arrays (ids, slots, counters)
@@ -20,10 +20,12 @@ from .estimator.window import TrackData, WindowState
 from .models.camera import CameraModel
 from .models.feature_tracker import TrackerState
 from .models.imu import ImuParams, Preintegration
+from .models.line_tracker import LineTrackerState
 from .solver.marginalization import Prior
 
 PORT_TYPES = {cls.__name__: cls for cls in (
-    WindowState, TrackData, Preintegration, Prior, TrackerState, ImuParams, CameraModel)}
+    WindowState, TrackData, Preintegration, Prior, TrackerState, LineTrackerState, ImuParams,
+    CameraModel)}
 # NamedTuple fields that are static Python ints, not arrays
 _STATIC_FIELDS = {"kind", "width", "height"}
 
@@ -41,7 +43,7 @@ def _leaf_to_torch(x, device, dtype):
     return t.to(device)
 
 
-def to_torch(obj, device=None, dtype=None):
+def to_torch(obj, device=torch.device("cuda"), dtype=None):
     """Reference state (numpy leaves) -> the port's tensors."""
     if isinstance(obj, tuple):
         if hasattr(obj, "_fields"):

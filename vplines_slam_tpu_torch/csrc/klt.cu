@@ -22,6 +22,12 @@
 //   then interpolated, min_eig / (P*P), the det > 1e-12 guard, and two rounds
 //   of iters/2 with one re-anchor, the drift inside a round clamped to the
 //   window.
+// Gain/bias mode (illum != 0; replaces _gain_bias :152, applied at :244 and
+//   :258): the moving patch is staged in shared memory, and two more block
+//   sums per iteration give its mean and population std (two-pass, as
+//   jnp.std); the patch is renormalized to the template's mean and std
+//   (+1e-6 each) before the residual, in every iteration and in the final
+//   residual.
 
 #include <cuda_runtime.h>
 
@@ -67,7 +73,7 @@ __global__ void __launch_bounds__(kThreads)
 klt_level_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
                  int H, int W, const float* __restrict__ pts0,
                  const float* __restrict__ guess, int P, int iters,
-                 float min_eig_thresh, float* __restrict__ flow,
+                 float min_eig_thresh, int illum, float* __restrict__ flow,
                  unsigned char* __restrict__ ok_out, float* __restrict__ resid) {
   const int n = blockIdx.x;
   const int TS = P + 3, MS = P + 1 + 2 * kDrift;
@@ -86,6 +92,7 @@ klt_level_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
   float* Ix = T + PP;
   float* Iy = Ix + PP;
   float* M = Iy + PP;           // MS*MS moving window
+  float* Mv = M + MS * MS;      // P*P moving patch (gain/bias mode)
   __shared__ float scratch[3 * 32];
 
   const PaddedImage im0{img0, H, W, E, Hp, Wp};
@@ -148,6 +155,19 @@ klt_level_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
   const float dsafe = det > 1e-12f ? det : 1.f;
   const float i00 = c / dsafe, i01 = -b / dsafe, i11 = a / dsafe;
 
+  // template mean and population std (gain/bias mode)
+  float mT = 0.f, sT = 0.f;
+  if (illum) {
+    float s1[1] = {0.f};
+    for (int i = threadIdx.x; i < PP; i += blockDim.x) s1[0] += T[i];
+    vp::block_sum<1>(s1, scratch);
+    mT = s1[0] / (float)PP;
+    float s2[1] = {0.f};
+    for (int i = threadIdx.x; i < PP; i += blockDim.x) s2[0] += (T[i] - mT) * (T[i] - mT);
+    vp::block_sum<1>(s2, scratch);
+    sT = sqrtf(s2[0] / (float)PP) + 1e-6f;
+  }
+
   // ---- moving-window iterations, re-anchored once mid-level ---------------
   float dx = guess[2 * n], dy = guess[2 * n + 1];
   int m0x = 0, m0y = 0;
@@ -170,14 +190,37 @@ klt_level_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
                     i % P);
   };
 
+  // the moving patch at the current flow, minus the template; in gain/bias
+  // mode renormalized first (stages the patch in Mv and ends with a barrier)
+  float gain = 1.f, bias = 0.f;
+  auto normalize_patch = [&]() {
+    if (!illum) return;
+    float s1[1] = {0.f};
+    for (int i = threadIdx.x; i < PP; i += blockDim.x) {
+      Mv[i] = moving_at(i);
+      s1[0] += Mv[i];
+    }
+    vp::block_sum<1>(s1, scratch);
+    const float mI = s1[0] / (float)PP;
+    float s2[1] = {0.f};
+    for (int i = threadIdx.x; i < PP; i += blockDim.x) s2[0] += (Mv[i] - mI) * (Mv[i] - mI);
+    vp::block_sum<1>(s2, scratch);
+    gain = sT / (sqrtf(s2[0] / (float)PP) + 1e-6f);
+    bias = mI;
+  };
+  auto residual_at = [&](int i) {
+    return illum ? (Mv[i] - bias) * gain + mT - T[i] : moving_at(i) - T[i];
+  };
+
   const int n_rounds = iters >= 4 ? 2 : 1;
   for (int rd = 0; rd < n_rounds; ++rd) {
     const int n_it = n_rounds == 1 ? iters : (rd == 0 ? iters / 2 : iters - iters / 2);
     make_window();
     for (int it = 0; it < n_it; ++it) {
+      normalize_patch();
       float g[2] = {0.f, 0.f};
       for (int i = threadIdx.x; i < PP; i += blockDim.x) {
-        float rr = moving_at(i) - T[i];
+        float rr = residual_at(i);
         g[0] += rr * Ix[i];
         g[1] += rr * Iy[i];
       }
@@ -190,9 +233,10 @@ klt_level_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
   }
 
   make_window();
+  normalize_patch();
   float res[1] = {0.f};
   for (int i = threadIdx.x; i < PP; i += blockDim.x)
-    res[0] += fabsf(moving_at(i) - T[i]);
+    res[0] += fabsf(residual_at(i));
   vp::block_sum<1>(res, scratch);
   if (threadIdx.x == 0) {
     flow[2 * n] = dx;
@@ -207,12 +251,12 @@ klt_level_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
 extern "C" int vp_klt_track_level(const float* img0, const float* img1, int H,
                                   int W, const float* pts0, const float* guess,
                                   int N, int P, int iters, float min_eig,
-                                  float* flow, unsigned char* ok, float* resid,
-                                  cudaStream_t stream) {
+                                  int illum, float* flow, unsigned char* ok,
+                                  float* resid, cudaStream_t stream) {
   const int TS = P + 3, MS = P + 1 + 2 * kDrift;
-  size_t smem = sizeof(float) * (5 * TS * TS + 3 * P * P + MS * MS);
+  size_t smem = sizeof(float) * (5 * TS * TS + 4 * P * P + MS * MS);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   klt_level_kernel<<<N, kThreads, smem, stream>>>(
-      img0, img1, H, W, pts0, guess, P, iters, min_eig, flow, ok, resid);
+      img0, img1, H, W, pts0, guess, P, iters, min_eig, illum, flow, ok, resid);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
-"""Track ingest, keyframe decision, marginalization and window slide (points).
+"""Track ingest, keyframe decision, marginalization and window slide.
 
-Port of the points parts of ``vplines_slam_tpu/estimator/slide.py``: masked
-gathers over fixed-capacity tables, no reallocation.  The line tables are
-left as they are; with empty tables (the points-only loop) the reference's
-line shifts leave them unchanged too.
+Port of ``vplines_slam_tpu/estimator/slide.py``: masked gathers over
+fixed-capacity point and line tables, no reallocation.  The line tables
+shift with the window in both layouts (empty tables shift to themselves);
+only the lines layout ingests line observations or marginalizes line
+columns.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .window import (
     TrackData,
     WindowConfig,
     WindowState,
+    _first_obs,
     camera_poses,
     retract_all,
     window_residuals,
@@ -26,15 +28,14 @@ from .window import (
 
 
 def _set_row(a, k, v):
-    """a with a[k] replaced by v (out of place)."""
-    idx = torch.tensor([k], device=a.device)
-    return a.index_copy(0, idx, v.unsqueeze(0).to(a.dtype))
+    """a with a[k] replaced by v (out of place; k a Python int, so no index
+    is copied from the host: such a copy synchronizes)."""
+    return torch.cat([a[:k], v.unsqueeze(0).to(a.dtype), a[k + 1:]])
 
 
 def _set_col(a, k, v):
-    """a with a[:, k] replaced by v (out of place)."""
-    idx = torch.tensor([k], device=a.device)
-    return a.index_copy(1, idx, v.unsqueeze(1).to(a.dtype))
+    """a with a[:, k] replaced by v (out of place; k a Python int)."""
+    return torch.cat([a[:, :k], v.unsqueeze(1).to(a.dtype), a[:, k + 1:]], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -68,19 +69,39 @@ def _assign_slots(table_ids, in_ids):
     return slots, new_ids, has, src
 
 
-def ingest_frame(data: TrackData, cfg: WindowConfig, frame_idx, pt_ids, pt_rays):
-    """Insert one frame's point observations at window slot ``frame_idx``.
-    pt_ids [M] (-1 pad); pt_rays [M, 3] normalized rays."""
+def ingest_frame(data: TrackData, cfg: WindowConfig, frame_idx, pt_ids, pt_rays,
+                 ln_ids=None, ln_obs=None, ln_vps=None, ln_vp_valid=None):
+    """Insert one frame's observations at window slot ``frame_idx``.
+    pt_ids [M] (-1 pad); pt_rays [M, 3] normalized rays; the optional line
+    channel: ln_ids [Ml], ln_obs [Ml, 4] endpoints, ln_vps [Ml, 3] VPs,
+    ln_vp_valid [Ml]."""
     _, new_pt_ids, has, src = _assign_slots(data.pt_id, pt_ids)
     obs_col = torch.where(has[:, None], pt_rays[src].to(data.pt_obs.dtype),
                           data.pt_obs[:, frame_idx])
     newly = has & (data.pt_id != new_pt_ids)
-    return data._replace(
+    data = data._replace(
         pt_id=new_pt_ids,
         pt_obs=_set_col(data.pt_obs, frame_idx, obs_col),
         pt_mask=_set_col(data.pt_mask, frame_idx, data.pt_mask[:, frame_idx] | has),
         pt_start=torch.where(newly, torch.full_like(data.pt_start, frame_idx), data.pt_start),
         pt_solved=data.pt_solved & ~newly,
+    )
+    if ln_ids is None:
+        return data
+    _, new_ln_ids, lhas, lsrc = _assign_slots(data.ln_id, ln_ids)
+    f = frame_idx
+    col = lambda new, old: torch.where(lhas.view(-1, *[1] * (old.dim() - 1)),
+                                       new.to(old.dtype), old)
+    ln_vp, ln_vp_mask = data.ln_vp, data.ln_vp_mask
+    if ln_vps is not None:
+        ln_vp = _set_col(ln_vp, f, col(ln_vps[lsrc], ln_vp[:, f]))
+        ln_vp_mask = _set_col(ln_vp_mask, f, col(ln_vp_valid[lsrc], ln_vp_mask[:, f]))
+    return data._replace(
+        ln_id=new_ln_ids,
+        ln_obs=_set_col(data.ln_obs, f, col(ln_obs[lsrc], data.ln_obs[:, f])),
+        ln_mask=_set_col(data.ln_mask, f, data.ln_mask[:, f] | lhas),
+        ln_vp=ln_vp, ln_vp_mask=ln_vp_mask,
+        ln_solved=data.ln_solved & ~(lhas & (data.ln_id != new_ln_ids)),
     )
 
 
@@ -145,24 +166,43 @@ def _absorbed_points(data: TrackData):
     return (data.pt_start == 0) & (data.pt_id >= 0) & data.pt_solved
 
 
+def _absorbed_lines(data: TrackData, cfg: WindowConfig):
+    """Lines whose factors marginalize_old folds into the prior (with
+    cfg.marg_lines), gated by line_min_obs as the line residuals are."""
+    n_obs = torch.sum(data.ln_mask.long(), dim=1)
+    return ((_first_obs(data.ln_mask) == 0) & (data.ln_id >= 0) & data.ln_solved
+            & (n_obs >= cfg.line_min_obs))
+
+
 def marginalize_old(state: WindowState, data: TrackData, cfg: WindowConfig,
-                    params: imu_mod.ImuParams) -> marg_mod.Prior:
+                    params: imu_mod.ImuParams, use_lines: bool = False) -> marg_mod.Prior:
     """Square-root prior from all factors touching frame 0: previous prior +
-    IMU(0,1) + point factors anchored at frame 0 (relo never enters)."""
+    IMU(0,1) + point factors anchored at frame 0 and, in the lines layout
+    with cfg.marg_lines, line factors of lines first seen at frame 0 (relo
+    and VP factors never enter)."""
     anchored = _absorbed_points(data)
     imu_valid_r = torch.zeros_like(data.imu_valid)
     imu_valid_r[0] = data.imu_valid[0]
-    data_r = data._replace(pt_mask=data.pt_mask & anchored[:, None], imu_valid=imu_valid_r)
-    x0 = (state, data.pt_inv_depth)
-    zero = torch.zeros(cfg.n_total, dtype=state.p.dtype, device=state.p.device)
+    if cfg.marg_lines:
+        # the reference skips the j == 0 line factor (drop_set, :1327)
+        ln_mask_r = data.ln_mask & _absorbed_lines(data, cfg)[:, None]
+        ln_mask_r[:, 0] = False
+    else:  # live-only lines: their factors never enter the prior
+        ln_mask_r = torch.zeros_like(data.ln_mask)
+    data_r = data._replace(pt_mask=data.pt_mask & anchored[:, None], imu_valid=imu_valid_r,
+                           ln_mask=ln_mask_r)
+    x0 = (state, data.pt_inv_depth) + ((data.ln_orth,) if use_lines else ())
+    zero = torch.zeros(cfg.n_columns(use_lines), dtype=state.p.dtype, device=state.p.device)
 
     def r_of(d):
-        return window_residuals(retract_all(x0, d, cfg), data_r, cfg, params, use_relo=False)
+        return window_residuals(retract_all(x0, d, cfg), data_r, cfg, params, use_relo=False,
+                                use_vps=False)
 
     r0 = r_of(zero)
     J = jacfwd(r_of)(zero)
     Jp_full, rp_full = marg_mod.marginalize_window(
-        J, r0, cfg.nd, dense_start=0, dense_size=15, n_points=cfg.max_points)
+        J, r0, cfg.nd, dense_start=0, dense_size=15, n_points=cfg.max_points,
+        n_lines=cfg.max_lines if use_lines else 0)
     nd = cfg.nd
     Jp = marg_mod.project_out_nullspace(Jp_full[:nd, :nd], gauge_nullspace(state, cfg))
     rp = rp_full[:nd]
@@ -187,10 +227,16 @@ def slide_window_old(state: WindowState, data: TrackData, cfg: WindowConfig,
     nf = cfg.nf
     absorbed = _absorbed_points(data) if cfg.retire_points else torch.zeros_like(
         data.pt_solved)
+    # retirement only makes sense for lines whose information was absorbed
+    absorbed_ln = (_absorbed_lines(data, cfg) if cfg.retire_lines and cfg.marg_lines
+                   else torch.zeros_like(data.ln_solved))
     data = data._replace(
         pt_id=torch.where(absorbed, torch.full_like(data.pt_id, -1), data.pt_id),
         pt_mask=data.pt_mask & ~absorbed[:, None],
         pt_solved=data.pt_solved & ~absorbed,
+        ln_id=torch.where(absorbed_ln, torch.full_like(data.ln_id, -1), data.ln_id),
+        ln_mask=data.ln_mask & ~absorbed_ln[:, None],
+        ln_solved=data.ln_solved & ~absorbed_ln,
     )
 
     q_wc, p_wc = camera_poses(state)
@@ -215,6 +261,11 @@ def slide_window_old(state: WindowState, data: TrackData, cfg: WindowConfig,
     def shift_mask(m):
         return torch.cat([m[:, 1:], torch.zeros_like(m[:, -1:])], dim=1)
 
+    def shift_obs(o):
+        return torch.cat([o[:, 1:], o[:, -1:]], dim=1)
+
+    keep_ln = (data.ln_id >= 0) & (torch.sum(data.ln_mask[:, 1:].long(), dim=1) >= 1)
+
     imu_dt = _shift_frames(data.imu_dt)
     imu_dt = _set_row(imu_dt, nf - 2, torch.zeros_like(imu_dt[-1]))
     imu_mask = _shift_frames(data.imu_mask)
@@ -223,11 +274,17 @@ def slide_window_old(state: WindowState, data: TrackData, cfg: WindowConfig,
     imu_valid = _set_row(imu_valid, nf - 2, torch.zeros_like(imu_valid[-1]))
     data_new = data._replace(
         pt_id=torch.where(keep_pt, data.pt_id, torch.full_like(data.pt_id, -1)),
-        pt_obs=torch.cat([data.pt_obs[:, 1:], data.pt_obs[:, -1:]], dim=1),
+        pt_obs=shift_obs(data.pt_obs),
         pt_mask=shift_mask(data.pt_mask) & keep_pt[:, None],
         pt_start=pt_start_new,
         pt_inv_depth=inv_depth_new,
         pt_solved=solved_new & keep_pt,
+        ln_id=torch.where(keep_ln, data.ln_id, torch.full_like(data.ln_id, -1)),
+        ln_obs=shift_obs(data.ln_obs),
+        ln_mask=shift_mask(data.ln_mask) & keep_ln[:, None],
+        ln_vp=shift_obs(data.ln_vp),
+        ln_vp_mask=shift_mask(data.ln_vp_mask) & keep_ln[:, None],
+        ln_solved=data.ln_solved & keep_ln,
         imu_dt=imu_dt,
         imu_acc=_shift_frames(data.imu_acc),
         imu_gyr=_shift_frames(data.imu_gyr),
@@ -317,16 +374,25 @@ def slide_window_new(state: WindowState, data: TrackData, cfg: WindowConfig,
         imu_sqrt = _set_row(imu_sqrt, s - 1, imu_mod.sqrt_information(pre_m))
 
     # observations: frame s loses its obs, frame n's move into slot s
-    pt_obs = _set_col(data.pt_obs, s, data.pt_obs[:, n])
-    pt_mask = _set_col(_set_col(data.pt_mask, s, data.pt_mask[:, n]), n,
-                       torch.zeros_like(data.pt_mask[:, n]))
+    def drop_shift(obs, mask):
+        return (_set_col(obs, s, obs[:, n]),
+                _set_col(_set_col(mask, s, mask[:, n]), n, torch.zeros_like(mask[:, n])))
+
+    pt_obs, pt_mask = drop_shift(data.pt_obs, data.pt_mask)
+    ln_obs, ln_mask = drop_shift(data.ln_obs, data.ln_mask)
+    ln_vp, ln_vp_mask = drop_shift(data.ln_vp, data.ln_vp_mask)
     pt_start = torch.where(data.pt_start == n, torch.full_like(data.pt_start, s),
                            data.pt_start)
     keep_pt = (data.pt_id >= 0) & (torch.sum(pt_mask.long(), dim=1) >= 1)
+    keep_ln = (data.ln_id >= 0) & (torch.sum(ln_mask.long(), dim=1) >= 1)
     data_new = data._replace(
         pt_obs=pt_obs, pt_mask=pt_mask & keep_pt[:, None], pt_start=pt_start,
         pt_id=torch.where(keep_pt, data.pt_id, torch.full_like(data.pt_id, -1)),
         pt_solved=data.pt_solved & keep_pt,
+        ln_obs=ln_obs, ln_mask=ln_mask & keep_ln[:, None],
+        ln_vp=ln_vp, ln_vp_mask=ln_vp_mask & keep_ln[:, None],
+        ln_id=torch.where(keep_ln, data.ln_id, torch.full_like(data.ln_id, -1)),
+        ln_solved=data.ln_solved & keep_ln,
         imu_dt=imu_dt, imu_acc=imu_acc, imu_gyr=imu_gyr, imu_mask=imu_mask,
         imu_valid=imu_valid, imu_pre=imu_pre, imu_sqrt=imu_sqrt,
         relo_mask=torch.zeros_like(data.relo_mask),

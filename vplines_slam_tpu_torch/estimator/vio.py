@@ -1,6 +1,6 @@
-"""One steady-state VIO frame (points only).
+"""One steady-state VIO frame.
 
-Port of ``track_step`` (with ``use_lines=False``), ``StepOutput``,
+Port of ``track_step`` (points only, or with the line channel), ``StepOutput``,
 ``pack_output``, ``_propagate_interval`` and ``_failure_detection`` from
 ``vplines_slam_tpu/estimator/vio.py``.  The host engine ``VioEngine`` (and
 with it the initializer) is not ported yet.
@@ -26,7 +26,15 @@ from .slide import (
     slide_window_new,
     slide_window_old,
 )
-from .window import WindowConfig, WindowState, reject_outliers, solve_window, triangulate_points
+from .window import (
+    WindowConfig,
+    WindowState,
+    reject_outliers,
+    settle_lines,
+    solve_window,
+    triangulate_lines,
+    triangulate_points,
+)
 
 
 class StepOutput(NamedTuple):
@@ -81,26 +89,34 @@ def _failure_detection(state_old: WindowState, state_new: WindowState):
     return big_ba | big_bg | jump | z_jump
 
 
-def track_step(state, data, pt_ids, pt_rays, imu_batch, cfg: WindowConfig, params, t=None):
+def track_step(state, data, pt_ids, pt_rays, imu_batch, cfg: WindowConfig, params, t=None,
+               ln_args=(), use_lines=False):
     """One steady-state frame: IMU interval ingest + propagation, feature
     ingest, keyframe test, triangulation, window BA, outlier cull, and the
     keyframe / non-keyframe slide.  imu_batch = (dts, accs, gyrs, mask,
-    has_imu).  Returns (state, data, StepOutput)."""
+    has_imu); ln_args = (ids, endpoints, vp_dirs, vp_valid) of the line
+    tracker when use_lines.  Returns (state, data, StepOutput)."""
     nf = cfg.nf
     dts, accs, gyrs, mask, _ = imu_batch
     state0 = state
     data = set_imu_interval(data, nf - 2, dts, accs, gyrs, mask,
                             ba=state.ba[nf - 2], bg=state.bg[nf - 2], params=params)
     state = _propagate_interval(state, cfg, dts, accs, gyrs, mask, params, nf - 2, nf - 1)
-    data = ingest_frame(data, cfg, nf - 1, pt_ids, pt_rays)
+    data = ingest_frame(data, cfg, nf - 1, pt_ids, pt_rays, *ln_args)
     t_new = (data.frame_t[nf - 2] + 1.0 if t is None
              else torch.as_tensor(t, dtype=data.frame_t.dtype, device=data.frame_t.device))
     data = data._replace(frame_t=_set_row(data.frame_t, nf - 1, t_new))
 
     is_kf, _, _ = keyframe_parallax(data, cfg, nf - 1)
     data = triangulate_points(state, data, cfg)
-    state, data, lm_out = solve_window(state, data, cfg, params)
-    data = reject_outliers(state, data, cfg)
+    if use_lines:
+        # line-only Cauchy settle with poses fixed + the line culls, so fresh
+        # triangulations never drag the joint solve (onlyLineOpt)
+        data = triangulate_lines(state, data, cfg)
+        data = settle_lines(state, data, cfg)
+        data = reject_outliers(state, data, cfg, cull_points=False, use_lines=True)
+    state, data, lm_out = solve_window(state, data, cfg, params, use_lines=use_lines)
+    data = reject_outliers(state, data, cfg, use_lines=use_lines)
     failure = _failure_detection(state0, state)
 
     # fast-relocalization feedback against the window frame matching the
@@ -120,7 +136,7 @@ def track_step(state, data, pt_ids, pt_rays, imu_batch, cfg: WindowConfig, param
                       - rot_to_ypr(quat_to_rot(state.q_relo))[0]),
     )
     if bool(is_kf):  # host sync: the reference's lax.cond
-        prior = marginalize_old(state, data, cfg, params)
+        prior = marginalize_old(state, data, cfg, params, use_lines=use_lines)
         state, data = slide_window_old(state, data, cfg, params, prior)
     else:
         state, data = slide_window_new(state, data, cfg, params)

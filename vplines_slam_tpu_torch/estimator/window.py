@@ -1,16 +1,18 @@
-"""Sliding-window state, points-only residual stack, BA solve and culling.
+"""Sliding-window state, residual stack, BA solve, triangulation and culls.
 
-Port of the points parts of ``vplines_slam_tpu/estimator/window.py``.
-``WindowConfig``, ``WindowState`` and ``TrackData`` keep every field of the
-reference (line tables included) so state converts one to one; the solve
-uses the points-only layout (``solver.lm.WindowLayout``): line and VP rows
-and line-landmark columns are left out.  With empty line tables (every
-``ln_id`` = -1) those rows are identically zero in the reference, so the
-solve is the same.  The line tables are carried through untouched.
+Port of ``vplines_slam_tpu/estimator/window.py``.  ``WindowConfig``,
+``WindowState`` and ``TrackData`` keep the reference's fields so state
+converts one to one.  Two layouts (``solver.lm.WindowLayout``):
+
+- points only (``x = (state, inv_depth)``): no line/VP rows, no line
+  columns.  The reference with empty line tables stacks rows that are
+  identically zero there, so the solve is the same;
+- lines (``x = (state, inv_depth, orth)``): the reference's stack with line
+  and VP rows and 4-dof line columns.
 
 Dense parameter layout (delta space): frame k at 15k [δp δθ δv δba δbg],
 extrinsic [δp_ic δθ_ic] at 15·NF, relocalization pose at 15·NF + 6,
-ND = 15·NF + 12; then the MAXP inverse depths.
+ND = 15·NF + 12; then the MAXP inverse depths, then 4·MAXL line coords.
 """
 
 from __future__ import annotations
@@ -18,12 +20,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import jvp, vmap
 
 from ..factors import residuals as res
 from ..models import imu as imu_mod
 from ..solver import lm as lm_mod
 from ..solver import marginalization as marg_mod
 from ..utils.geometry import (
+    cross,
     quat_conj,
     quat_log,
     quat_mul,
@@ -35,22 +39,38 @@ from ..utils.geometry import (
     so3_exp_quat,
     ypr_to_rot,
 )
+from ..utils.plucker import (
+    orth_boxplus,
+    orth_to_plk,
+    pi_from_ppp,
+    pipi_plk,
+    plk_to_orth,
+    plk_transform,
+    plk_transform_inv,
+)
 
 
 class WindowConfig(NamedTuple):
-    """The reference's fields that the points-only path reads (the line,
-    VP and initializer settings wait for their modules)."""
+    """The reference's fields that the device loop reads (the initializer
+    settings wait for their module)."""
 
     window: int = 10  # keyframes (parameters.h WINDOW_SIZE)
     max_points: int = 128
-    max_lines: int = 32  # line-table capacity (tables carried, not solved)
+    max_lines: int = 32
     max_imu: int = 64  # IMU samples capacity per interval
     point_sqrt_info: float = res.POINT_SQRT_INFO
+    line_sqrt_info: float = res.LINE_SQRT_INFO
+    vp_sqrt_info: float = res.VP_SQRT_INFO
     huber_delta: float = 1.0
     min_parallax: float = 10.0 / 460.0  # keyframe threshold
     ba_iters: int = 8
+    line_min_obs: int = 5  # LINE_MIN_OBS
     prior_chi2_cap: float = 0.6  # χ²-consistency cap on the prior
     retire_points: bool = True  # retire tracks absorbed into the prior
+    # lines stay live-only by default: their factors never enter the prior
+    # (marg_lines=False); True folds them in and re-anchors (reference parity)
+    retire_lines: bool = False
+    marg_lines: bool = False
 
     @property
     def nf(self):
@@ -61,9 +81,17 @@ class WindowConfig(NamedTuple):
         return 15 * self.nf + 12  # frames + extrinsic + relo pose
 
     @property
+    def n_landmark(self):
+        return self.max_points + 4 * self.max_lines
+
+    @property
     def n_total(self):
-        """Columns of the points-only layout: dense block + inverse depths."""
-        return self.nd + self.max_points
+        """Columns of the lines layout: dense block + every landmark."""
+        return self.nd + self.n_landmark
+
+    def n_columns(self, use_lines):
+        """Columns of the layout in use (points only: nd + max_points)."""
+        return self.n_total if use_lines else self.nd + self.max_points
 
 
 class WindowState(NamedTuple):
@@ -111,7 +139,7 @@ class TrackData(NamedTuple):
     prior_state: WindowState
 
 
-def empty_state(cfg: WindowConfig, dtype=torch.float64, device=None) -> WindowState:
+def empty_state(cfg: WindowConfig, dtype=torch.float64, device=torch.device("cuda")) -> WindowState:
     nf = cfg.nf
     z = lambda *s: torch.zeros(*s, dtype=dtype, device=device)
     q0 = torch.zeros(nf, 4, dtype=dtype, device=device)
@@ -132,7 +160,7 @@ def _identity_pre(n, dtype, device):
         linearized_bg=z(n, 3))
 
 
-def empty_tracks(cfg: WindowConfig, dtype=torch.float64, device=None) -> TrackData:
+def empty_tracks(cfg: WindowConfig, dtype=torch.float64, device=torch.device("cuda")) -> TrackData:
     nf, P, L, I = cfg.nf, cfg.max_points, cfg.max_lines, cfg.max_imu
     z = lambda *s: torch.zeros(*s, dtype=dtype, device=device)
     zb = lambda *s: torch.zeros(*s, dtype=torch.bool, device=device)
@@ -260,29 +288,63 @@ def _relo_residuals(state, data, inv_depth, cfg):
     return _robust(r, valid, cfg, cfg.point_sqrt_info)
 
 
+def _line_active(data, cfg):
+    """[MAXL] lines that enter the solve (live, triangulated, enough obs)."""
+    n_obs = torch.sum(data.ln_mask.long(), dim=1)
+    return (data.ln_id >= 0) & data.ln_solved & (n_obs >= cfg.line_min_obs)
+
+
+def _line_residuals(state, data, orth, cfg):
+    """[MAXL, NF, 2] whitened + robust line residuals."""
+    r = res.line_reprojection(state.p[None], state.q[None], state.p_ic, state.q_ic,
+                              orth[:, None], data.ln_obs)
+    valid = _line_active(data, cfg)[:, None] & data.ln_mask
+    return _robust(r, valid, cfg, cfg.line_sqrt_info)
+
+
+def _vp_residuals(state, data, orth, cfg):
+    """[MAXL, NF, 2] whitened + robust VP residuals (Huber, as the
+    reference's vpProjectionFactor)."""
+    r = res.vp_alignment(state.p[None], state.q[None], state.p_ic, state.q_ic,
+                         orth[:, None], data.ln_vp)
+    valid = _line_active(data, cfg)[:, None] & data.ln_mask & data.ln_vp_mask
+    return _robust(r, valid, cfg, cfg.vp_sqrt_info)
+
+
 def window_residuals(x, data: TrackData, cfg: WindowConfig, params: imu_mod.ImuParams,
-                     use_relo: bool = True):
-    """Whitened residual stack [prior | imu | points | relo]; x = (state,
-    inv_depth).  The marginalization stack leaves the relo rows out."""
-    state, inv_depth = x
+                     use_relo: bool = True, use_vps: bool = True):
+    """Whitened residual stack [prior | imu | points | (lines | vps |) relo].
+    x = (state, inv_depth) for the points-only layout, (state, inv_depth,
+    orth) for the lines layout.  The marginalization stack leaves the relo
+    and VP rows out."""
+    state, inv_depth = x[0], x[1]
     parts = [
         marg_mod.prior_residual(data.prior, boxminus_state(state, data.prior_state, cfg)),
         _imu_residuals(state, data, cfg, params).reshape(-1),
         _point_residuals(state, data, inv_depth, cfg).reshape(-1),
     ]
+    if len(x) == 3:
+        parts.append(_line_residuals(state, data, x[2], cfg).reshape(-1))
+        if use_vps:
+            parts.append(_vp_residuals(state, data, x[2], cfg).reshape(-1))
     if use_relo:
         parts.append(_relo_residuals(state, data, inv_depth, cfg).reshape(-1))
     return torch.cat(parts)
 
 
 def retract_all(x, delta, cfg: WindowConfig):
-    state, inv_depth = x
     nd, P = cfg.nd, cfg.max_points
-    return retract_state(state, delta[:nd], cfg), inv_depth + delta[nd: nd + P]
+    out = (retract_state(x[0], delta[:nd], cfg), x[1] + delta[nd: nd + P])
+    if len(x) == 3:
+        out = out + (orth_boxplus(x[2], delta[nd + P:].reshape(-1, 4)),)
+    return out
 
 
-def layout_for(cfg: WindowConfig):
-    return lm_mod.WindowLayout(nd=cfg.nd, nf=cfg.nf, P=cfg.max_points)
+def layout_for(cfg: WindowConfig, use_lines: bool = False):
+    if not use_lines:
+        return lm_mod.WindowLayout(nd=cfg.nd, nf=cfg.nf, P=cfg.max_points)
+    return lm_mod.WindowLayout(nd=cfg.nd, nf=cfg.nf, P=cfg.max_points, L=cfg.max_lines,
+                               has_lines=True, has_vps=True)
 
 
 # ---------------------------------------------------------------------------
@@ -291,22 +353,28 @@ def layout_for(cfg: WindowConfig):
 
 
 def solve_window(state: WindowState, data: TrackData, cfg: WindowConfig,
-                 params: imu_mod.ImuParams, num_iters: int | None = None):
-    """Sliding-window BA + yaw/position gauge re-anchoring."""
+                 params: imu_mod.ImuParams, num_iters: int | None = None,
+                 use_lines: bool = False):
+    """Sliding-window BA + yaw/position gauge re-anchoring (the solved world
+    lines ride the same correction)."""
+    x0 = (state, data.pt_inv_depth) + ((data.ln_orth,) if use_lines else ())
     out = lm_mod.lm_solve_window(
         lambda x: window_residuals(x, data, cfg, params),
         lambda x, d: retract_all(x, d, cfg),
-        (state, data.pt_inv_depth),
-        layout_for(cfg),
+        x0,
+        layout_for(cfg, use_lines),
         lm_mod.LMConfig(num_iters=num_iters or cfg.ba_iters),
     )
-    state_new, invd_new = out.x
-    return gauge_fix(state, state_new), data._replace(pt_inv_depth=invd_new), out
+    orth_new = out.x[2] if use_lines else data.ln_orth
+    state_fixed, orth_fixed = gauge_fix(state, out.x[0], orth_new,
+                                        data.ln_solved if use_lines else None)
+    return state_fixed, data._replace(pt_inv_depth=out.x[1], ln_orth=orth_fixed), out
 
 
-def gauge_fix(state, state_new):
+def gauge_fix(state, state_new, orth_new, ln_solved=None):
     """Restore frame-0 position and yaw after a solve (double2vector2), with
-    the same rigid correction on the relo pose (points half: no lines)."""
+    the same rigid correction on the relo pose and on the solved world lines
+    (ln_solved None: the lines are left as they are)."""
     ypr0_old = rot_to_ypr(quat_to_rot(state.q[0]))
     ypr0_new = rot_to_ypr(quat_to_rot(state_new.q[0]))
     dyaw = ypr0_old[0] - ypr0_new[0]
@@ -314,17 +382,23 @@ def gauge_fix(state, state_new):
     R_fix = ypr_to_rot(torch.stack([dyaw, z, z]))
     q_fix = rot_to_quat(R_fix)
     rot = lambda v: (R_fix @ v[..., None])[..., 0]
-    return state_new._replace(
+    state_fixed = state_new._replace(
         p=rot(state_new.p - state_new.p[0]) + state.p[0],
         q=quat_mul(q_fix, state_new.q),
         v=rot(state_new.v),
         p_relo=rot(state_new.p_relo - state_new.p[0]) + state.p[0],
         q_relo=quat_mul(q_fix, state_new.q_relo),
     )
+    if ln_solved is None:
+        return state_fixed, orth_new
+    # world' = R_fix · world + t_fix
+    t_fix = state.p[0] - rot(state_new.p[0])
+    fixed = plk_to_orth(plk_transform(orth_to_plk(orth_new), R_fix, t_fix))
+    return state_fixed, torch.where(ln_solved[:, None], fixed, orth_new)
 
 
 # ---------------------------------------------------------------------------
-# triangulation + outlier rejection (points)
+# triangulation, the line-only settle and outlier rejection
 # ---------------------------------------------------------------------------
 
 
@@ -351,16 +425,144 @@ def triangulate_points(state: WindowState, data: TrackData, cfg: WindowConfig):
     return data._replace(pt_inv_depth=invd, pt_solved=data.pt_solved | new_ok)
 
 
-def reject_outliers(state, data, cfg, reproj_thresh=5.0 / 460.0):
+def _first_obs(mask):
+    """[L] index of each row's first True (0 for an empty row), jnp.argmax."""
+    return torch.argmax(mask.to(torch.uint8), dim=1)
+
+
+def _homog(xy):
+    return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+
+
+def triangulate_lines(state: WindowState, data: TrackData, cfg: WindowConfig):
+    """Initialize world Plücker lines from the observation pair with the
+    widest plane angle (feature_manager.cpp triangulateLine:413-563)."""
+    q_wc, p_wc = camera_poses(state)
+    L = data.ln_id.shape[0]
+    ar = torch.arange(L, device=data.ln_id.device)
+    first = _first_obs(data.ln_mask)
+    obs_i = data.ln_obs[ar, first]  # [L, 4]
+    zero3 = torch.zeros_like(obs_i[:, 0:3])
+    pii = pi_from_ppp(zero3, _homog(obs_i[:, 0:2]), _homog(obs_i[:, 2:4]))  # [L, 4]
+    # every frame j's endpoints expressed in the anchor frame i
+    qf_inv = quat_conj(q_wc[first])[:, None]  # [L, 1, 4]
+    q_ij = quat_mul(qf_inv, q_wc[None])  # [L, NF, 4]
+    t_ij = quat_rotate(qf_inv, p_wc[None] - p_wc[first][:, None])  # [L, NF, 3]
+    a = quat_rotate(q_ij, _homog(data.ln_obs[..., 0:2])) + t_ij
+    b = quat_rotate(q_ij, _homog(data.ln_obs[..., 2:4])) + t_ij
+    pjs = pi_from_ppp(t_ij, a, b)  # [L, NF, 4]
+    ni = pii[:, 0:3] / torch.linalg.norm(pii[:, 0:3], dim=-1, keepdim=True)
+    njs = pjs[..., 0:3] / torch.linalg.norm(pjs[..., 0:3], dim=-1, keepdim=True)
+    cosang = torch.abs(torch.sum(njs * ni[:, None], dim=-1))
+    frames = torch.arange(cfg.nf, device=ar.device)
+    use = data.ln_mask & (frames[None, :] != first[:, None])
+    cosang = torch.where(use, cosang, torch.full_like(cosang, 2.0))
+    best = torch.argmin(cosang, dim=1)
+    plk_i = pipi_plk(pii, pjs[ar, best])
+    R_wc_i = quat_to_rot(q_wc[first])
+    R_cw_i = R_wc_i.mT
+    plk_w = plk_transform_inv(plk_i, R_cw_i, -(R_cw_i @ p_wc[first][..., None])[..., 0])
+    good = cosang[ar, best] < 0.998  # reference cos θ gate (:538)
+    n_obs = torch.sum(data.ln_mask.long(), dim=1)
+    new_ok = (data.ln_id >= 0) & ~data.ln_solved & (n_obs >= cfg.line_min_obs) & good
+    orth = torch.where(new_ok[:, None], plk_to_orth(plk_w), data.ln_orth)
+    return data._replace(ln_orth=orth, ln_solved=data.ln_solved | new_ok)
+
+
+def settle_lines(state: WindowState, data: TrackData, cfg: WindowConfig, num_iters: int = 8):
+    """Line-only damped Gauss-Newton with poses fixed and a Cauchy(1) loss
+    (the reference's onlyLineOpt, estimator.cpp:950-1042).  With poses fixed
+    the problem is block-diagonal per line: every line takes its own 4x4
+    step; the 4 Jacobian columns of all lines come from 4 jvps (each
+    residual row depends on one line only)."""
+    active = _line_active(data, cfg)
+
+    def line_resid(orth):  # [L, 4] -> [L, NF*2]
+        r = res.line_reprojection(state.p[None], state.q[None], state.p_ic, state.q_ic,
+                                  orth[:, None], data.ln_obs) * cfg.line_sqrt_info
+        r = torch.where(torch.isfinite(r) & data.ln_mask[..., None], r, torch.zeros_like(r))
+        w = res.cauchy_weight(torch.sum(r * r, dim=-1).detach(), 1.0)
+        return (r * w[..., None]).reshape(r.shape[0], -1)
+
+    orth = data.ln_orth
+    L = orth.shape[0]
+    eye4 = torch.eye(4, dtype=orth.dtype, device=orth.device)
+    tangents = eye4[:, None, :].expand(4, L, 4)
+    for _ in range(num_iters):
+        f = lambda d: line_resid(orth_boxplus(orth, d))
+        zero = torch.zeros_like(orth)
+        r = f(zero)
+        J = vmap(lambda t: jvp(f, (zero,), (t,))[1])(tangents).permute(1, 2, 0)  # [L, R, 4]
+        H = J.mT @ J
+        H = H + 1e-3 * torch.diag_embed(torch.diagonal(H, dim1=1, dim2=2)) + 1e-8 * eye4
+        g = (J.mT @ r[..., None])[..., 0]
+        d = -torch.linalg.solve_ex(H, g)[0]
+        d = torch.where(torch.isfinite(d), d, torch.zeros_like(d))
+        new = orth_boxplus(orth, d)
+        c0 = torch.sum(r * r, dim=1)
+        c1 = torch.sum(line_resid(new) ** 2, dim=1)
+        orth = torch.where((c1 < c0)[:, None], new, orth)
+    return data._replace(ln_orth=torch.where(active[:, None], orth, data.ln_orth))
+
+
+def _line_endpoint_gates(state, data, cfg):
+    """The reference's geometric line culls (removeLineOutlier:702-798):
+    trim the infinite line by the anchor-frame observation and flag lines
+    whose 3D endpoints land behind the camera or spread over > 10 m."""
+    q_wc, p_wc = camera_poses(state)
+    L = data.ln_id.shape[0]
+    ar = torch.arange(L, device=data.ln_id.device)
+    i = _first_obs(data.ln_mask)
+    R_cw = quat_to_rot(quat_conj(q_wc[i]))  # [L, 3, 3]
+    t_cw = -(R_cw @ p_wc[i][..., None])[..., 0]
+    plk_c = plk_transform(orth_to_plk(data.ln_orth), R_cw, t_cw)
+    nc, vc = plk_c[:, 0:3], plk_c[:, 3:6]
+    obs = data.ln_obs[ar, i]
+    p11, p21 = _homog(obs[:, 0:2]), _homog(obs[:, 2:4])
+    ln = cross(p11, p21)[:, 0:2]
+    ln = ln / torch.clamp(torch.linalg.norm(ln, dim=-1, keepdim=True), min=1e-12)
+    ln3 = torch.cat([ln, torch.zeros_like(ln[:, :1])], dim=-1)
+    zero = torch.zeros_like(p11)
+    pi1 = pi_from_ppp(zero, p11, p11 + ln3)
+    pi2 = pi_from_ppp(zero, p21, p21 + ln3)
+
+    def meet(pi):  # dual Plücker matrix [[nc]x, vc; -vcᵀ, 0] @ pi
+        xyz = cross(nc, pi[:, 0:3]) + vc * pi[:, 3:4]
+        return torch.cat([xyz, -torch.sum(vc * pi[:, 0:3], dim=-1, keepdim=True)], dim=-1)
+
+    def unhom(e):
+        w = e[:, 3:4]
+        return e / torch.where(torch.abs(w) > 1e-12, w, torch.full_like(w, 1e-12))
+
+    e1, e2 = unhom(meet(pi1)), unhom(meet(pi2))
+    bad = (e1[:, 2] < 0) | (e2[:, 2] < 0) | (torch.linalg.norm(e1[:, 0:3] - e2[:, 0:3], dim=-1) > 10.0)
+    return bad | ~torch.all(torch.isfinite(e1), dim=-1) | ~torch.all(torch.isfinite(e2), dim=-1)
+
+
+def reject_outliers(state, data, cfg, reproj_thresh=5.0 / 460.0, line_thresh=3.0 / 500.0,
+                    cull_points=True, use_lines=False):
     """Drop solved tracks with negative depth or a large mean reprojection
-    error (estimator removeFailures; points half)."""
-    r_pt = _point_residuals(state, data, data.pt_inv_depth, cfg) / cfg.point_sqrt_info
-    err = torch.linalg.norm(r_pt, dim=-1)
-    n = torch.clamp(torch.sum(data.pt_mask.long(), dim=1) - 1, min=1)
-    mean_err = torch.sum(err, dim=1) / n
-    bad = data.pt_solved & ((data.pt_inv_depth < 0) | (mean_err > reproj_thresh))
+    error (estimator removeFailures) and, with lines, solved lines with a
+    large max per-observation error or failing the endpoint gates
+    (removeLineOutlier).  cull_points=False restricts the pass to lines."""
+    if cull_points:
+        r_pt = _point_residuals(state, data, data.pt_inv_depth, cfg) / cfg.point_sqrt_info
+        err = torch.linalg.norm(r_pt, dim=-1)
+        n = torch.clamp(torch.sum(data.pt_mask.long(), dim=1) - 1, min=1)
+        mean_err = torch.sum(err, dim=1) / n
+        bad = data.pt_solved & ((data.pt_inv_depth < 0) | (mean_err > reproj_thresh))
+        data = data._replace(
+            pt_id=torch.where(bad, torch.full_like(data.pt_id, -1), data.pt_id),
+            pt_solved=data.pt_solved & ~bad,
+            pt_mask=data.pt_mask & ~bad[:, None],
+        )
+    if not use_lines:
+        return data
+    r_ln = _line_residuals(state, data, data.ln_orth, cfg) / cfg.line_sqrt_info
+    err_l = torch.amax(torch.linalg.norm(r_ln, dim=-1), dim=1)
+    bad_ln = data.ln_solved & ((err_l > line_thresh) | _line_endpoint_gates(state, data, cfg))
     return data._replace(
-        pt_id=torch.where(bad, torch.full_like(data.pt_id, -1), data.pt_id),
-        pt_solved=data.pt_solved & ~bad,
-        pt_mask=data.pt_mask & ~bad[:, None],
+        ln_id=torch.where(bad_ln, torch.full_like(data.ln_id, -1), data.ln_id),
+        ln_solved=data.ln_solved & ~bad_ln,
+        ln_mask=data.ln_mask & ~bad_ln[:, None],
     )

@@ -136,8 +136,11 @@ def check(t, name, dtype=torch.float32, ndim=None, shape=None):
 
 
 def all_kernels():
-    """Every kernel of the package, in main-path order."""
-    from .ops import corners, image, klt, mvg
+    """Every kernel of the package, in main-path order (the line front-end's
+    after the point front-end's)."""
+    from .ops import corners, image, klt, line_match, lines, mvg, vp
 
     return [image.PYR_DOWN, klt.KLT_TRACK_LEVEL, corners.CORNER_RESPONSE,
-            corners.CORNER_SELECT, mvg.SAMPSON_SCORE]
+            corners.CORNER_SELECT, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
+            lines.LINE_ANCHORS, lines.LINE_GROW, line_match.LINE_VOTE, vp.VP_GRID,
+            vp.VP_SCORE]

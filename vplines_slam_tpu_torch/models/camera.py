@@ -1,7 +1,8 @@
 """Pinhole + radial-tangential camera model.
 
 Port of the PINHOLE branch of ``vplines_slam_tpu/models/camera.py``
-(``project``/``lift`` with fixed-iteration Newton undistortion).  The
+(``project``/``lift`` with fixed-iteration Newton undistortion,
+``undistort_rectify_map``).  The
 equidistant, MEI and Scaramuzza models are not ported yet.
 
 Intrinsics are 0-dim tensors and ``dist`` a [5] tensor on the camera's
@@ -32,7 +33,7 @@ class CameraModel(NamedTuple):
 
 
 def pinhole(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, width=752, height=480,
-            dtype=torch.float64, device=None):
+            dtype=torch.float64, device=torch.device("cuda")):
     t = lambda v: torch.tensor(float(v), dtype=dtype, device=device)
     return CameraModel(
         PINHOLE, t(fx), t(fy), t(cx), t(cy),
@@ -97,3 +98,22 @@ def lift(cam: CameraModel, uv):
     d = cam.dist
     xy = _radtan_undistort(torch.stack([mx, my], dim=-1), d[0], d[1], d[2], d[3])
     return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+
+
+def undistort_rectify_map(cam: CameraModel, fx_new=None, fy_new=None, cx_new=None,
+                          cy_new=None):
+    """Remap grid [H, W, 2] from an ideal-pinhole output image into the
+    distorted input (initUndistortRectifyMap parity): for each undistorted
+    output pixel, its source pixel in the raw image.  As in the reference,
+    the normalized grid is f32 (its intrinsics are weakly typed there) and
+    the distortion runs in the dtype of ``dist``."""
+    fx_new = cam.fx if fx_new is None else fx_new
+    fy_new = cam.fy if fy_new is None else fy_new
+    cx_new = cam.cx if cx_new is None else cx_new
+    cy_new = cam.cy if cy_new is None else cy_new
+    dev = cam.fx.device
+    v, u = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=dev),
+                          torch.arange(cam.width, dtype=torch.float32, device=dev),
+                          indexing="ij")
+    X = torch.stack([(u - cx_new) / fx_new, (v - cy_new) / fy_new, torch.ones_like(u)], -1)
+    return project(cam, X.to(cam.dist.dtype))[0]

@@ -49,7 +49,7 @@ class TrackerOutput(NamedTuple):
     track_cnt: torch.Tensor  # [M]
 
 
-def init_state(cfg: TrackerConfig, H, W, dtype=torch.float32, device=None) -> TrackerState:
+def init_state(cfg: TrackerConfig, H, W, dtype=torch.float32, device=torch.device("cuda")) -> TrackerState:
     M = cfg.max_features
     return TrackerState(
         xy=torch.zeros(M, 2, dtype=dtype, device=device),

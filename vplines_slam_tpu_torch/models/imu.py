@@ -33,7 +33,7 @@ class ImuParams(NamedTuple):
     g: torch.Tensor  # gravity in world, e.g. [0, 0, 9.81]
 
 
-def default_params(dtype=torch.float64, device=None):
+def default_params(dtype=torch.float64, device=torch.device("cuda")):
     t = lambda v: torch.tensor(v, dtype=dtype, device=device)
     return ImuParams(
         acc_n=t(0.08), gyr_n=t(0.004), acc_w=t(0.00004), gyr_w=t(2.0e-6),

@@ -1,7 +1,8 @@
 """Batched pyramidal Lucas-Kanade point tracking.
 
 Port of ``vplines_slam_tpu/ops/klt.py`` (``track`` with the translational,
-inverse-compositional ``_track_level``; no gain/bias mode, no affine warp).
+inverse-compositional ``_track_level`` and its per-patch gain/bias mode
+``_gain_bias``, which the line matcher uses; no affine warp, no ``track_1d``).
 
 The JAX version gathers windows with row strips and one-hot matmuls (a TPU
 workaround).  The plain version here gathers directly; kernel K2
@@ -11,7 +12,8 @@ window-anchor clips, Scharr gradients taken on the integer template superset
 (with the superset's wrap-around borders) and then interpolated, ``min_eig``
 divided by ``P*P`` with the ``det > 1e-12`` guard, and the two rounds of
 ``iters // 2`` with one re-anchor, where drift inside a round is clamped to
-the moving window.
+the moving window.  In gain/bias mode every moving patch (and the final
+residual's) is renormalized to the template's mean and population std.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ KLT_TRACK_LEVEL = kernels.Kernel(
     "vp_klt_track_level", "vplines_slam_tpu_torch/csrc/klt.cu",
     "vplines_slam_tpu/ops/klt.py:162",
     [kernels.P, kernels.P, kernels.I, kernels.I, kernels.P, kernels.P,
-     kernels.I, kernels.I, kernels.I, kernels.F, kernels.P, kernels.P, kernels.P],
+     kernels.I, kernels.I, kernels.I, kernels.F, kernels.I, kernels.P, kernels.P, kernels.P],
 )
 
 DRIFT = 5  # in-window drift margin per round (px), D in the reference
@@ -40,6 +42,17 @@ class KLTConfig(NamedTuple):
     iters: int = 10  # fixed iterations per level
     min_eig: float = 1e-6  # spatial-gradient conditioning gate ([0,1] images)
     max_residual: float = 0.08  # mean abs photometric residual gate
+    illum_adapt: bool = False  # per-patch gain/bias (line-matcher KLT mode)
+
+
+def _gain_bias(I, T):
+    """Per-patch gain/bias fit I' = α·I + β matched to the template's mean
+    and population std (getImageNormParams)."""
+    mI = torch.mean(I, dim=(-2, -1), keepdim=True)
+    mT = torch.mean(T, dim=(-2, -1), keepdim=True)
+    sI = torch.std(I, dim=(-2, -1), keepdim=True, correction=0) + 1e-6
+    sT = torch.std(T, dim=(-2, -1), keepdim=True, correction=0) + 1e-6
+    return (I - mI) * (sT / sI) + mT
 
 
 def extract_windows(img, y0, x0, S):
@@ -149,7 +162,8 @@ def _track_level_plain(img0, img1, pts0, guess, cfg: KLTConfig):
     for n_it in rounds:
         M_ss, m0x, m0y = make_window(d)
         for _ in range(n_it):
-            rr = extract_moving(M_ss, m0x, m0y, d) - T
+            I = extract_moving(M_ss, m0x, m0y, d)
+            rr = (_gain_bias(I, T) if cfg.illum_adapt else I) - T
             g0 = torch.sum(rr * Ix, dim=(1, 2))
             g1 = torch.sum(rr * Iy, dim=(1, 2))
             step = torch.stack([i00 * g0 + i01 * g1, i01 * g0 + i11 * g1], -1)
@@ -157,6 +171,8 @@ def _track_level_plain(img0, img1, pts0, guess, cfg: KLTConfig):
 
     M_ss, m0x, m0y = make_window(d)
     I = extract_moving(M_ss, m0x, m0y, d)
+    if cfg.illum_adapt:
+        I = _gain_bias(I, T)
     resid = torch.mean(torch.abs(I - T), dim=(1, 2))
     return d, ok, resid
 
@@ -182,7 +198,7 @@ def _track_level(img0, img1, pts0, guess, cfg: KLTConfig):
         kernels.check(img0, "img0", ndim=2), kernels.check(img1, "img1", shape=(H, W)),
         H, W, kernels.check(pts0, "pts0", shape=(N, 2)),
         kernels.check(guess, "guess", shape=(N, 2)),
-        N, P, cfg.iters, float(cfg.min_eig),
+        N, P, cfg.iters, float(cfg.min_eig), int(cfg.illum_adapt),
         kernels.check(flow, "flow"), kernels.check(ok, "ok", torch.uint8),
         kernels.check(resid, "resid"),
     )

@@ -1,7 +1,7 @@
 """Sliding-window marginalization as a square-root prior.
 
 Port of ``vplines_slam_tpu/solver/marginalization.py`` (``Prior``,
-``marginalize_window`` for the points-only arrow structure,
+``marginalize_window`` for the window's arrow structure,
 ``project_out_nullspace``, ``prior_residual``, ``shift_prior``).  The
 Schur/eigen-clipping math runs in f64 (see ``lm._solve_dtype``).
 
@@ -25,7 +25,7 @@ class Prior(NamedTuple):
     valid: torch.Tensor  # [] bool
 
 
-def empty_prior(n, dtype=torch.float64, device=None):
+def empty_prior(n, dtype=torch.float64, device=torch.device("cuda")):
     return Prior(
         J=torch.zeros(n, n, dtype=dtype, device=device),
         r0=torch.zeros(n, dtype=dtype, device=device),
@@ -50,13 +50,16 @@ def _col_scale(J, floor=1e-30):
     return torch.where(d > floor, torch.sqrt(torch.clamp(d, min=floor)), torch.ones_like(d))
 
 
-def marginalize_window(J, r, nd, dense_start, dense_size, n_points=0, eps=None):
+def marginalize_window(J, r, nd, dense_start, dense_size, n_points=0, n_lines=0,
+                       eps=None):
     """Exact marginalization for the window's arrow structure: [0:nd] dense
-    states (the block [dense_start, +dense_size) is dropped) and
-    [nd : nd+n_points] point inverse depths (all dropped).  Stage 1 removes
-    the scalar point blocks with a clipped diagonal inverse, stage 2 the
-    dropped dense block with eigh(dense_size), stage 3 takes the √ of the
-    kept block with eigh(keep).  Returns (J_prior [N, N], r_prior [N])."""
+    states (the block [dense_start, +dense_size) is dropped),
+    [nd : nd+n_points] point inverse depths and [+4·n_lines] line orth
+    coords (all dropped).  Stage 1 removes the scalar point blocks with a
+    clipped diagonal inverse and the 4x4 line blocks with per-block clipped
+    eigh inverses, stage 2 the dropped dense block with eigh(dense_size),
+    stage 3 takes the √ of the kept block with eigh(keep).  Returns
+    (J_prior [N, N], r_prior [N])."""
     from .lm import _solve_dtype
 
     out_dtype = J.dtype
@@ -82,6 +85,17 @@ def marginalize_window(J, r, nd, dense_start, dense_size, n_points=0, eps=None):
         dpi = torch.where(keep_p, 1.0 / torch.clamp(dp, min=1e-30), torch.zeros_like(dp))
         H1 = H1 - (Cp * dpi[None, :]) @ Cp.T
         b1 = b1 - Cp @ (dpi * b[p0:p0 + n_points])
+    if n_lines:
+        q0, L = nd + n_points, n_lines
+        Cl = H[:nd, q0:q0 + 4 * L].reshape(nd, L, 4)
+        blk = H[q0:q0 + 4 * L, q0:q0 + 4 * L].reshape(L, 4, L, 4)
+        ar = torch.arange(L, device=dev)
+        wl, Vl = torch.linalg.eigh(blk[ar, :, ar, :])  # [L, 4, 4] diagonal blocks
+        keep_l = _clip_gate(wl, eps)
+        wli = torch.where(keep_l, 1.0 / torch.clamp(wl, min=1e-30), torch.zeros_like(wl))
+        Dli = torch.einsum("lab,lb,lcb->lac", Vl, wli, Vl)
+        H1 = H1 - torch.einsum("nla,lab,mlb->nm", Cl, Dli, Cl)
+        b1 = b1 - torch.einsum("nla,lab,lb->n", Cl, Dli, b[q0:q0 + 4 * L].reshape(L, 4))
 
     midx = torch.arange(dense_start, dense_start + dense_size, device=dev)
     kidx = torch.cat([torch.arange(0, dense_start, device=dev),

@@ -6,7 +6,8 @@ Port of the parts of ``vplines_slam_tpu/utils/demo.py`` a smoke run needs
 ``truth_seeded_start``: the steady-state loop needs an initialized window,
 and the initializer (``estimator/initializer.py``) is not ported yet.  In
 its place the warm-up puts the first frames' states at truth and fills the
-window with the port's OWN tracker on rendered frames (the reference's
+window with the port's OWN trackers (points, and lines when asked) on
+rendered frames (the reference's
 ``synthetic_window`` used projections instead).
 """
 
@@ -19,11 +20,13 @@ from ..estimator import window as win_mod
 from ..estimator.slide import _set_row, ingest_frame, set_imu_interval
 from ..models import camera as cam_mod
 from ..models import feature_tracker as ft_mod
+from ..models import line_tracker as lt_mod
+from ..ops.image import build_remap_plan, remap_static
 from . import geometry as geo
 from . import synthetic as syn
 
 
-def forward_camera_extrinsic(dtype=torch.float64, device=None):
+def forward_camera_extrinsic(dtype=torch.float64, device=torch.device("cuda")):
     """Body <- camera extrinsic of a forward-looking camera (q_ic, p_ic)."""
     R_BC = torch.tensor([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]],
                         dtype=dtype, device=device)
@@ -38,8 +41,9 @@ class BlobWorldRenderer:
 
     def __init__(self, cam, q_ic, p_ic, n_pts=700, seed=4,
                  box=((-4, 4), (-4, 4), (-1, 2.5)), dtype=torch.float32,
-                 device=None, wall_radius=8.0, floor_z=-1.4, ceil_z=3.2,
-                 tex_octaves=14, blob_chunk=64):
+                 device=torch.device("cuda"), wall_radius=8.0, floor_z=-1.4, ceil_z=3.2,
+                 tex_octaves=14, blob_chunk=64, tex_gain=3.0, grid_band=0.04,
+                 grid_dark=0.3):
         self.cam = cam
         self.H, self.W = int(cam.height), int(cam.width)
         self.dtype, self.device = dtype, device
@@ -60,7 +64,7 @@ class BlobWorldRenderer:
         rc = np.sqrt(rng.uniform(0.05, 1.0, n_ceil)) * (wall_radius - 0.3)
         Xc_ = np.stack([rc * np.cos(phc), rc * np.sin(phc),
                         np.full(n_ceil, ceil_z - 0.05)], 1)
-        Xi = syn.scatter_landmarks(n_int, seed=seed, box=box).numpy()
+        Xi = syn.scatter_landmarks(n_int, seed=seed, box=box, device="cpu").numpy()
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         self.X = t(np.concatenate([Xw, Xf, Xc_, Xi], 0))
         self.brightness = t(rng.uniform(0.35, 0.9, n_pts))
@@ -71,6 +75,9 @@ class BlobWorldRenderer:
         self.tex_ph = t(rng.uniform(0, 2 * np.pi, tex_octaves))
         self.tex_a = t(rng.uniform(0.5, 1.0, tex_octaves) / np.sqrt(np.arange(1, tex_octaves + 1)))
         self.blob_chunk = blob_chunk
+        # texture contrast, and the room's grid (straight 3D lines on floor,
+        # ceiling and the wall's verticals): band half-width (m) and darkening
+        self.tex_gain, self.grid_band, self.grid_dark = tex_gain, grid_band, grid_dark
         self.cam_r = cam_mod.CameraModel(*[
             v.to(dtype=dtype, device=device) if isinstance(v, torch.Tensor) else v
             for v in cam])
@@ -79,10 +86,10 @@ class BlobWorldRenderer:
         s = torch.einsum("k,hwk->hw", self.tex_a, torch.cos(
             u[..., None] * self.tex_f[:, 0] + v[..., None] * self.tex_f[:, 1]
             + self.tex_ph + sel * 2.1))
-        t = 0.5 + 0.5 * torch.tanh(s * 3.0)
-        gu = torch.abs(torch.remainder(u, 1.5) - 0.75) > 0.71
-        gv = torch.abs(torch.remainder(v, 1.5) - 0.75) > 0.71
-        return t * torch.where(gu | gv, 0.3, 1.0)
+        t = 0.5 + 0.5 * torch.tanh(s * self.tex_gain)
+        gu = torch.abs(torch.remainder(u, 1.5) - 0.75) > 0.75 - self.grid_band
+        gv = torch.abs(torch.remainder(v, 1.5) - 0.75) > 0.75 - self.grid_band
+        return t * torch.where(gu | gv, self.grid_dark, 1.0)
 
     @torch.no_grad()
     def render(self, q_wb, p_wb):
@@ -158,8 +165,10 @@ def imu_batches(accs, gyrs, imu_dt, steps_per_frame, n_frames, max_imu):
 
 def truth_seeded_start(cam, tracker_cfg: ft_mod.TrackerConfig, cfg: win_mod.WindowConfig,
                        params, q_ic, p_ic, truth, imgs, batches, frame_times,
-                       frame_dt, ransac_idx):
-    """Initialized (fe_state, state, data) after the first NF-1 frames.
+                       frame_dt, ransac_idx, line_cfg=None, map_xy=None, vp_u=None):
+    """Initialized (fe_state, state, data) after the first NF-1 frames, or
+    (fe_state, state, data, ln_state) with the line front-end (line_cfg,
+    map_xy and the VP draws vp_u [NF-1, n_pairs, 2] given).
 
     truth = (p, q, v) [NF, ...] states at the first NF frame times; imgs
     [NF-1, H, W]; batches = IMU batches of the intervals ending at frames
@@ -174,13 +183,25 @@ def truth_seeded_start(cam, tracker_cfg: ft_mod.TrackerConfig, cfg: win_mod.Wind
         p=truth[0], q=truth[1], v=truth[2], q_ic=q_ic, p_ic=p_ic)
     data = win_mod.empty_tracks(cfg, dtype, dev)
     fe = ft_mod.init_state(tracker_cfg, cam.height, cam.width, imgs.dtype, dev)
+    if line_cfg is not None:
+        ln = lt_mod.init_state(line_cfg, cam.height, cam.width, imgs.dtype, dev)
+        plan = build_remap_plan(map_xy, dtype=imgs.dtype, device=dev)
+        ideal = cam_mod.pinhole(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+                                width=cam.width, height=cam.height, dtype=cam.fx.dtype,
+                                device=dev)
     for k in range(nf - 1):
         fe, feats = ft_mod.step(fe, imgs[k], cam, tracker_cfg, frame_dt, ransac_idx[k])
-        data = ingest_frame(data, cfg, k, feats.ids, feats.rays.to(dtype))
+        ln_args = ()
+        if line_cfg is not None:
+            ln, lout = lt_mod.step(ln, remap_static(imgs[k], plan), ideal, line_cfg, vp_u[k])
+            ln_args = (lout.ids, lout.endpoints, lout.vp_dirs, lout.vp_valid)
+        data = ingest_frame(data, cfg, k, feats.ids, feats.rays.to(dtype), *ln_args)
         data = data._replace(frame_t=_set_row(
             data.frame_t, k, torch.tensor(float(frame_times[k]), dtype=dtype, device=dev)))
         if k > 0:
             b = [x[k - 1] for x in batches]
             data = set_imu_interval(data, k - 1, b[0], b[1], b[2], b[3], params=params)
     data = win_mod.triangulate_points(state, data, cfg)
-    return fe, state, data
+    if line_cfg is None:
+        return fe, state, data
+    return fe, state, data, ln

@@ -63,8 +63,10 @@ def quat_rotate(q, v):
 
 
 def quat_to_rot(q):
-    """Unit quaternion -> rotation matrix."""
-    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    """Unit quaternion -> rotation matrix.  The components keep a trailing
+    axis: forward-mode AD of a 0-dim f32 tensor times a Python float gives a
+    f64 tangent, which a single quaternion [4] would otherwise hit."""
+    w, x, y, z = q[..., 0:1], q[..., 1:2], q[..., 2:3], q[..., 3:4]
     r00 = 1 - 2.0 * (y * y + z * z)
     r01 = 2.0 * (x * y - w * z)
     r02 = 2.0 * (x * z + w * y)
@@ -76,9 +78,9 @@ def quat_to_rot(q):
     r22 = 1 - 2.0 * (x * x + y * y)
     return torch.stack(
         [
-            torch.stack([r00, r01, r02], dim=-1),
-            torch.stack([r10, r11, r12], dim=-1),
-            torch.stack([r20, r21, r22], dim=-1),
+            torch.cat([r00, r01, r02], dim=-1),
+            torch.cat([r10, r11, r12], dim=-1),
+            torch.cat([r20, r21, r22], dim=-1),
         ],
         dim=-2,
     )

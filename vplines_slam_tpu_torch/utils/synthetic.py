@@ -83,7 +83,7 @@ def ground_truth_states(traj: Trajectory, times):
 
 
 def scatter_landmarks(n, seed=0, box=((-6.0, 6.0), (-6.0, 6.0), (-1.5, 3.5)),
-                      dtype=torch.float64, device=None):
+                      dtype=torch.float64, device=torch.device("cuda")):
     """Random 3D points in a box (numpy generator: the same points as the
     reference for the same seed)."""
     rng = np.random.default_rng(seed)
