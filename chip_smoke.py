@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--kernels-only] [--prof
 
 Phases (any failure exits nonzero; there is no CPU path):
   1. toolchain: torch/CUDA versions, nvcc, triton, the card's name and power limit;
-  2. build: compiles csrc/*.cu with nvcc into one library (timed);
+  2. build: compiles csrc/*.cu with nvcc (one process per source, in
+     parallel) into one library (timed);
   3. kernels: each CUDA kernel against its plain PyTorch twin on the card, at
      the main paths' shapes, with the tolerance stated, the wrapper's and the
      plain version's time per call (CUDA events), the kernel's device time
@@ -25,12 +26,28 @@ Phases (any failure exits nonzero; there is no CPU path):
      from where the figure-8 runs sideways to the camera; truth-seeded
      warm-up with both trackers, then 24 frames with every kernel's launch
      count read around that run; asserts as phase 4, plus solved lines > 0.
-     Phase 3 checks the line kernels on these frames.
+     Phase 3 checks the line kernels on these frames.  Phases 4-5 keep CLAHE
+     off; IMU preintegration (K10) runs in both;
+  6. cold start: ``SlamSystem`` built from configs/euroc.yaml's values,
+     written out here (camera, IMU noise, extrinsic, estimator, frontend and
+     line_frontend with CLAHE on; the profile's loop closure is cut), fed
+     200 Hz IMU and 752x480 rendered frames at EuRoC-epoch stamps from t = 0
+     of the figure-8 in phase 5's world, the body mounted as EuRoC's:
+     window fill, the visual-inertial initializer (it must succeed within
+     N_INIT_MAX frames), then N_TRACK tracked frames, with every kernel's
+     launch count read around the run; prints the init frame and the
+     initializing call's wall time, ms/frame, the CUDA-event split (front
+     ends, the two clahe calls, the VIO step and its preintegrate), host
+     syncs and solved lines; asserts no reboot (failure flag), finite
+     outputs and aligned ATE < 0.25 m.  Its launch counts go to the kernels
+     JSON.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
-  each slice's extra frames (device busy share, launches per frame, top ops).
-  Every profiler session (those and the kernels' device times) runs after
-  the slices: once the profiler has run, each later launch of the process
-  costs more.
+  4 extra frames of phases 4-6 (device busy share, launches per frame, top
+  ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
+  with a CPU run's random draws and with other draw seeds, and logs each
+  run's ATE.  Every profiler session (those and the kernels' device times) runs
+  after phase 6: once the profiler has run, each later launch of the
+  process costs more.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +55,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import shutil
@@ -221,7 +239,8 @@ def stage(dev, n_frames, world=None, t0=0.0):
     # it; its estimator block is WindowConfig's defaults (128 points, 32
     # lines, line factor 1500, VP factor 10, line_min_obs 5)
     lcfg = lt_mod.LineTrackerConfig(max_lines=64, max_h=25, max_v=25,
-                                    detect=LineDetectConfig(min_len=35.0, fit_err=1.8))
+                                    detect=LineDetectConfig(min_len=35.0, fit_err=1.8),
+                                    equalize=False)
     vp_u = torch.rand(n_frames, lcfg.vp.n_pairs, 2, generator=gen, device=dev)
     map_xy = cam_mod.undistort_rectify_map(cam)
     ideal = cam_mod.pinhole(461.6, 460.3, 363.0, 248.1, width=W, height=H, dtype=f32, device=dev)
@@ -529,7 +548,106 @@ def phase_kernels(S, SL):
            4 * (vcfg.grid_la * vcfg.grid_lo + 9 * P8 + 2 * vcfg.n_sweep + 3 * Lg + 10) + Lg * 5,
            P8 * vcfg.n_sweep * 3 * 45 + Lg * 3 * 30)
 
+    # K9 clahe: the raw frame (point tracker) and the undistorted one (line
+    # tracker), 8x8 tiles of 60x94 px, 32 bins, clip 3.0
+    tiles, bins, clip = 8, 32, 3.0
+    th, tw = H // tiles, W // tiles
+    lut_err, out_err = 0.0, 0.0
+    for im in (img0, u0.contiguous()):
+        lk = torch.empty(tiles, tiles, bins, device=im.device)
+        image.CLAHE_LUT(kmod.check(im, "img"), W, tiles, th, tw, bins, clip * th * tw / bins,
+                        kmod.check(lk, "luts"))
+        lp = image.clahe_luts_plain(im, clip, tiles, bins)
+        lut_err = max(lut_err, float((lk - lp).abs().max()))
+        out_err = max(out_err, float((image.clahe(im) - image.clahe_plain(im)).abs().max()))
+    log(f"K9 clahe_lut: max |kernel - plain| = {lut_err:.3e} (tol 1e-6: exact counts; the "
+        f"scan adds in another order); clahe_apply (whole clahe): max |kernel - plain| = "
+        f"{out_err:.3e} (tol 1e-6, images in [0, 1])")
+    if not (lut_err <= 1e-6 and out_err <= 1e-6):
+        fail("K9 clahe disagrees with its plain version")
+    luts9 = image.clahe_luts_plain(img0, clip, tiles, bins).contiguous()
+    out9 = torch.empty_like(img0)
+
+    def k9_lut():
+        lk = torch.empty(tiles, tiles, bins, device=img0.device)
+        image.CLAHE_LUT(kmod.check(img0, "img"), W, tiles, th, tw, bins,
+                        clip * th * tw / bins, kmod.check(lk, "luts"))
+
+    def k9_apply():
+        image.CLAHE_APPLY(kmod.check(img0, "img"), kmod.check(luts9, "luts"), H, W, tiles, th,
+                          tw, bins, kmod.check(out9, "out"))
+
+    # no PyTorch call computes CLAHE (nor its tile histograms + CDFs): no library time
+    record(rec, "clahe_lut", lut_err, k9_lut,
+           lambda: image.clahe_luts_plain(img0, clip, tiles, bins), "clahe_lut_kernel",
+           4 * th * tw * tiles * tiles + 4 * tiles * tiles * bins, 4 * th * tw * tiles * tiles)
+    record(rec, "clahe_apply", out_err, k9_apply, lambda: image.clahe_apply_plain(img0, luts9),
+           "clahe_apply_kernel", 4 * 2 * n_px + 4 * tiles * tiles * bins, 40 * n_px)
+
+    # K10 preintegrate: one interval of 64 steps (every frame), the merged
+    # interval of 128 (non-keyframes) and the 9 intervals of the initializer
+    from vplines_slam_tpu_torch.models import imu
+
+    dts_b, acc_b, gyr_b, m_b, _ = S["batches"]
+    params = S["params"]
+    nb = 9
+    cases = {
+        "B=1 N=64": (dts_b[:1], acc_b[:1], gyr_b[:1], m_b[:1]),
+        "B=1 N=128": (torch.cat([dts_b[0], dts_b[1]])[None],
+                      torch.cat([acc_b[0, :-1], acc_b[1]])[None],
+                      torch.cat([gyr_b[0, :-1], gyr_b[1]])[None],
+                      torch.cat([m_b[0], m_b[1]])[None]),
+        f"B={nb} N=64": (dts_b[:nb], acc_b[:nb], gyr_b[:nb], m_b[:nb]),
+    }
+    gen = torch.Generator(device=img0.device).manual_seed(SEED + 1)
+    err10 = 0.0
+    for label, (d, a, g, m) in cases.items():
+        B = d.shape[0]
+        bias = lambda s: s * torch.randn(B, 3, generator=gen, device=d.device)
+        ba, bg = bias(0.05), bias(0.01)
+        pk = imu.preintegrate(d, a, g, m, ba, bg, params)
+        pp = imu.preintegrate_plain(d, a, g, m, ba, bg, params)
+        errs = {f: float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for f, x, y in zip(pk._fields, pk, pp)}
+        worst = max(errs, key=errs.get)
+        err10 = max(err10, errs[worst])
+        log(f"K10 preintegrate {label}: max |kernel - plain| / max |plain| per field "
+            f"{errs[worst]:.3e} ({worst}; tol 1e-5: f32 sums in another order)")
+    if not err10 <= 1e-5:
+        fail("K10 preintegrate disagrees with its plain version")
+    d1, a1, g1, m1 = cases["B=1 N=64"]
+    z1 = torch.zeros(1, 3, device=d1.device)
+    n10 = d1.shape[1]
+    record(rec, "preintegrate", err10, lambda: imu.preintegrate(d1, a1, g1, m1, z1, z1, params),
+           lambda: imu.preintegrate_plain(d1, a1, g1, m1, z1, z1, params),
+           "preintegrate_kernel",
+           4 * (n10 + 2 * (n10 + 1) * 3 + 6 + 4 + 10 + 2 * 225 + 1) + n10,
+           n10 * preintegrate_step_ops())
     return rec
+
+
+def preintegrate_step_ops():
+    """The least operations of one preintegration step: ``F·J``, ``F·P·Fᵀ``
+    and ``V·Q·Vᵀ`` over the non-zero entries of F [15, 15] and V [15, 18]
+    only (an entry of an identity block adds without a multiply, Q is
+    diagonal, and P's update is symmetric, so only its upper triangle is
+    formed after ``F·P``), plus ~420 for the state update, the rotations and
+    the scaled blocks of F and V."""
+    blocks = {"Z": np.zeros((3, 3), int), "I": np.eye(3, dtype=int),
+              "S": 2 * np.eye(3, dtype=int), "D": np.full((3, 3), 2)}
+    pattern = lambda rows: np.block([[blocks[b] for b in row] for row in rows])
+    F = pattern(["IDSDD", "ZDZZS", "ZDIDD", "ZZZIZ", "ZZZZI"])  # 0 zero, 1 one, 2 other
+    V = pattern(["DDDDZZ", "ZSZSZZ", "DDDDZZ", "ZZZZSZ", "ZZZZZS"])
+    # ops of one output entry of (F row) times a dense column: its multiplies
+    # plus the adds that join its terms
+    row_ops = [int((f == 2).sum() + max((f > 0).sum() - 1, 0)) for f in F]
+    upper = [(i, j) for i in range(15) for j in range(i, 15)]
+    fx = 15 * sum(row_ops)  # F times a dense 15 x 15: F·J and F·P alike
+    fpf = sum(row_ops[j] for _, j in upper)  # (F·P)·Fᵀ, upper triangle
+    vq = int((V > 0).sum())  # V·Q, Q diagonal
+    common = lambda i, j: int(((V[i] > 0) & (V[j] > 0)).sum())
+    vqv = sum(2 * common(i, j) - 1 for i, j in upper if common(i, j))
+    return 2 * fx + fpf + vq + vqv + len(upper) + 420
 
 
 # ---------------------------------------------------------------------------
@@ -565,24 +683,30 @@ def phase_slice(S):
             torch.full((N_STEADY,), 1.0 / FRAME_HZ, device=S["imgs"].device),
             S["ridx"][sl])
 
-    kernels = all_kernels()[:5]  # the point front-end's (K1-K4)
+    from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
+
+    from vplines_slam_tpu_torch.utils.stats import SPANS
+
+    kernels = all_kernels()[:5] + [PREINTEGRATE]  # the point front-end's (K1-K4) + K10
     for k in all_kernels():
         k.launches = 0
-    events = []
     torch.cuda.synchronize()
+    SPANS.start()
     t0 = time.perf_counter()
-    carry, outs = loop.run(carry, *args, stage_events=events)
+    carry, outs = loop.run(carry, *args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    SPANS.stop()
     launches = {k.name: k.launches for k in kernels}
     log(f"launches during the run: {launches}")
-    unexpected = {k.name: k.launches for k in all_kernels()[5:] if k.launches}
+    unexpected = {k.name: k.launches for k in all_kernels() if k not in kernels and k.launches}
     if unexpected:
-        fail(f"the points-only path launched line kernels: {unexpected}")
+        fail(f"the points-only path (CLAHE off) launched other kernels: {unexpected}")
 
     p, q, v, is_kf, failure, cost = (o.cpu() for o in outs)
-    fe_ms = np.array([e[0].elapsed_time(e[1]) for e in events])
-    be_ms = np.array([e[1].elapsed_time(e[2]) for e in events])
+    per = SPANS.per_frame_ms()
+    fe_ms = np.array([d["frontend"] for d in per])
+    be_ms = np.array([d["track_step"] for d in per])
     # the first frames pay one-time costs (cuSOLVER/cuBLAS handles, caching
     # allocator growth); the steady figures skip them
     st = slice(4, None)
@@ -630,7 +754,7 @@ def phase_slice(S):
     return launches, dict(ms_frame=ms_frame, fe_ms=float(np.median(fe_ms[st])),
                           be_ms=float(np.median(be_ms[st])), ate=ate,
                           syncs=len(syncs) / N_SYNC), (
-        loop, carry, extra, np.median(fe_ms[st] + be_ms[st]))
+        lambda: loop.run(carry, *extra), N_SYNC, np.median(fe_ms[st] + be_ms[st]))
 
 
 def phase_lines(S):
@@ -664,15 +788,20 @@ def phase_lines(S):
     args = (S["imgs"][sl], tuple(b[s0 - 1: s1 - 1] for b in S["batches"]), dts(n),
             S["ridx"][sl], S["vp_u"][sl])
 
-    kernels = all_kernels()
-    for k in kernels:
+    from vplines_slam_tpu_torch.ops.image import CLAHE_APPLY, CLAHE_LUT
+
+    from vplines_slam_tpu_torch.utils.stats import SPANS
+
+    kernels = [k for k in all_kernels() if k not in (CLAHE_LUT, CLAHE_APPLY)]  # CLAHE off
+    for k in all_kernels():
         k.launches = 0
-    events = []
     torch.cuda.synchronize()
+    SPANS.start()
     t0 = time.perf_counter()
-    carry, outs = loop.run(carry, *args, stage_events=events)
+    carry, outs = loop.run(carry, *args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    SPANS.stop()
     launches = {k.name: k.launches for k in kernels}
     log(f"launches during the lines run: {launches}")
     data = carry[3]
@@ -680,9 +809,9 @@ def phase_lines(S):
     vp_live = int((data.ln_vp_mask & (data.ln_solved & (data.ln_id >= 0))[:, None]).sum())
 
     p, q, v, is_kf, failure, cost = (o.cpu() for o in outs)
-    fe_ms = np.array([e[0].elapsed_time(e[1]) for e in events])
-    ln_ms = np.array([e[1].elapsed_time(e[2]) for e in events])
-    be_ms = np.array([e[2].elapsed_time(e[3]) for e in events])
+    per = SPANS.per_frame_ms()
+    fe_ms, ln_ms, be_ms = (np.array([d[k] for d in per])
+                           for k in ("frontend", "line_frontend", "track_step"))
     st = slice(4, None)
     ms_frame = 1e3 * wall / n
     log(f"lines slice: {n} frames in {wall:.3f} s -> {ms_frame:.2f} ms/frame, "
@@ -729,11 +858,331 @@ def phase_lines(S):
     return launches, dict(ms_frame=ms_frame, fe_ms=float(np.median(fe_ms[st])),
                           ln_ms=float(np.median(ln_ms[st])), be_ms=float(np.median(be_ms[st])),
                           ate=ate, syncs=len(syncs) / N_SYNC, solved=solved, vp_live=vp_live), (
-        loop, carry, extra, np.median(fe_ms[st] + ln_ms[st] + be_ms[st]))
+        lambda: loop.run(carry, *extra), N_SYNC, np.median(fe_ms[st] + ln_ms[st] + be_ms[st]))
 
 
-def phase_profile(loop, carry, extra, frame_ms):
-    """torch.profiler over the extra frames (run once already, so warm).
+# ---------------------------------------------------------------------------
+# phase 6: cold start through SlamSystem on the EuRoC profile's values
+# ---------------------------------------------------------------------------
+
+EUROC_T0 = 1403636579.763555  # s: a MH_01 stamp, so the stamps are EuRoC-epoch
+N_INIT_MAX = 16  # frames by which the VIO must have initialized
+N_TRACK = 20  # tracked frames after the initializing one
+# configs/euroc.yaml, written out (PyYAML is not a dependency of this script)
+EUROC_R_BC = ((0.0148655429818, -0.999880929698, 0.00414029679422),
+              (0.999557249008, 0.0149672133247, 0.025715529948),
+              (-0.0257744366974, 0.00375618835797, 0.999660727178))
+EUROC_P_BC = (-0.0216401454975, -0.064676986768, 0.00981073058949)
+
+
+def stage_cold(dev, n_frames, world=None):
+    """The EuRoC profile's system and a cold-start stream: 200 Hz IMU samples
+    (host numpy) and 10 Hz rendered frames from t = 0 of the figure-8.  The
+    body frame is mounted as EuRoC's (x up, z forward): the figure-8 attitude
+    composed with the fixed rotation that points the EuRoC camera where the
+    renderer's forward camera looks."""
+    import torch
+
+    from vplines_slam_tpu_torch.estimator.window import WindowConfig
+    from vplines_slam_tpu_torch.models import camera as cam_mod
+    from vplines_slam_tpu_torch.models import feature_tracker as ft_mod
+    from vplines_slam_tpu_torch.models import imu as imu_mod
+    from vplines_slam_tpu_torch.models import line_tracker as lt_mod
+    from vplines_slam_tpu_torch.ops.lines import LineDetectConfig
+    from vplines_slam_tpu_torch.utils import demo
+    from vplines_slam_tpu_torch.utils import geometry as geo
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
+    f32, f64 = torch.float32, torch.float64
+    cam = cam_mod.pinhole(461.6, 460.3, 363.0, 248.1, -2.917e-01, 8.228e-02,
+                          5.333e-05, -1.578e-04, width=W, height=H, dtype=f32, device=dev)
+    R_bc = torch.tensor(EUROC_R_BC, dtype=f64, device=dev)
+    q_ic, p_ic = geo.rot_to_quat(R_bc), torch.tensor(EUROC_P_BC, dtype=f64, device=dev)
+    q_fwd, _ = demo.forward_camera_extrinsic(f64, dev)
+    q_fix = geo.rot_to_quat(geo.quat_to_rot(q_fwd) @ R_bc.T)
+    fig8 = syn.figure8_trajectory(radius=1.2, ypr_amp=(12.0, 5.0, 4.0))
+    traj = syn.Trajectory(pos=fig8.pos, quat=lambda t: geo.quat_mul(fig8.quat(t), q_fix))
+    r = IMU_HZ // FRAME_HZ
+    imu_rel = torch.arange((n_frames - 1) * r + 1, dtype=f64, device=dev) / IMU_HZ
+    accs, gyrs = syn.imu_samples(traj, imu_rel)
+    frame_rel = imu_rel[::r]
+    p_gt, q_gt, v_gt = syn.ground_truth_states(traj, frame_rel)
+    rend = demo.BlobWorldRenderer(cam, q_ic.to(f32), p_ic.to(f32), n_pts=700, seed=4,
+                                  dtype=f32, device=dev, **(world or {}))
+    imgs = torch.stack([rend.render(q_gt[k], p_gt[k]) for k in range(n_frames)])
+    imu_t = EUROC_T0 + imu_rel.cpu().numpy()
+    return dict(
+        cam=cam, q_ic=q_ic.to(f32), p_ic=p_ic.to(f32), imgs=imgs, p_gt=p_gt.cpu().numpy(),
+        v_gt=v_gt.cpu().numpy(),
+        imu_t=imu_t, frame_t=imu_t[::r], accs=accs.cpu().numpy(), gyrs=gyrs.cpu().numpy(),
+        params=imu_mod.default_params(f32, dev),  # configs/euroc.yaml imu block
+        # configs/euroc.yaml estimator block (WindowConfig's defaults)
+        wcfg=WindowConfig(max_points=128, max_lines=32, max_imu=64, min_parallax=10.0 / 460.0,
+                          ba_iters=8, line_sqrt_info=1500.0, vp_sqrt_info=10.0,
+                          line_min_obs=5),
+        # frontend block: max_cnt 150, min_dist 30, F_threshold 1.0, CLAHE on
+        tcfg=ft_mod.TrackerConfig(max_features=150, min_dist=30, f_threshold=1.0,
+                                  equalize=True),
+        # line_frontend block: 64 lines, h/v caps 25/25, min length 35, fit
+        # error 1.8, VPs on (the fast preset), CLAHE on
+        lcfg=lt_mod.LineTrackerConfig(max_lines=64, max_h=25, max_v=25,
+                                      detect=LineDetectConfig(min_len=35.0, fit_err=1.8),
+                                      equalize=True, use_vp=True),
+    )
+
+
+def use_draws(sysm, gen_device, seed):
+    """Give the system's three random draws (the point tracker's RANSAC
+    samples, the line tracker's VP pair uniforms, the initializer's SfM
+    samples) generators on gen_device seeded with seed; the draws move to
+    the system's device.  With the CPU and seed 0 they are a CPU run's."""
+    import types
+
+    import torch
+
+    for obj, name in ((sysm.frontend, "ransac_draws"), (sysm.line_frontend, "vp_draws"),
+                      (sysm.vio, "sfm_draws")):
+        shim = types.SimpleNamespace(cfg=obj.cfg, device=torch.device(gen_device),
+                                     _gen=torch.Generator(device=gen_device).manual_seed(seed))
+        draw = getattr(type(obj), name)
+        setattr(obj, name, lambda draw=draw, shim=shim: draw(shim).to(sysm.device))
+
+
+@contextlib.contextmanager
+def plain_twins_of_k9_k10():
+    """Run CLAHE and preintegration through their plain twins, on the card."""
+    from vplines_slam_tpu_torch.models import feature_tracker as ft_mod
+    from vplines_slam_tpu_torch.models import imu as imu_mod
+    from vplines_slam_tpu_torch.models import line_tracker as lt_mod
+    from vplines_slam_tpu_torch.ops import image
+
+    def pre_plain(dts, accs, gyrs, mask, ba, bg, params):
+        if dts.dim() == 1:
+            return imu_mod.Preintegration(*(x[0] for x in imu_mod.preintegrate_plain(
+                *(x[None] for x in (dts, accs, gyrs, mask, ba, bg)), params)))
+        return imu_mod.preintegrate_plain(dts, accs, gyrs, mask, ba, bg, params)
+
+    saved = ft_mod.clahe, lt_mod.clahe, imu_mod.preintegrate
+    ft_mod.clahe = lt_mod.clahe = image.clahe_plain
+    imu_mod.preintegrate = pre_plain
+    try:
+        yield
+    finally:
+        ft_mod.clahe, lt_mod.clahe, imu_mod.preintegrate = saved
+
+
+def phase_cold_start(C, profile=False, draws=None, plain=False):
+    """Phase 6: SlamSystem from a cold start (loop closure cut), fill ->
+    initializer -> tracking, with every kernel's launches counted over the
+    run.  Works on CPU tensors too (a rehearsal: no events, no sync count).
+    The witness runs of --cold-witness pass draws=(generator device, seed)
+    for ``use_draws``, or plain=True for ``plain_twins_of_k9_k10``."""
+    if plain:
+        with plain_twins_of_k9_k10():
+            return _cold_start(C, profile, draws, plain)
+    return _cold_start(C, profile, draws, plain)
+
+
+def _cold_start(C, profile, draws, plain):
+    import torch
+
+    from vplines_slam_tpu_torch.kernels import all_kernels
+    from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
+    from vplines_slam_tpu_torch.native import available as native_available
+    from vplines_slam_tpu_torch.ops.image import CLAHE_APPLY, CLAHE_LUT
+    from vplines_slam_tpu_torch.pipeline.system import SlamSystem
+    from vplines_slam_tpu_torch.utils.evaluation import ate_rmse, umeyama_alignment
+    from vplines_slam_tpu_torch.utils.stats import SPANS
+
+    on_card = C["imgs"].is_cuda
+    dev = C["imgs"].device
+    sysm = SlamSystem(C["cam"], C["wcfg"], C["tcfg"], C["lcfg"], imu_params=C["params"],
+                      q_ic=C["q_ic"], p_ic=C["p_ic"], use_loop_closure=False,
+                      dtype=torch.float32, device=dev)
+    if draws is not None:
+        use_draws(sysm, *draws)
+    log(f"cold start: SlamSystem on the EuRoC profile's values (loop closure cut), native "
+        f"IMU synchronizer: {native_available()}, stamps from {C['frame_t'][0]:.6f} s")
+    n_total = C["imgs"].shape[0]
+    imu_t, accs, gyrs, frame_t = C["imu_t"], C["accs"], C["gyrs"], C["frame_t"]
+    state = dict(i=0)
+
+    def feed(j):
+        while state["i"] < len(imu_t) and imu_t[state["i"]] <= frame_t[j]:
+            sysm.add_imu(imu_t[state["i"]], accs[state["i"]], gyrs[state["i"]])
+            state["i"] += 1
+        return sysm.add_image(frame_t[j], C["imgs"][j])
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    for k in all_kernels():
+        k.launches = 0
+    outs, walls, init_frame, init_wall = [], [], None, None
+    j = 0
+    t_track = None
+    while j < n_total and (init_frame is None or j <= init_frame + N_TRACK):
+        sync()
+        t0 = time.perf_counter()
+        out = feed(j)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if out is not None:
+            outs.append(out)
+        if init_frame is None and sysm.vio.initialized:
+            init_frame, init_wall = j, walls[-1]
+            init_scale, init_speed = init_window_check(sysm, C)
+            log(f"  initialized at frame {j} ({frame_t[j] - frame_t[0]:.1f} s into the "
+                f"stream), the initializing call took {init_wall:.2f} s; the initialized "
+                f"window against the truth: scale truth/estimate {init_scale:.4f}, mean "
+                f"speed truth/estimate {init_speed:.4f}")
+            if on_card:
+                SPANS.start()  # add_image opens a span group per frame
+            t_track = time.perf_counter()
+        elif init_frame is not None and not sysm.vio.initialized:
+            fail(f"failure flag: the VIO rebooted at frame {j}")
+        if init_frame is None and j + 1 >= N_INIT_MAX:
+            fail(f"the VIO did not initialize within {N_INIT_MAX} frames")
+        j += 1
+    last = sysm.flush()
+    if last is not None:
+        outs.append(last)
+    sync()
+    SPANS.stop()
+    if init_frame is None:
+        fail("the stream ended before the VIO initialized")
+    n_tracked = j - 1 - init_frame
+    track_wall = time.perf_counter() - t_track
+    ms_frame = 1e3 * track_wall / n_tracked
+    launches = {k.name: k.launches for k in all_kernels()}
+    log(f"  launches during the cold-start run ({j} frames): {launches}")
+    log(f"  fill + init: {init_frame + 1} frames in {sum(walls[:init_frame + 1]):.2f} s; "
+        f"tracking: {n_tracked} frames in {track_wall:.3f} s -> {ms_frame:.2f} ms/frame "
+        f"(add_image returns the previous frame's output; flush included)")
+    split = {}
+    if on_card:
+        per = SPANS.per_frame_ms()[2:]  # the first tracked frames pay one-time costs
+        spans = dict(frontend=("frontend",), line_frontend=("line_frontend",),
+                     clahe=(CLAHE_LUT.name, CLAHE_APPLY.name), vio=("vio",),
+                     preintegrate=(PREINTEGRATE.name,))
+        split = {k: float(np.median([sum(d.get(n, 0.0) for n in names) for d in per]))
+                 for k, names in spans.items()}
+        log(f"  per-frame CUDA-event split, tracked frames 3..{n_tracked}: point front end "
+            f"median {split['frontend']:.2f} ms, line front end (remap + line tracker) "
+            f"{split['line_frontend']:.2f} ms, of which the two clahe calls {split['clahe']:.3f} "
+            f"ms, VIO step {split['vio']:.2f} ms, of which preintegrate "
+            f"{split['preintegrate']:.3f} ms")
+    # every output is one frame's pose; the initializing frame's is the
+    # second-newest window frame, the others the newest
+    ts = np.array([o.t for o in outs])
+    idx = np.searchsorted(frame_t, ts - 1e-6)
+    p_est = np.stack([o.p_vio for o in outs])
+    p_gt = C["p_gt"][idx]
+    ate = ate_rmse(p_est, p_gt, align=True)
+    # the metric scale of the run, read as the similarity alignment's scale
+    # (truth/estimate), what is left of the error once it is removed, and
+    # how the rigidly aligned error develops over the run
+    scale = umeyama_alignment(p_est, p_gt, with_scale=True)[2]
+    ate_sim3 = ate_rmse(p_est, p_gt, align=True, with_scale=True)
+    R, t, _ = umeyama_alignment(p_est, p_gt)
+    err = np.linalg.norm(p_est @ R.T + t - p_gt, axis=1)
+    data = sysm.vio.data
+    solved = int(data.ln_solved.sum())
+    n_kf = sum(o.is_keyframe for o in outs)
+    log(f"  outputs {len(outs)}, keyframes {n_kf}, failures 0, solved lines at the end "
+        f"{solved}, point tracks {int((data.pt_id >= 0).sum())}; ATE (aligned) {ate:.4f} m "
+        f"over {len(outs)} frames (bar 0.25 m); scale truth/estimate {scale:.4f}, ATE "
+        f"after a sim(3) alignment {ate_sim3:.4f} m; aligned error at the initializing "
+        f"frame {err[0]:.4f} m, median {np.median(err):.4f} m, last {err[-1]:.4f} m, largest "
+        f"{err.max():.4f} m at output {int(err.argmax())}")
+    res = dict(init_frame=init_frame, init_s=init_wall, ms_frame=ms_frame, ate=ate,
+               scale=scale, ate_sim3=ate_sim3, init_scale=init_scale, init_speed=init_speed,
+               err_first=err[0], err_last=err[-1], solved=solved, split=split,
+               n_tracked=n_tracked, syncs=None)
+    if on_card:
+        n_extra = min(N_SYNC, n_total - j)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for k in range(j, j + n_extra):
+                    feed(k)
+                sysm.flush()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message).lower()]
+        res["syncs"] = len(syncs) / max(n_extra, 1)
+        log(f"  host syncs: {res['syncs']:.1f} per frame (over {n_extra} frames)")
+        j += n_extra
+        if profile and j + N_SYNC <= n_total:
+            j0 = j
+
+            def run_profiled():
+                for k in range(j0, j0 + N_SYNC):
+                    feed(k)
+                sysm.flush()
+
+            res["profile"] = (run_profiled, N_SYNC,
+                              split["frontend"] + split["line_frontend"] + split["vio"])
+    idle = {CLAHE_LUT.name, CLAHE_APPLY.name, PREINTEGRATE.name} if plain else ()
+    if any(c == 0 for n, c in launches.items() if n not in idle):
+        fail(f"a kernel of the cold-start path never launched: {launches}")
+    if not np.all(np.isfinite(p_est)):
+        fail("non-finite pose output in the cold-start run")
+    if not all(np.isfinite(o.ba_cost) for o in outs):
+        fail("non-finite BA cost in the cold-start run")
+    if len(outs) != n_tracked + 1:
+        fail(f"{len(outs)} outputs for {n_tracked} tracked frames + the initializing one")
+    if not ate < 0.25:
+        fail(f"cold-start ATE {ate:.4f} m >= 0.25 m")
+    return launches, res
+
+
+def init_window_check(sysm, C):
+    """The window the initializer left against the truth at its frames'
+    stamps: the similarity alignment's scale of its positions and the ratio
+    of the mean true speed to the mean estimated one (1 = the right metric
+    scale)."""
+    from vplines_slam_tpu_torch.utils.evaluation import umeyama_alignment
+
+    st, data = sysm.vio.state, sysm.vio.data
+    k = np.searchsorted(C["frame_t"], data.frame_t.cpu().numpy() - 1e-6)
+    p, v = st.p.cpu().numpy(), st.v.cpu().numpy()
+    scale = umeyama_alignment(p, C["p_gt"][k], with_scale=True)[2]
+    speed = np.linalg.norm(C["v_gt"][k], axis=1).mean() / np.linalg.norm(v, axis=1).mean()
+    return scale, speed
+
+
+def phase_cold_witness(C):
+    """Phase 6 again, changing one thing at a time, to tell the kernels from
+    the random draws in its ATE: the plain twins of K9/K10 in place of the
+    kernels; the draws a CPU run of phase 6 makes (CPU generators, seed 0);
+    the card's generators at seeds 1-3.  A run that fails its bars is
+    logged, not fatal: these runs are diagnostics, not part of phase 6."""
+    runs = [("plain twins of K9/K10, card draws seed 0", dict(plain=True)),
+            ("kernels, CPU draws seed 0", dict(draws=("cpu", 0)))]
+    runs += [(f"kernels, card draws seed {s}", dict(draws=("cuda", s))) for s in (1, 2, 3)]
+    out = []
+    for label, kw in runs:
+        log(f"cold-start witness: {label}")
+        try:
+            _, r = phase_cold_start(C, **kw)
+            res = (f"init frame {r['init_frame']} (window scale truth/estimate "
+                   f"{r['init_scale']:.4f}, speed {r['init_speed']:.4f}), ATE {r['ate']:.4f} m "
+                   f"over {r['n_tracked'] + 1} frames, scale truth/estimate {r['scale']:.4f}, "
+                   f"sim(3) ATE {r['ate_sim3']:.4f} m, aligned error first / last "
+                   f"{r['err_first']:.4f} / {r['err_last']:.4f} m, {r['solved']} solved lines")
+        except SystemExit:
+            res = "failed (see the message above)"
+        out.append(f"{label}: {res}")
+    for line in out:
+        log(f"  witness: {line}")
+
+
+def phase_profile(run, n, frame_ms):
+    """torch.profiler over n extra frames driven by run() (the same frames
+    ran once already, so the run is warm).
 
     Device busy time is the union of the device-activity intervals (kernels,
     memcpy, memset), so overlapping activities count once.  frame_ms is the
@@ -742,11 +1191,10 @@ def phase_profile(loop, carry, extra, frame_ms):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    n = extra[0].shape[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run(carry, *extra)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -774,6 +1222,9 @@ def main(argv=None):
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile each slice's extra frames with torch.profiler")
+    ap.add_argument("--cold-witness", action="store_true",
+                    help="after phase 6, run it again with the plain twins of K9/K10, with "
+                         "a CPU run's draws, and with other draw seeds (ATE of each)")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -782,6 +1233,7 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -793,27 +1245,43 @@ def main(argv=None):
     t0 = time.perf_counter()
     S = stage(dev, nf - 1 + N_STEADY + N_SYNC)
     SL = stage(dev, nf - 1 + N_STEADY_LINES + N_SYNC, world=LINE_WORLD, t0=LINE_T0)
+    n_cold = N_INIT_MAX + N_TRACK + 1 + N_SYNC * (2 if args.profile else 1)
+    C = None if args.kernels_only else stage_cold(dev, n_cold, world=LINE_WORLD)
     torch.cuda.synchronize()
-    log(f"staged {S['imgs'].shape[0]} + {SL['imgs'].shape[0]} frames {W}x{H} + IMU in "
+    log(f"staged {S['imgs'].shape[0]} + {SL['imgs'].shape[0]} + "
+        f"{0 if C is None else C['imgs'].shape[0]} frames {W}x{H} + IMU in "
         f"{time.perf_counter() - t0:.2f} s")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 3: kernels against their plain twins")
     rec = phase_kernels(S, SL)
     if args.kernels_only:
         device_times(rec)
         return
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: points slice")
     _, sl, prof_points = phase_slice(S)
-    launches, ll, prof_lines = phase_lines(SL)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
+    _, ll, prof_lines = phase_lines(SL)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
+    launches, cs = phase_cold_start(C, profile=args.profile)
+    if args.cold_witness:
+        log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
+        phase_cold_witness(C)
     # profiler sessions last: they slow every later launch of the process
-    if args.profile:
-        log("profile of the points slice:")
-        phase_profile(*prof_points)
-        log("profile of the lines slice:")
-        phase_profile(*prof_lines)
+    log(f"[{time.perf_counter() - t_start:.0f} s] kernel device times (torch.profiler)")
     device_times(rec)
+    if args.profile:
+        log(f"[{time.perf_counter() - t_start:.0f} s] profile of the points slice:")
+        phase_profile(*prof_points)
+        log(f"[{time.perf_counter() - t_start:.0f} s] profile of the lines slice:")
+        phase_profile(*prof_lines)
+        if "profile" in cs:
+            log(f"[{time.perf_counter() - t_start:.0f} s] profile of the cold-start system's "
+                f"tracked frames:")
+            phase_profile(*cs["profile"])
+    log(f"[{time.perf_counter() - t_start:.0f} s] done")
 
     from vplines_slam_tpu_torch.kernels import all_kernels
 
-    # launches: the lines slice's run, which drives every kernel (phase 4
-    # checked the point kernels on the points-only path)
+    # launches: the cold-start run (phase 6), which drives every kernel
     kernels_json = []
     for k in all_kernels():
         short = k.name.removeprefix("vp_")
@@ -830,6 +1298,14 @@ def main(argv=None):
         f"remap + line tracker {ll['ln_ms']:.2f} ms, track_step {ll['be_ms']:.2f} ms, "
         f"{ll['syncs']:.1f} host syncs/frame, ATE {ll['ate']:.4f} m, {ll['solved']} solved "
         f"lines, {ll['vp_live']} VP-valid observations")
+    sp = cs["split"]
+    log(f"summary (cold start): initialized at frame {cs['init_frame']} in "
+        f"{cs['init_s']:.2f} s, {cs['ms_frame']:.2f} ms/frame over {cs['n_tracked']} tracked "
+        f"frames, CUDA-event medians: point front end {sp['frontend']:.2f} ms, line front end "
+        f"{sp['line_frontend']:.2f} ms, clahe x2 {sp['clahe']:.3f} ms, VIO {sp['vio']:.2f} ms, "
+        f"preintegrate {sp['preintegrate']:.3f} ms; {cs['syncs']:.1f} host syncs/frame, "
+        f"ATE {cs['ate']:.4f} m (scale truth/estimate {cs['scale']:.4f}, sim(3) ATE "
+        f"{cs['ate_sim3']:.4f} m), {cs['solved']} solved lines")
     log(smi)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ tracked and matched.  VP pair draws are JAX's own uniforms, handed to the
 port (see ``ops/vp.py``).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -309,7 +311,7 @@ def test_line_tracker_step_matches_jax(frames, jax_line_tracker_x64):
     matches against frame 0, frame 2 against frame 1."""
     imgs = [frames[0], frames[1], segment_frame((2 * SHIFT[0], 2 * SHIFT[1]))]
     jcfg = jlt.LineTrackerConfig(max_lines=32, max_h=10, max_v=10, equalize=False)
-    tcfg = tlt.LineTrackerConfig(max_lines=32, max_h=10, max_v=10)
+    tcfg = tlt.LineTrackerConfig(max_lines=32, max_h=10, max_v=10, equalize=False)
     jideal = jcam.pinhole(*F_IDEAL, width=W, height=H)
     tideal = tcam.pinhole(*F_IDEAL, width=W, height=H, device="cpu")
     js = jlt.init_state(jcfg, H, W, jnp.float64)
@@ -331,10 +333,64 @@ def test_line_tracker_step_matches_jax(frames, jax_line_tracker_x64):
     assert bool(to.vp_valid.any())
 
 
-def test_line_tracker_rejects_clahe():
-    with pytest.raises(NotImplementedError, match="CLAHE"):
-        tlt.step(tlt.init_state(tlt.LineTrackerConfig(), 8, 8, device="cpu"),
-                 torch.zeros(8, 8), None, tlt.LineTrackerConfig(equalize=True), None)
+def _seg_dist(a, b):
+    """[A, B] max endpoint distance between segments, either orientation."""
+    d1 = np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+    d2 = np.abs(a[:, None, :] - b[None][..., [2, 3, 0, 1]]).max(-1)
+    return np.minimum(d1, d2)
+
+
+def test_line_tracker_clahe_matches_jax(frames, jax_line_tracker_x64):
+    """equalize=True.  The reference blends its CLAHE in bf16, the port in the
+    input dtype (<= 1e-2 apart, test_clahe_matches_jax), and EDLine on two
+    equalized frames that far apart can split or merge a segment otherwise.
+    So the test holds two things over three frames:
+    1. exactly, everything after the equalization: the port with
+       equalize=True against the reference with equalize=False fed the
+       port's equalized frame (the tolerances of
+       test_line_tracker_step_matches_jax);
+    2. end to end against the reference with equalize=True, from the same
+       state each frame: at least half of the port's segments lie within
+       1 px of a reference segment (measured 11 of 12, 7 of 11, 11 of 11),
+       and of the ids carried in from the previous frame at least 3/4 of
+       the union are carried by both (measured 6 of 7, 4 of 4)."""
+    imgs = [frames[0], frames[1], segment_frame((2 * SHIFT[0], 2 * SHIFT[1]))]
+    kw = dict(max_lines=32, max_h=10, max_v=10)
+    jraw = jlt.LineTrackerConfig(equalize=False, **kw)
+    jeq = jlt.LineTrackerConfig(equalize=True, **kw)
+    tcfg = tlt.LineTrackerConfig(equalize=True, **kw)
+    jideal = jcam.pinhole(*F_IDEAL, width=W, height=H)
+    tideal = tcam.pinhole(*F_IDEAL, width=W, height=H, device="cpu")
+    step_raw = jax.jit(lambda s, img, key: jlt.step(s, img, jideal, jraw, key))
+    step_eq = jax.jit(lambda s, img, key: jlt.step(s, img, jideal, jeq, key))
+    js = jlt.init_state(jraw, H, W, jnp.float64)
+    ts = convert.to_torch(js, device="cpu")
+    je = js
+    for k, img in enumerate(imgs):
+        key = jax.random.PRNGKey(20 + k)
+        u = T(vp_uniforms(key, jraw.vp))
+        # 1. exact: the reference on the port's equalized frame
+        js, jo = step_raw(js, jnp.asarray(timage.clahe(T(img)).numpy()), key)
+        ts, to = tlt.step(ts, T(img), tideal, tcfg, u)
+        assert np.array_equal(np.asarray(jo.ids), to.ids.numpy()), k
+        assert np.array_equal(np.asarray(jo.vp_valid), to.vp_valid.numpy())
+        close(jo.endpoints, to.endpoints, atol=1e-11)
+        close(jo.segs_px, to.segs_px, atol=1e-9)
+        close(jo.vp_dirs, to.vp_dirs, atol=1e-10)
+        close(js.vps_prev, ts.vps_prev, atol=1e-12)
+        close(js.prev_img, ts.prev_img, atol=0)
+        # 2. end to end, from the reference's own equalized state
+        te = convert.to_torch(je, device="cpu")
+        je2, jeo = step_eq(je, jnp.asarray(img), key)
+        _, teo = tlt.step(te, T(img), tideal, tcfg, u)
+        jv, tv = np.asarray(jeo.valid), teo.valid.numpy()
+        near = _seg_dist(teo.segs_px.numpy()[tv], np.asarray(jeo.segs_px)[jv]).min(1) < 1.0
+        assert near.mean() >= 0.5, (k, near)
+        old_t = {int(i) for i in teo.ids.numpy()[tv] if i < int(je.next_id)}
+        old_j = {int(i) for i in np.asarray(jeo.ids)[jv] if i < int(je.next_id)}
+        assert len(old_t & old_j) >= 0.75 * len(old_t | old_j), (k, old_t, old_j)
+        je = je2
+    assert int(ts.next_id) < 3 * int((to.ids >= 0).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -347,9 +403,14 @@ def _constructors():
     from vplines_slam_tpu_torch.models import feature_tracker as tft
     from vplines_slam_tpu_torch.models import imu as timu
     from vplines_slam_tpu_torch.solver import marginalization as tmarg
+    from vplines_slam_tpu_torch.estimator.vio import VioEngine
+    from vplines_slam_tpu_torch.pipeline.system import SlamSystem
     from vplines_slam_tpu_torch.utils import demo, synthetic
+    from vplines_slam_tpu_torch.utils.config import load_profile
 
     wcfg = twin.WindowConfig(window=2, max_points=4, max_lines=2, max_imu=4)
+    q0 = np.array([1.0, 0.0, 0.0, 0.0])
+    cam = lambda: tcam.pinhole(100.0, 100.0, 8.0, 6.0, -0.1, width=16, height=12, device="cpu")
     return {
         "camera.pinhole": lambda: tcam.pinhole(100.0, 100.0, 8.0, 6.0, width=16, height=12),
         "imu.default_params": lambda: timu.default_params(),
@@ -368,6 +429,16 @@ def _constructors():
         "convert.to_torch": lambda: convert.to_torch((np.zeros(3), np.ones(2, bool))),
         "image.build_remap_plan": lambda: timage.build_remap_plan(
             np.stack(np.meshgrid(np.arange(16) * 1.01, np.arange(12), indexing="xy"), -1)),
+        "vio.VioEngine": lambda: VioEngine(wcfg, q_ic=q0, p_ic=np.zeros(3)).state,
+        "system.SlamSystem": lambda: SlamSystem(cam(), wcfg, tft.TrackerConfig(max_features=4),
+                                                q_ic=q0, p_ic=np.zeros(3),
+                                                use_loop_closure=False).vio.state,
+        "feature_tracker.FeatureTrackerFrontend": lambda: tft.FeatureTrackerFrontend(
+            cam(), tft.TrackerConfig(max_features=4)).state,
+        "line_tracker.LineTrackerFrontend": lambda: tlt.LineTrackerFrontend(
+            cam(), tlt.LineTrackerConfig(max_lines=4)).state,
+        "config.load_profile": lambda: load_profile(
+            str(Path(__file__).resolve().parents[1] / "configs" / "euroc.yaml")).camera,
     }
 
 

@@ -97,9 +97,9 @@ def test_lines_device_loop_matches_jax_frame_by_frame(jax_line_tracker_x64):
     cam = tcam.pinhole(*K, width=W, height=H, device="cpu")
     jc = jcam.pinhole(*K, width=W, height=H)
     cfg, jcfg = WindowConfig(**WKW), jwin.WindowConfig(**WKW)
-    tcfg = tft.TrackerConfig(klt=tklt.KLTConfig(levels=2), **TKW)
+    tcfg = tft.TrackerConfig(equalize=False, klt=tklt.KLTConfig(levels=2), **TKW)
     jtcfg = jft.TrackerConfig(equalize=False, klt=jklt.KLTConfig(levels=2), **TKW)
-    lcfg = tlt.LineTrackerConfig(detect=tlines.LineDetectConfig(**DET), **LKW)
+    lcfg = tlt.LineTrackerConfig(detect=tlines.LineDetectConfig(**DET), equalize=False, **LKW)
     jlcfg = jlt.LineTrackerConfig(detect=jlines.LineDetectConfig(**DET), equalize=False, **LKW)
     params, jparams = timu.default_params(f64, device="cpu"), jimu.default_params()
     nf = cfg.nf

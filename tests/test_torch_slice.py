@@ -55,7 +55,7 @@ def test_device_loop_matches_jax_frame_by_frame():
     f64 = torch.float64
     cam, jc = tcam.pinhole(*K, width=W, height=H, device="cpu"), jcam.pinhole(*K, width=W, height=H)
     cfg, jcfg = WindowConfig(**WKW), jwin.WindowConfig(**WKW)
-    tcfg = tft.TrackerConfig(klt=tklt.KLTConfig(levels=2), **TKW)
+    tcfg = tft.TrackerConfig(equalize=False, klt=tklt.KLTConfig(levels=2), **TKW)
     jtcfg = jft.TrackerConfig(equalize=False, klt=jklt.KLTConfig(levels=2), **TKW)
     params, jparams = timu.default_params(f64, device="cpu"), jimu.default_params()
     nf = cfg.nf

@@ -7,8 +7,9 @@
 anything ``np.asarray`` accepts), and returns the port's NamedTuple of the
 same name with tensors on ``device``.  Integer arrays (ids, slots, counters)
 become int64, the index type torch wants; floats keep their dtype unless
-``dtype`` is given.  ``from_torch`` goes back: numpy leaves, int64 -> int32
-as the reference stores them.  Nothing here imports JAX.
+``dtype`` is given (frame stamps become f64 whatever ``dtype`` says).
+``from_torch`` goes back: numpy leaves, int64 -> int32 as the reference
+stores them.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ PORT_TYPES = {cls.__name__: cls for cls in (
     CameraModel)}
 # NamedTuple fields that are static Python ints, not arrays
 _STATIC_FIELDS = {"kind", "width", "height"}
+# frame stamps, f64 in the port whatever the engine dtype
+_STAMP_FIELDS = {"frame_t", "relo_stamp"}
 
 
 def _leaf_to_torch(x, device, dtype):
@@ -54,7 +57,7 @@ def to_torch(obj, device=torch.device("cuda"), dtype=None):
             if tuple(cls._fields) != tuple(obj._fields):
                 raise TypeError(f"{name}: fields differ from the port's")
             kids = [int(np.asarray(v)) if f in _STATIC_FIELDS
-                    else to_torch(v, device, dtype)
+                    else to_torch(v, device, torch.float64 if f in _STAMP_FIELDS else dtype)
                     for f, v in zip(obj._fields, obj)]
             return cls(*kids)
         return tuple(to_torch(v, device, dtype) for v in obj)

@@ -119,13 +119,23 @@ def set_imu_interval(data: TrackData, k, dts, accs, gyrs, mask, ba=None, bg=None
     )
     if params is not None:
         z3 = torch.zeros(3, dtype=dts.dtype, device=dts.device)
-        pre = imu_mod.preintegrate(dts, accs, gyrs, mask, z3 if ba is None else ba,
-                                   z3 if bg is None else bg, params)
+        ba, bg = (z3 if b is None else b for b in (ba, bg))
+        pre = imu_mod.preintegrate(dts[None], accs[None], gyrs[None], mask[None], ba[None],
+                                   bg[None], params)
         data = data._replace(
-            imu_pre=tree_map(lambda buf, v: _set_row(buf, k, v), data.imu_pre, pre),
-            imu_sqrt=_set_row(data.imu_sqrt, k, imu_mod.sqrt_information(pre)),
+            imu_pre=tree_map(lambda buf, v: _set_row(buf, k, v[0]), data.imu_pre, pre),
+            imu_sqrt=_set_row(data.imu_sqrt, k, imu_mod.sqrt_information(pre)[0]),
         )
     return data
+
+
+def repropagate_all(data: TrackData, state: WindowState, params):
+    """Re-preintegrate every stored interval at the current per-frame biases
+    (one batched call; used after initialization sets the gyro bias)."""
+    n = data.imu_dt.shape[0]
+    pre = imu_mod.preintegrate(data.imu_dt, data.imu_acc, data.imu_gyr, data.imu_mask,
+                               state.ba[:n], state.bg[:n], params)
+    return data._replace(imu_pre=pre, imu_sqrt=imu_mod.sqrt_information(pre))
 
 
 def keyframe_parallax(data: TrackData, cfg: WindowConfig, frame_idx):
@@ -368,10 +378,10 @@ def slide_window_new(state: WindowState, data: TrackData, cfg: WindowConfig,
                          s, torch.zeros_like(data.imu_valid[s]))
     imu_pre, imu_sqrt = data.imu_pre, data.imu_sqrt
     if params is not None:
-        pre_m = imu_mod.preintegrate(dt_m, acc_m, gyr_m, mask_new,
-                                     state.ba[s - 1], state.bg[s - 1], params)
-        imu_pre = tree_map(lambda buf, v: _set_row(buf, s - 1, v), imu_pre, pre_m)
-        imu_sqrt = _set_row(imu_sqrt, s - 1, imu_mod.sqrt_information(pre_m))
+        pre_m = imu_mod.preintegrate(dt_m[None], acc_m[None], gyr_m[None], mask_new[None],
+                                     state.ba[s - 1:s], state.bg[s - 1:s], params)
+        imu_pre = tree_map(lambda buf, v: _set_row(buf, s - 1, v[0]), imu_pre, pre_m)
+        imu_sqrt = _set_row(imu_sqrt, s - 1, imu_mod.sqrt_information(pre_m)[0])
 
     # observations: frame s loses its obs, frame n's move into slot s
     def drop_shift(obs, mask):

@@ -51,13 +51,14 @@ from ..utils.plucker import (
 
 
 class WindowConfig(NamedTuple):
-    """The reference's fields that the device loop reads (the initializer
-    settings wait for their module)."""
+    """The reference's fields, in its order (the device loop's and the
+    initializer's)."""
 
     window: int = 10  # keyframes (parameters.h WINDOW_SIZE)
     max_points: int = 128
     max_lines: int = 32
     max_imu: int = 64  # IMU samples capacity per interval
+    g_norm: float = 9.81007
     point_sqrt_info: float = res.POINT_SQRT_INFO
     line_sqrt_info: float = res.LINE_SQRT_INFO
     vp_sqrt_info: float = res.VP_SQRT_INFO
@@ -66,6 +67,8 @@ class WindowConfig(NamedTuple):
     ba_iters: int = 8
     line_min_obs: int = 5  # LINE_MIN_OBS
     prior_chi2_cap: float = 0.6  # χ²-consistency cap on the prior
+    init_min_corres: int = 20  # initializer: correspondence gate
+    init_min_parallax: float = 30.0 / 460.0  # initializer: parallax gate
     retire_points: bool = True  # retire tracks absorbed into the prior
     # lines stay live-only by default: their factors never enter the prior
     # (marg_lines=False); True folds them in and re-anchors (reference parity)
@@ -133,8 +136,8 @@ class TrackData(NamedTuple):
     relo_obs: torch.Tensor  # [MAXP, 3]
     relo_mask: torch.Tensor  # [MAXP] bool
     relo_valid: torch.Tensor  # [] bool
-    frame_t: torch.Tensor  # [NF]
-    relo_stamp: torch.Tensor  # []
+    frame_t: torch.Tensor  # [NF] f64
+    relo_stamp: torch.Tensor  # [] f64
     prior: marg_mod.Prior
     prior_state: WindowState
 
@@ -184,8 +187,10 @@ def empty_tracks(cfg: WindowConfig, dtype=torch.float64, device=torch.device("cu
         imu_sqrt=torch.eye(15, dtype=dtype, device=device).expand(nf - 1, 15, 15).clone(),
         relo_obs=relo_obs, relo_mask=zb(P),
         relo_valid=torch.zeros((), dtype=torch.bool, device=device),
-        frame_t=torch.full((nf,), -1.0, dtype=dtype, device=device),
-        relo_stamp=torch.tensor(-2.0, dtype=dtype, device=device),
+        # stamps are f64 whatever the engine dtype: f32 rounds EuRoC-epoch
+        # stamps (~1.4e9 s) to multiples of 128 s
+        frame_t=torch.full((nf,), -1.0, dtype=torch.float64, device=device),
+        relo_stamp=torch.tensor(-2.0, dtype=torch.float64, device=device),
         prior=marg_mod.empty_prior(cfg.nd, dtype, device),
         prior_state=empty_state(cfg, dtype, device),
     )

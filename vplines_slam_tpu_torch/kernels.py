@@ -1,15 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``.  The build happens at first use, into ``_build/`` beside this
+All ``csrc/*.cu`` files compile with ``nvcc`` (one process per source, all
+started together) and link into ONE shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), loaded with ``ctypes``.  The build happens at first use, into ``_build/`` beside this
 file, named by a hash of the sources so an edited source rebuilds.  Nothing
 is built or imported at module import time: the CPU test suite imports every
 module of the package on machines without ``nvcc`` or a GPU.
 
 Each C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; ``Kernel.__call__`` raises on a nonzero code
-and counts the launch.
+and counts the launch, inside a ``utils.stats.SPANS`` span named after the
+kernel (a no-op unless spans are recording).
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ from pathlib import Path
 
 import torch
 
+from .utils.stats import SPANS
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 P = ctypes.c_void_p
@@ -77,13 +79,25 @@ def build():
     t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, o in zip(sources, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        _LIB.nvcc_output = "".join(outs)
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{_LIB.nvcc_output}")
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _LIB.nvcc_output = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_LIB.nvcc_output}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        for o in objs:
+            o.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp, so)
     _LIB.build_seconds = time.perf_counter() - t0
     _LIB.cdll = ctypes.CDLL(str(so))
@@ -113,7 +127,8 @@ class Kernel:
             fn.restype = I
             self._fn = fn
         stream = torch.cuda.current_stream().cuda_stream
-        err = self._fn(*args, stream)
+        with SPANS.span(self.name):
+            err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {err}")
         self.launches += 1
@@ -136,11 +151,13 @@ def check(t, name, dtype=torch.float32, ndim=None, shape=None):
 
 
 def all_kernels():
-    """Every kernel of the package, in main-path order (the line front-end's
-    after the point front-end's)."""
+    """Every kernel of the package: the point front-end's (K1-K4), the line
+    front-end's (K5-K8), then CLAHE (K9, both trackers with equalize) and
+    IMU preintegration (K10, the estimator)."""
+    from .models import imu
     from .ops import corners, image, klt, line_match, lines, mvg, vp
 
     return [image.PYR_DOWN, klt.KLT_TRACK_LEVEL, corners.CORNER_RESPONSE,
             corners.CORNER_SELECT, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
             lines.LINE_ANCHORS, lines.LINE_GROW, line_match.LINE_VOTE, vp.VP_GRID,
-            vp.VP_SCORE]
+            vp.VP_SCORE, image.CLAHE_LUT, image.CLAHE_APPLY, imu.PREINTEGRATE]

@@ -1,8 +1,10 @@
-"""Point-feature front-end: KLT -> essential-matrix RANSAC -> spaced top-up.
+"""Point-feature front-end: CLAHE -> KLT -> essential-matrix RANSAC -> spaced
+top-up.
 
-Port of ``vplines_slam_tpu/models/feature_tracker.py`` (``step`` without
-CLAHE and without the fisheye mask).  Fixed-capacity slot arrays; new ids
-come from a cumsum over the slots that take a fresh detection.
+Port of ``vplines_slam_tpu/models/feature_tracker.py`` (``step`` and the host
+wrapper ``FeatureTrackerFrontend``; the fisheye mask is not ported and
+``fisheye=True`` raises).  Fixed-capacity slot arrays; new ids come from a
+cumsum over the slots that take a fresh detection.
 
 The reference's ``lax.cond`` on the RANSAC gate is a Python branch here: one
 host sync per frame.
@@ -18,15 +20,17 @@ from ..models import camera as cam_mod
 from ..ops import corners as corners_mod
 from ..ops import klt as klt_mod
 from ..ops import mvg
+from ..ops.image import clahe
 
 
 class TrackerConfig(NamedTuple):
     max_features: int = 150  # max_cnt (euroc_config.yaml)
     min_dist: int = 30  # min_dist
     f_threshold: float = 1.0  # px at 460 virtual focal (F_threshold)
-    equalize: bool = False  # CLAHE is not ported: must stay False
+    equalize: bool = True  # CLAHE before tracking (feature_tracker.cpp:115)
     ransac_hyps: int = 32
     quality: float = 0.01  # GFTT quality level (relative to max response)
+    fisheye: bool = False  # the fisheye mask is not ported: True raises
     klt: klt_mod.KLTConfig = klt_mod.KLTConfig()
 
 
@@ -66,10 +70,12 @@ def step(state: TrackerState, img, cam: cam_mod.CameraModel, cfg: TrackerConfig,
          dt, ransac_idx):
     """Process one frame.  ransac_idx: [ransac_hyps, 8] long sample draws in
     [0, max_features).  Returns (new_state, TrackerOutput)."""
-    if cfg.equalize:
-        raise NotImplementedError("CLAHE (equalize=True) is not ported yet")
+    if cfg.fisheye:
+        raise NotImplementedError("the fisheye mask is not ported")
     dtype = img.dtype
     M = cfg.max_features
+    if cfg.equalize:
+        img = clahe(img)
 
     # ---- track ------------------------------------------------------------
     valid0 = state.ids >= 0
@@ -134,3 +140,30 @@ def step(state: TrackerState, img, cam: cam_mod.CameraModel, cfg: TrackerConfig,
         has_prev=torch.ones((), dtype=torch.bool, device=img.device),
     )
     return state_new, out
+
+
+class FeatureTrackerFrontend:
+    """Host wrapper: owns the tracker state and the generator of the RANSAC
+    draws (``ransac_draws``, one [ransac_hyps, 8] draw per frame)."""
+
+    def __init__(self, cam: cam_mod.CameraModel, cfg: TrackerConfig = TrackerConfig(),
+                 dtype=torch.float32, seed=0, device=torch.device("cuda")):
+        if cfg.fisheye:
+            raise NotImplementedError("the fisheye mask is not ported")
+        self.cam = cam
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.state = init_state(cfg, cam.height, cam.width, dtype, self.device)
+        self.last_t = None
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def ransac_draws(self):
+        """[ransac_hyps, 8] sample draws in [0, max_features)."""
+        return torch.randint(0, self.cfg.max_features, (self.cfg.ransac_hyps, 8),
+                             generator=self._gen, device=self.device)
+
+    def process(self, t, img):
+        dt = 0.05 if self.last_t is None else max(t - self.last_t, 1e-3)
+        self.last_t = t
+        self.state, out = step(self.state, img, self.cam, self.cfg, dt, self.ransac_draws())
+        return out

@@ -1,8 +1,10 @@
 """IMU mid-point preintegration with 15x15 jacobian and covariance propagation.
 
-Port of ``vplines_slam_tpu/models/imu.py``: the ``lax.scan`` over the
-fixed-capacity, mask-padded sample buffer becomes a Python loop over the
-same buffer (padded steps integrate over zero time and are exact no-ops).
+Port of ``vplines_slam_tpu/models/imu.py``.  ``preintegrate`` is batched
+over a leading interval axis and is kernel K10 (``csrc/preintegrate.cu``) on
+CUDA tensors; its plain twin replaces the reference's ``lax.scan`` over the
+fixed-capacity, mask-padded sample buffer with a Python loop over the same
+buffer (padded steps integrate over zero time).
 
 State order (O_P,O_R,O_V,O_BA,O_BG) = (0,3,6,9,12); noise order
 [na0, ng0, na1, ng1, nba, nbg] (18).
@@ -14,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..utils.geometry import (
     delta_quat,
     quat_conj,
@@ -54,13 +57,20 @@ class Preintegration(NamedTuple):
     linearized_bg: torch.Tensor  # [3]
 
 
-def _blocks(rows, dtype, device):
-    """Assemble a block matrix from a grid of 3x3 blocks (None = zero)."""
-    z = torch.zeros(3, 3, dtype=dtype, device=device)
+PREINTEGRATE = kernels.Kernel(
+    "vp_preintegrate", "vplines_slam_tpu_torch/csrc/preintegrate.cu",
+    "vplines_slam_tpu/models/imu.py:79",
+    [kernels.P] * 7 + [kernels.I, kernels.I, kernels.I] + [kernels.P] * 6,
+)
+
+
+def _blocks(rows):
+    """Assemble a batched block matrix from a grid of [B, 3, 3] blocks
+    (None = zero)."""
+    like = next(b for row in rows for b in row if b is not None)
+    z = torch.zeros_like(like)
     return torch.cat(
-        [torch.cat([z if b is None else b for b in row], dim=1) for row in rows],
-        dim=0,
-    )
+        [torch.cat([z if b is None else b for b in row], dim=-1) for row in rows], dim=-2)
 
 
 def _noise_cov(params: ImuParams, dtype, device):
@@ -74,25 +84,23 @@ def _noise_cov(params: ImuParams, dtype, device):
     )
 
 
-def preintegrate(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegration:
-    """Preintegrate a (padded) run of IMU samples.
-
-    dts [N] per-step dt; accs/gyrs [N+1, 3] raw samples; mask [N] (padded
-    steps are no-ops); ba, bg [3] bias linearization points.
-    """
+def preintegrate_plain(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegration:
+    """Batched preintegration, one step at a time over the padded buffer:
+    dts [B, N], accs/gyrs [B, N+1, 3], mask [B, N], ba/bg [B, 3]."""
     dtype, device = accs.dtype, accs.device
+    B = dts.shape[0]
     noise = _noise_cov(params, dtype, device)
-    I3 = torch.eye(3, dtype=dtype, device=device)
+    I3 = torch.eye(3, dtype=dtype, device=device).expand(B, 3, 3)
     dts_m = dts * mask.to(dtype)
 
-    dp = torch.zeros(3, dtype=dtype, device=device)
-    dq = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
-    dv = torch.zeros(3, dtype=dtype, device=device)
-    J = torch.eye(15, dtype=dtype, device=device)
-    P = torch.zeros(15, 15, dtype=dtype, device=device)
-    for i in range(dts.shape[0]):
-        dt = dts_m[i]
-        acc0, gyr0, acc1, gyr1 = accs[i], gyrs[i], accs[i + 1], gyrs[i + 1]
+    dp = torch.zeros(B, 3, dtype=dtype, device=device)
+    dq = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device).expand(B, 4)
+    dv = torch.zeros(B, 3, dtype=dtype, device=device)
+    J = torch.eye(15, dtype=dtype, device=device).expand(B, 15, 15)
+    P = torch.zeros(B, 15, 15, dtype=dtype, device=device)
+    for i in range(dts.shape[1]):
+        dt = dts_m[:, i, None]
+        acc0, gyr0, acc1, gyr1 = accs[:, i], gyrs[:, i], accs[:, i + 1], gyrs[:, i + 1]
         un_acc_0 = quat_rotate(dq, acc0 - ba)
         un_gyr = 0.5 * (gyr0 + gyr1) - bg
         dq_new = quat_normalize(quat_mul(dq, delta_quat(un_gyr * dt)))
@@ -102,6 +110,7 @@ def preintegrate(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegra
         dv_new = dv + un_acc * dt
 
         # jacobian & covariance propagation (integration_base.h:76-166)
+        dt = dt[..., None]
         R0 = quat_to_rot(dq)
         R1 = quat_to_rot(dq_new)
         Rw = skew(un_gyr)
@@ -118,7 +127,7 @@ def preintegrate(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegra
              -0.5 * (R0 + R1) * dt, 0.5 * R1Ra1 * dt2],
             [None, None, None, I3, None],
             [None, None, None, None, I3],
-        ], dtype, device)
+        ])
         v03 = -0.125 * R1Ra1 * dt2 * dt
         v63 = -0.25 * R1Ra1 * dt2
         V = _blocks([
@@ -127,14 +136,54 @@ def preintegrate(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegra
             [0.5 * R0 * dt, v63, 0.5 * R1 * dt, v63, None, None],
             [None, None, None, None, I3 * dt, None],
             [None, None, None, None, None, I3 * dt],
-        ], dtype, device)
+        ])
         J = F @ J
-        P = F @ P @ F.T + V @ noise @ V.T
+        P = F @ P @ F.transpose(-1, -2) + V @ noise @ V.transpose(-1, -2)
         dp, dq, dv = dp_new, dq_new, dv_new
     return Preintegration(
         delta_p=dp, delta_q=dq, delta_v=dv, jacobian=J, covariance=P,
-        sum_dt=torch.sum(dts_m), linearized_ba=ba, linearized_bg=bg,
+        sum_dt=torch.sum(dts_m, dim=-1), linearized_ba=ba, linearized_bg=bg,
     )
+
+
+def _preintegrate_cuda(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegration:
+    """K10: one block per interval, one launch for the batch."""
+    dtype, dev = accs.dtype, accs.device
+    B, N = dts.shape
+    ins = [x.to(dtype).contiguous() for x in (dts, accs, gyrs, ba, bg)]
+    m8 = mask.to(torch.uint8).contiguous()
+    noise = torch.stack([params.acc_n, params.gyr_n, params.acc_w, params.gyr_w]).to(dtype)
+    empty = lambda *s: torch.empty(B, *s, dtype=dtype, device=dev)
+    dp, dq, dv, J, P, sum_dt = empty(3), empty(4), empty(3), empty(15, 15), empty(15, 15), empty()
+    ck = lambda t, n, **kw: kernels.check(t, n, dtype, **kw)
+    PREINTEGRATE(
+        ck(ins[0], "dts", shape=(B, N)), ck(ins[1], "accs", shape=(B, N + 1, 3)),
+        ck(ins[2], "gyrs", shape=(B, N + 1, 3)),
+        kernels.check(m8, "mask", torch.uint8, shape=(B, N)),
+        ck(ins[3], "ba", shape=(B, 3)), ck(ins[4], "bg", shape=(B, 3)),
+        ck(noise, "noise", shape=(4,)), B, N, int(dtype == torch.float64),
+        ck(dp, "dp"), ck(dq, "dq"), ck(dv, "dv"), ck(J, "J"), ck(P, "P"), ck(sum_dt, "sum_dt"),
+    )
+    return Preintegration(delta_p=dp, delta_q=dq, delta_v=dv, jacobian=J, covariance=P,
+                          sum_dt=sum_dt, linearized_ba=ba, linearized_bg=bg)
+
+
+def preintegrate(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegration:
+    """Preintegrate padded runs of IMU samples, batched over intervals.
+
+    dts [B, N] per-step dt; accs/gyrs [B, N+1, 3] raw samples; mask [B, N]
+    (padded steps integrate over zero time); ba, bg [B, 3] bias
+    linearization points.  Without the leading B axis (dts [N], ...) one
+    interval is preintegrated and the result has no batch axis.  K10: CPU
+    tensors run ``preintegrate_plain``, CUDA tensors the kernel."""
+    single = dts.dim() == 1
+    if single:
+        dts, accs, gyrs, mask, ba, bg = (x[None] for x in (dts, accs, gyrs, mask, ba, bg))
+    if accs.is_cuda:
+        pre = _preintegrate_cuda(dts, accs, gyrs, mask, ba, bg, params)
+    else:
+        pre = preintegrate_plain(dts, accs, gyrs, mask, ba, bg, params)
+    return Preintegration(*(x[0] for x in pre)) if single else pre
 
 
 def evaluate(pre: Preintegration, params: ImuParams,

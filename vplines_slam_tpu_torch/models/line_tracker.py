@@ -1,8 +1,8 @@
 """Line-feature front-end: detect -> h/v caps -> match -> ids -> VPs.
 
-Port of ``vplines_slam_tpu/models/line_tracker.py`` (``step`` on an already
-undistorted frame; ``LineTrackerFrontend``, the host wrapper, is not
-ported).  CLAHE (``equalize=True``) is not ported yet.
+Port of ``vplines_slam_tpu/models/line_tracker.py``: ``step`` on an already
+undistorted frame (CLAHE first when ``equalize``), and the host wrapper
+``LineTrackerFrontend`` (undistortion remap, then ``step``).
 
 The reference's ``lax.cond`` on ``has_prev`` is a masked ``torch.where``
 here: the matcher runs on every frame and its result is dropped on the
@@ -19,6 +19,7 @@ from ..models import camera as cam_mod
 from ..ops import line_match as lmatch_mod
 from ..ops import lines as lines_mod
 from ..ops import vp as vp_mod
+from ..ops.image import build_remap_plan, clahe, remap_static
 
 
 class LineTrackerConfig(NamedTuple):
@@ -28,7 +29,7 @@ class LineTrackerConfig(NamedTuple):
     detect: lines_mod.LineDetectConfig = lines_mod.LineDetectConfig()
     match: lmatch_mod.LineMatchConfig = lmatch_mod.LineMatchConfig()
     vp: vp_mod.VPConfig = vp_mod.VPConfig()
-    equalize: bool = False  # CLAHE is not ported: must stay False
+    equalize: bool = True  # CLAHE before detection
     use_vp: bool = True
 
 
@@ -77,8 +78,7 @@ def step(state: LineTrackerState, img, ideal_cam: cam_mod.CameraModel,
     of the undistorted image; vp_u: [n_pairs, 2] uniforms of the VP pair
     draw.  Returns (new_state, LineTrackerOutput)."""
     if cfg.equalize:
-        raise NotImplementedError("CLAHE (equalize=True) is not ported yet; "
-                                  "run with equalize=False")
+        img = clahe(img)
     dtype, dev = img.dtype, img.device
     L = cfg.max_lines
     segs_new, lens_new, valid_new = lines_mod.detect_lines(img, cfg.detect._replace(max_lines=L))
@@ -143,3 +143,30 @@ def step(state: LineTrackerState, img, ideal_cam: cam_mod.CameraModel,
         had_vps=state.had_vps | vp_ok,
     )
     return state_new, out
+
+
+class LineTrackerFrontend:
+    """Host wrapper: builds the undistort-rectify remap plan of the camera
+    once, then remaps each frame and runs ``step``; owns the tracker state
+    and the generator of the VP pair-draw uniforms (``vp_draws``)."""
+
+    def __init__(self, cam: cam_mod.CameraModel, cfg: LineTrackerConfig = LineTrackerConfig(),
+                 dtype=torch.float32, seed=0, device=torch.device("cuda")):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.remap_plan = build_remap_plan(cam_mod.undistort_rectify_map(cam), dtype=dtype,
+                                           device=self.device)
+        self.ideal = cam_mod.pinhole(float(cam.fx), float(cam.fy), float(cam.cx),
+                                     float(cam.cy), width=cam.width, height=cam.height,
+                                     dtype=cam.fx.dtype, device=self.device)
+        self.state = init_state(cfg, cam.height, cam.width, dtype, self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def vp_draws(self):
+        """[n_pairs, 2] uniforms of the VP pair draw."""
+        return torch.rand(self.cfg.vp.n_pairs, 2, generator=self._gen, device=self.device)
+
+    def process(self, t, img):
+        self.state, out = step(self.state, remap_static(img, self.remap_plan), self.ideal,
+                               self.cfg, self.vp_draws())
+        return out

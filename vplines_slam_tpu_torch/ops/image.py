@@ -1,14 +1,16 @@
 """Image primitives: separable correlations, gradients, pyramid, sampling and
 the static undistortion remap.
 
-Port of ``vplines_slam_tpu/ops/image.py`` (all but ``clahe``).  Images are float [H, W] in [0, 1].  The JAX package expressed every
+Port of ``vplines_slam_tpu/ops/image.py``.  Images are float [H, W] in
+[0, 1].  The JAX package expressed every
 correlation as zero-padded roll shifts (a TPU workaround); the plain versions
 here pad once and add shifted slices, which is the same arithmetic in the
 same tap order.
 
-``pyr_down`` is kernel K1 (``csrc/pyr_down.cu``) and ``remap_static`` kernel
-K5 (``csrc/remap.cu``): on a CUDA tensor each launches its kernel, on a CPU
-tensor it runs its plain twin.
+``pyr_down`` is kernel K1 (``csrc/pyr_down.cu``), ``remap_static`` kernel
+K5 (``csrc/remap.cu``) and ``clahe`` kernel K9 (``csrc/clahe.cu``): on a
+CUDA tensor each launches its kernel, on a CPU tensor it runs its plain
+twin.
 """
 
 from __future__ import annotations
@@ -32,6 +34,19 @@ REMAP_STATIC = kernels.Kernel(
     "vp_remap_static", "vplines_slam_tpu_torch/csrc/remap.cu",
     "vplines_slam_tpu/ops/image.py:228",
     [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.P],
+)
+
+CLAHE_LUT = kernels.Kernel(
+    "vp_clahe_lut", "vplines_slam_tpu_torch/csrc/clahe.cu",
+    "vplines_slam_tpu/ops/image.py:254",
+    [kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.F, kernels.P],
+)
+
+CLAHE_APPLY = kernels.Kernel(
+    "vp_clahe_apply", "vplines_slam_tpu_torch/csrc/clahe.cu",
+    "vplines_slam_tpu/ops/image.py:254",
+    [kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
+     kernels.P],
 )
 
 PYR_TAPS = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -229,4 +244,77 @@ def remap_static(img, plan: RemapPlan):
                  kernels.check(plan.dx, "dx", shape=(H, W)),
                  kernels.check(plan.valid, "valid", shape=(H, W)), H, W,
                  kernels.check(out, "out"))
+    return out
+
+
+def clahe_luts_plain(img, clip_limit=3.0, tiles=8, bins=32):
+    """[tiles, tiles, bins] CDF LUTs of the tile histograms of the cropped
+    (th·tiles) x (tw·tiles) region, clipped at clip_limit·th·tw/bins with the
+    excess spread evenly over the bins, normalised by their last entry."""
+    H, W = img.shape
+    th, tw = H // tiles, W // tiles
+    x = torch.clamp(img[: th * tiles, : tw * tiles], 0.0, 1.0)
+    q = torch.clamp((x * bins).to(torch.int64), max=bins - 1)
+    tile = (torch.arange(th * tiles, device=img.device) // th)[:, None] * tiles + (
+        torch.arange(tw * tiles, device=img.device) // tw)[None, :]
+    hist = torch.zeros(tiles * tiles * bins, dtype=img.dtype, device=img.device)
+    hist = hist.index_add(0, (tile * bins + q).reshape(-1),
+                          torch.ones(q.numel(), dtype=img.dtype, device=img.device))
+    hist = hist.reshape(tiles * tiles, bins)
+    limit = clip_limit * (th * tw) / bins
+    excess = torch.sum(torch.clamp(hist - limit, min=0.0), dim=1, keepdim=True)
+    cdf = torch.cumsum(torch.clamp(hist, max=limit) + excess / bins, dim=1)
+    return (cdf / cdf[:, -1:]).reshape(tiles, tiles, bins)
+
+
+def clahe_apply_plain(img, luts):
+    """Map every pixel through the bilinear-in-tiles blend of the four
+    nearest tile LUTs, linear between bin-centre knots, in img's dtype."""
+    H, W = img.shape
+    tiles, bins = luts.shape[0], luts.shape[2]
+    th, tw = H // tiles, W // tiles
+    dt, dev = img.dtype, img.device
+
+    def axis(n, size):
+        c = (torch.arange(n, dtype=dt, device=dev) + 0.5) / size - 0.5
+        c0 = torch.clamp(torch.floor(c).long(), 0, tiles - 1)
+        return c0, torch.clamp(c0 + 1, max=tiles - 1), torch.clamp(c - c0, 0.0, 1.0)
+
+    y0, y1, fy = axis(H, th)
+    x0, x1, fx = axis(W, tw)
+    y0, y1, fy = y0[:, None], y1[:, None], fy[:, None]
+    gy, gx = 1.0 - fy, 1.0 - fx
+    t = torch.clamp(img, 0.0, 1.0) * bins - 0.5
+    k0 = torch.clamp(torch.floor(t).long(), 0, bins - 1)
+    k1 = torch.clamp(k0 + 1, max=bins - 1)
+    frac = torch.clamp(t - k0, 0.0, 1.0)
+
+    def at(k):
+        r0 = gy * luts[y0, x0, k] + fy * luts[y1, x0, k]
+        r1 = gy * luts[y0, x1, k] + fy * luts[y1, x1, k]
+        return gx * r0 + fx * r1
+
+    return (1.0 - frac) * at(k0) + frac * at(k1)
+
+
+def clahe_plain(img, clip_limit=3.0, tiles=8, bins=32):
+    return clahe_apply_plain(img, clahe_luts_plain(img, clip_limit, tiles, bins))
+
+
+def clahe(img, clip_limit=3.0, tiles=8, bins=32):
+    """K9: contrast-limited adaptive histogram equalization
+    (cv::createCLAHE(3.0, 8x8)): 32-bin tile histograms, piecewise-linear
+    CDF LUTs.  CPU tensor: ``clahe_plain``.  CUDA tensor: ``clahe_lut`` (one
+    block per tile) then ``clahe_apply`` (one thread per pixel)."""
+    if not img.is_cuda:
+        return clahe_plain(img, clip_limit, tiles, bins)
+    H, W = img.shape
+    th, tw = H // tiles, W // tiles
+    luts = torch.empty(tiles, tiles, bins, dtype=img.dtype, device=img.device)
+    out = torch.empty_like(img)
+    src = kernels.check(img, "img", ndim=2)
+    CLAHE_LUT(src, W, tiles, th, tw, bins, clip_limit * (th * tw) / bins,
+              kernels.check(luts, "luts"))
+    CLAHE_APPLY(src, kernels.check(luts, "luts"), H, W, tiles, th, tw, bins,
+                kernels.check(out, "out"))
     return out

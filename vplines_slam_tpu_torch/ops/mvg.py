@@ -1,7 +1,11 @@
-"""Multi-view geometry: essential-matrix RANSAC and multi-view triangulation.
+"""Multi-view geometry: essential matrix, two-view and multi-view
+triangulation, PnP.
 
 Port of ``vplines_slam_tpu/ops/mvg.py`` (``_solve3x3``, ``_smallest_eigvec``,
-``eight_point_essential``, ``ransac_essential``, ``triangulate_tracks``).
+``eight_point_essential``, ``ransac_essential``, ``decompose_essential``,
+``_two_view_depths``, ``triangulate_two_view``, ``triangulate_tracks``,
+``pnp_dlt``, ``pnp_refine``; ``ransac_pnp`` belongs to loop closure and is
+not ported yet).
 Everything works on normalized image coordinates; masked entries contribute
 zero rows, so padding never changes results.
 
@@ -16,8 +20,10 @@ the tests feed the JAX draws and callers on the card draw with a seeded
 from __future__ import annotations
 
 import torch
+from torch.func import jacfwd
 
 from .. import kernels
+from ..utils.geometry import so3_exp_matrix
 
 SAMPSON_SCORE = kernels.Kernel(
     "vp_sampson_score", "vplines_slam_tpu_torch/csrc/sampson.cu",
@@ -134,6 +140,97 @@ def ransac_essential(x1, x2, mask, sample_idx, threshold=3.0 / 460.0):
     E_out = torch.where(better, E_ref, Es[best])
     inl_out = torch.where(better, inl_ref, inls[best])
     return E_out, inl_out, torch.maximum(n_ref, counts[best])
+
+
+def decompose_essential(E, x1, x2, mask):
+    """Four-way decomposition + cheirality vote.  Returns (R, t, votes) with
+    ‖t‖ = 1 and x2 ~ R x1 + t.  The SVD's sign conventions may differ from
+    the reference's LAPACK, which reorders the four candidates but not the
+    set; the vote picks the same one unless two candidates tie."""
+    U, _, Vt = torch.linalg.svd(E)
+    U = U * torch.sign(torch.linalg.det(U))
+    Vt = Vt * torch.sign(torch.linalg.det(Vt))
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype,
+                     device=E.device)
+    R1 = U @ W @ Vt
+    R2 = U @ W.T @ Vt
+    t1 = U[:, 2]
+    cands_R = torch.stack([R1, R1, R2, R2])
+    cands_t = torch.stack([t1, -t1, t1, -t1])
+    z1, z2 = _two_view_depths(cands_R, cands_t, x1, x2)  # [4, N]
+    votes = torch.sum(((z1 > 0) & (z2 > 0) & mask).to(torch.int64), dim=-1)
+    best = torch.argmax(votes)
+    return cands_R[best], cands_t[best], votes[best]
+
+
+def _two_view_depths(R, t, x1, x2):
+    """Depths (z1, z2) of the least-squares midpoint triangulation given
+    x2 ~ R x1 + t; R [..., 3, 3] and t [..., 3] may carry leading dims."""
+    h1, h2 = _homog(x1), _homog(x2)
+    r1 = h1 @ R.transpose(-1, -2)  # ray 1 in frame 2: [..., N, 3]
+    M = torch.stack([r1, -h2.expand_as(r1)], dim=-1)  # [..., N, 3, 2]
+    z = (torch.linalg.pinv(M) @ -t[..., None, :, None])[..., 0]
+    return z[..., 0], z[..., 1]
+
+
+def triangulate_two_view(R, t, x1, x2):
+    """DLT triangulation in frame 1 given x2 ~ R x1 + t.  Returns (X1 [N, 3],
+    depth in frame 1)."""
+    P1 = torch.cat([torch.eye(3, dtype=R.dtype, device=R.device),
+                    torch.zeros(3, 1, dtype=R.dtype, device=R.device)], 1)
+    P2 = torch.cat([R, t[:, None]], 1)
+    A = torch.stack([
+        x1[:, 0:1] * P1[2] - P1[0], x1[:, 1:2] * P1[2] - P1[1],
+        x2[:, 0:1] * P2[2] - P2[0], x2[:, 1:2] * P2[2] - P2[1],
+    ], dim=1)  # [N, 4, 4]
+    X = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    X1 = X[:, :3] / X[:, 3:4]
+    return X1, X1[:, 2]
+
+
+def pnp_dlt(X_w, x, mask):
+    """Linear PnP (DLT) with rotation re-orthonormalization.  X_w [N, 3]
+    world points; x [..., N, 2] normalized observations; mask [..., N]
+    (leading dims batch several frames against the same points).  Returns
+    (R, t, ok) with x ~ R X_w + t; ok needs >= 6 points."""
+    m = mask.to(x.dtype)[..., None]
+    X_h = _homog(X_w)  # [N, 4]
+    z = torch.zeros_like(X_h)
+    r0 = torch.cat([X_h.expand(*x.shape[:-1], 4), z.expand(*x.shape[:-1], 4),
+                    -x[..., 0:1] * X_h], dim=-1) * m
+    r1 = torch.cat([z.expand(*x.shape[:-1], 4), X_h.expand(*x.shape[:-1], 4),
+                    -x[..., 1:2] * X_h], dim=-1) * m
+    A = torch.stack([r0, r1], dim=-2).reshape(*x.shape[:-2], -1, 12)
+    p = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    Pm = p.reshape(*p.shape[:-1], 3, 4)
+    # fix the sign: mean depth positive
+    depths = X_h @ Pm[..., 2, :, None]  # [..., N, 1]
+    sign = torch.sign(torch.sum(depths * m, dim=(-2, -1)) + 1e-30)
+    Pm = Pm * sign[..., None, None]
+    U, sv, Vt = torch.linalg.svd(Pm[..., :3])
+    R = U @ Vt
+    R = R * torch.sign(torch.linalg.det(R))[..., None, None]
+    t = Pm[..., 3] / torch.mean(sv, dim=-1, keepdim=True)
+    return R, t, torch.sum(mask.to(torch.int64), dim=-1) >= 6
+
+
+def pnp_refine(R0, t0, X_w, x, mask, iters=5):
+    """Gauss-Newton refinement of a PnP pose on SE(3): the left rotation
+    increment and the translation, ``iters`` fixed steps."""
+    w = mask.to(x.dtype)[:, None]
+
+    def residual(params):
+        R = so3_exp_matrix(params[:3]) @ R0
+        Xc = X_w @ R.T + params[3:]
+        return ((Xc[:, :2] / Xc[:, 2:3] - x) * w).reshape(-1)
+
+    params = torch.cat([torch.zeros_like(t0), t0])
+    eye = torch.eye(6, dtype=x.dtype, device=x.device)
+    for _ in range(iters):
+        r = residual(params)
+        J = jacfwd(residual)(params)
+        params = params - torch.linalg.solve(J.T @ J + 1e-8 * eye, J.T @ r)
+    return so3_exp_matrix(params[:3]) @ R0, params[3:]
 
 
 def triangulate_tracks(poses_R, poses_t, obs, mask):

@@ -17,7 +17,9 @@ already be initialized (a carry from the reference converted with
 With lines, each frame is also undistorted (``ops.image.remap_static``) and
 run through ``models.line_tracker.step``, whose lines enter the estimator.
 The random draws are inputs: the RANSAC samples and the uniforms of the VP
-pair draw.
+pair draw.  Each frame opens ``utils.stats.SPANS`` spans around its stages
+(``frontend``, ``line_frontend``, ``track_step``): CUDA-event device times
+when spans are recording, no-ops otherwise.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ from ..models import feature_tracker as ft_mod
 from ..models import imu as imu_mod
 from ..models import line_tracker as lt_mod
 from ..ops.image import build_remap_plan, remap_static
+from ..utils.stats import SPANS
 
 
 class DeviceLoop(NamedTuple):
-    run: object  # (carry, imgs, imu_batches, dts, ransac_idx[, vp_u, stage_events])
+    run: object  # (carry, imgs, imu_batches, dts, ransac_idx[, vp_u])
     init_carry: object
 
 
@@ -51,47 +54,39 @@ def make_device_loop(cam: cam_mod.CameraModel, tracker_cfg: ft_mod.TrackerConfig
                                 width=cam.width, height=cam.height, dtype=dtype, device=dev)
         remap_plan = build_remap_plan(map_xy, dtype=dtype, device=dev)
 
-    def frame_step(carry, img, imu_batch, dt, ransac_idx, vp_u, events):
-        mark = (lambda k: events[k].record()) if events is not None else (lambda k: None)
+    def frame_step(carry, img, imu_batch, dt, ransac_idx, vp_u):
         if use_lines:
             fe_state, ln_state, state, data = carry
         else:
             fe_state, state, data = carry
-        mark(0)
-        fe_state, feats = ft_mod.step(fe_state, img, cam, tracker_cfg, dt, ransac_idx)
-        mark(1)
+        SPANS.next_frame()
+        with SPANS.span("frontend"):
+            fe_state, feats = ft_mod.step(fe_state, img, cam, tracker_cfg, dt, ransac_idx)
         ln_args = ()
         if use_lines:
-            ln_state, lout = lt_mod.step(ln_state, remap_static(img, remap_plan), ideal,
-                                         line_cfg, vp_u)
+            with SPANS.span("line_frontend"):
+                ln_state, lout = lt_mod.step(ln_state, remap_static(img, remap_plan), ideal,
+                                             line_cfg, vp_u)
             ln_args = (lout.ids, lout.endpoints, lout.vp_dirs, lout.vp_valid)
-            mark(2)
-        state, data, out = vio_mod.track_step(
-            state, data, feats.ids, feats.rays, imu_batch, window_cfg, params,
-            ln_args=ln_args, use_lines=use_lines)
-        mark(-1)
+        with SPANS.span("track_step"):
+            state, data, out = vio_mod.track_step(
+                state, data, feats.ids, feats.rays, imu_batch, window_cfg, params,
+                ln_args=ln_args, use_lines=use_lines)
         emit = (out.p, out.q, out.v, out.is_keyframe, out.failure, out.ba_cost)
         carry = (fe_state, ln_state, state, data) if use_lines else (fe_state, state, data)
         return carry, emit
 
-    def run(carry, imgs, imu_batches, dts, ransac_idx, vp_u=None, stage_events=None):
+    def run(carry, imgs, imu_batches, dts, ransac_idx, vp_u=None):
         """imgs [T,H,W]; imu_batches: tuple of [T, ...] tensors (dts, accs,
         gyrs, mask, has_imu); dts [T]; ransac_idx [T, ransac_hyps, 8] long;
-        vp_u [T, n_pairs, 2] (lines only).  stage_events: optional list that
-        receives, per frame, CUDA events at the frame's start, after the
-        point front end, (with lines) after the line front end, and at its
-        end."""
+        vp_u [T, n_pairs, 2] (lines only)."""
         if use_lines and vp_u is None:
             raise ValueError("the line front-end needs vp_u, the VP pair-draw uniforms")
         emits = []
         for t in range(imgs.shape[0]):
-            events = None
-            if stage_events is not None:
-                events = [torch.cuda.Event(enable_timing=True) for _ in range(4 if use_lines else 3)]
-                stage_events.append(events)
             batch = tuple(b[t] for b in imu_batches)
             carry, emit = frame_step(carry, imgs[t], batch, dts[t], ransac_idx[t],
-                                     vp_u[t] if use_lines else None, events)
+                                     vp_u[t] if use_lines else None)
             emits.append(emit)
         outs = tuple(torch.stack(xs) for xs in zip(*emits))
         return carry, outs

@@ -1,9 +1,12 @@
 """Levenberg-Marquardt on the window residual layout, with Schur elimination
 of the landmarks (point inverse depths and 4-dof lines).
 
-Port of the window path of ``vplines_slam_tpu/solver/lm.py``
-(``lm_solve_window``, ``WindowLayout``, ``_structured_linearize``,
-``_assemble_blocks``, ``schur_solve_blocks``, ``_solve_dtype``).  Two layouts:
+Port of ``vplines_slam_tpu/solver/lm.py``: the generic engine (``SchurSpec``,
+``normal_equations``, ``schur_solve``, ``lm_solve``: a dense jacobian by
+``torch.func.jacfwd``, used by the initializer's window SFM) and the window
+path (``lm_solve_window``, ``WindowLayout``, ``_structured_linearize``,
+``_assemble_blocks``, ``schur_solve_blocks``, ``_solve_dtype``).  Two window
+layouts:
 the points-only one (``L = 0``: no line/VP rows, no line columns, nd + 1
 tangents) and the reference's lines layout (``L > 0``: line and VP rows,
 4L line columns, nd + 5 tangents).
@@ -21,9 +24,21 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jvp, vmap
+from torch.func import jacfwd, jvp, vmap
 
 from ..utils.tree import tree_map, tree_leaves
+
+
+class SchurSpec(NamedTuple):
+    """Parameter layout: [dense | n_scalar scalar blocks | n_block4 4-dof blocks]."""
+
+    dense_dim: int
+    n_scalar: int = 0
+    n_block4: int = 0
+
+    @property
+    def total_dim(self):
+        return self.dense_dim + self.n_scalar + 4 * self.n_block4
 
 
 class LMConfig(NamedTuple):
@@ -50,6 +65,89 @@ def _solve_dtype(dtype):
     promotes only on its CPU backend (the TPU has no f64 LU/eigh); CUDA has
     f64 Cholesky and eigh, so the port promotes on CPU and CUDA alike."""
     return torch.float64 if dtype == torch.float32 else dtype
+
+
+def normal_equations(J, r):
+    """H = JᵀJ, g = -Jᵀr."""
+    return J.T @ J, -(J.T @ r)
+
+
+def _cholesky_solve_or_nan(S, rhs):
+    """Cholesky solve of S x = rhs; NaN where the factorization fails (as
+    JAX's does), so an LM step through it is rejected."""
+    Lc, info = torch.linalg.cholesky_ex(S)
+    Lc = torch.where(info == 0, Lc, torch.full_like(Lc, float("nan")))
+    return torch.cholesky_solve(rhs[:, None], Lc)[:, 0]
+
+
+def schur_solve(H, g, spec: SchurSpec, lam, diag_floor=1e-8):
+    """Solve (H + λ·diag(H) + floor) δ = g with Jacobi scaling, eliminating
+    the scalar and 4x4 landmark blocks onto the dense block first."""
+    D, P, L = spec.dense_dim, spec.n_scalar, spec.n_block4
+    out_dtype = H.dtype
+    sd = _solve_dtype(H.dtype)
+    H, g = H.to(sd), g.to(sd)
+    lam = torch.as_tensor(lam, dtype=sd, device=H.device)
+    dH = torch.diagonal(H)
+    c = _jacobi(dH)
+    H = H / (c[:, None] * c[None, :])
+    g = g / c
+    Hd = H + torch.diag(lam * torch.diagonal(H) + diag_floor)
+    S, rhs = Hd[:D, :D], g[:D]
+    if P > 0:
+        Hdp = Hd[:D, D:D + P]
+        wp = 1.0 / torch.diagonal(Hd)[D:D + P]
+        g_p = g[D:D + P]
+        S = S - (Hdp * wp[None, :]) @ Hdp.T
+        rhs = rhs - Hdp @ (wp * g_p)
+    if L > 0:
+        Hdl = Hd[:D, D + P:].reshape(D, L, 4)
+        idx = torch.arange(L, device=H.device)
+        Hll_b = Hd[D + P:, D + P:].reshape(L, 4, L, 4)[idx, :, idx, :]
+        g_l = g[D + P:].reshape(L, 4)
+        Wl = torch.linalg.inv(Hll_b)
+        S = S - torch.einsum("dlk,lkm,elm->de", Hdl, Wl, Hdl)
+        rhs = rhs - torch.einsum("dlk,lkm,lm->d", Hdl, Wl, g_l)
+    dd = _cholesky_solve_or_nan(S, rhs)
+    parts = [dd]
+    if P > 0:
+        parts.append(wp * (g_p - Hdp.T @ dd))
+    if L > 0:
+        dl = torch.einsum("lkm,lm->lk", Wl, g_l - torch.einsum("dlk,d->lk", Hdl, dd))
+        parts.append(dl.reshape(L * 4))
+    return (torch.cat(parts) / c).to(out_dtype)
+
+
+def lm_solve(residual_fn: Callable, retract_fn: Callable, x0, spec: SchurSpec,
+             config: LMConfig = LMConfig()) -> LMResult:
+    """Fixed-iteration LM with branchless accept/reject.  residual_fn(x) ->
+    flat whitened residual [R]; retract_fn(x, delta [N]) -> x'."""
+    r_first = residual_fn(x0)
+    dtype, dev = r_first.dtype, r_first.device
+    zero = torch.zeros(spec.total_dim, dtype=dtype, device=dev)
+
+    def cost_of(x):
+        r = residual_fn(x)
+        return 0.5 * torch.dot(r, r)
+
+    cost0 = 0.5 * torch.dot(r_first, r_first)
+    x, cost = x0, cost0
+    lam = torch.as_tensor(config.lambda_init, dtype=dtype, device=dev)
+    gnorm = torch.zeros_like(cost0)
+    for _ in range(config.num_iters):
+        f = lambda d: residual_fn(retract_fn(x, d))
+        H, g = normal_equations(jacfwd(f)(zero), f(zero))
+        delta = schur_solve(H, g, spec, lam, config.diag_floor)
+        x_new = retract_fn(x, delta)
+        cost_new = cost_of(x_new)
+        accept = cost_new < cost
+        x = tree_map(lambda a, b: torch.where(accept, b, a), x, x_new)
+        cost = torch.where(accept, cost_new, cost)
+        lam = torch.clamp(
+            torch.where(accept, lam * config.lambda_down, lam * config.lambda_up),
+            config.lambda_min, config.lambda_max)
+        gnorm = torch.linalg.norm(g)
+    return LMResult(x=x, cost0=cost0, cost=cost, lam=lam, grad_norm=gnorm)
 
 
 class WindowLayout(NamedTuple):
@@ -180,9 +278,7 @@ def schur_solve_blocks(H_dd, g_d, H_dp, h_p, g_p, lam, diag_floor=1e-8,
         Wl = torch.linalg.inv_ex(Hll_s + torch.diag_embed(lam * s_l + diag_floor))[0]
         S = S - torch.einsum("dlk,lkm,elm->de", Hdl, Wl, Hdl)
         rhs = rhs - torch.einsum("dlk,lkm,lm->d", Hdl, Wl, gl_s)
-    Lc, info = torch.linalg.cholesky_ex(S)
-    Lc = torch.where(info == 0, Lc, torch.full_like(Lc, float("nan")))
-    dd = torch.cholesky_solve(rhs[:, None], Lc)[:, 0]
+    dd = _cholesky_solve_or_nan(S, rhs)
     parts = [dd / c_d]
     if P:
         parts.append(wp * (gp_s - Hdp.T @ dd) / c_p)

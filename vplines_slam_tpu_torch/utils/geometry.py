@@ -1,7 +1,7 @@
 """Rotation / quaternion / SE(3) algebra on batched tensors.
 
-Port of ``vplines_slam_tpu/utils/geometry.py`` (the functions the points-only
-slice uses).  Quaternions are Hamilton, stored ``[w, x, y, z]``; every
+Port of ``vplines_slam_tpu/utils/geometry.py`` (the functions the device
+loop and the initializer use).  Quaternions are Hamilton, stored ``[w, x, y, z]``; every
 function broadcasts over leading dimensions and is safe under
 ``torch.func.jvp``/``vmap`` (no in-place writes).
 """
@@ -144,6 +144,27 @@ def quat_log(q):
     return scale * q[..., 1:4]
 
 
+def so3_exp_matrix(theta):
+    return quat_to_rot(so3_exp_quat(theta))
+
+
+def quat_from_two_vectors(a, b):
+    """Shortest-arc quaternion rotating direction a onto b."""
+    a = a / torch.linalg.norm(a, dim=-1, keepdim=True)
+    b = b / torch.linalg.norm(b, dim=-1, keepdim=True)
+    c = cross(a, b)
+    d = torch.sum(a * b, dim=-1, keepdim=True)
+    w = 1.0 + d
+    # antipodal: any axis orthogonal to a
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+    ortho = torch.where(torch.abs(a[..., 0:1]) < 0.9, cross(a, ex), cross(a, ey))
+    anti = w[..., 0] < 1e-8
+    q = torch.cat([w, c], dim=-1)
+    q_anti = torch.cat([torch.zeros_like(w), ortho], dim=-1)
+    return quat_normalize(torch.where(anti[..., None], q_anti, q))
+
+
 def rot_to_ypr(R):
     """Rotation matrix -> [yaw, pitch, roll] in DEGREES."""
     n = R[..., :, 0]
@@ -173,6 +194,16 @@ def ypr_to_rot(ypr):
         ],
         dim=-2,
     )
+
+
+def gravity_to_rot(g):
+    """R0 with R0 @ ĝ = ẑ and zero yaw (the reference's g2R)."""
+    ng1 = g / torch.linalg.norm(g, dim=-1, keepdim=True)
+    ng2 = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    R0 = quat_to_rot(quat_from_two_vectors(ng1, ng2))
+    yaw = rot_to_ypr(R0)[..., 0]
+    z = torch.zeros_like(yaw)
+    return ypr_to_rot(torch.stack([-yaw, z, z], dim=-1)) @ R0
 
 
 # SE(3) helpers: a pose is the tuple (q [..,4], p [..,3]) mapping body->world.
