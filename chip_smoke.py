@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``vplines_slam_tpu_torch``) on one GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--kernels-only] [--profile]
+Run from the root of a checkout:
+  python3 chip_smoke.py [--kernels-only] [--profile] [--cold-witness] [--estimator-witness]
 
 Phases (any failure exits nonzero; there is no CPU path):
   1. toolchain: torch/CUDA versions, nvcc, triton, the card's name and power limit;
@@ -11,7 +12,11 @@ Phases (any failure exits nonzero; there is no CPU path):
      the main paths' shapes, with the tolerance stated, the wrapper's and the
      plain version's time per call (CUDA events), the kernel's device time
      (torch.profiler) and its bound (bytes over 3.35 TB/s or f32 operations
-     over 67 TFLOP/s, from this run's inputs);
+     over 67 TFLOP/s, from this run's inputs); then the estimator's K11-K14
+     (window linearization, block normal equations, Schur solve,
+     marginalization) on a points and a lines window (each slice's warm-up
+     + N_EST_FRAMES frames on their plain twins), K11 at f32, K12-K14 at f64,
+     f64 operations counted at the H100's 67 TFLOP/s FP64 tensor-core rate;
   4. points slice: the points-only device loop at EuRoC width (752x480,
      pinhole + radtan from configs/euroc.yaml) on a rendered figure-8 blob
      world: truth-seeded warm-up, then 44 frames through
@@ -41,11 +46,17 @@ Phases (any failure exits nonzero; there is no CPU path):
      syncs and solved lines; asserts no reboot (failure flag), finite
      outputs and aligned ATE < 0.25 m.  Its launch counts go to the kernels
      JSON.
+  Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
+  of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
+  marginalization) was called.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
   with a CPU run's random draws and with other draw seeds, and logs each
-  run's ATE.  Every profiler session (those and the kernels' device times) runs
+  run's ATE; --estimator-witness runs phases 4-6 again on the kernels (each
+  must repeat its ATE) and phases 4-5 on the plain twins of K11-K14 (ATE
+  within 0.01 m of the kernels').  Every profiler session (those and the
+  kernels' device times) runs
   after phase 6: once the profiler has run, each later launch of the
   process costs more.
 The line before the last is the per-kernel JSON record; the last line is
@@ -76,7 +87,7 @@ N_SYNC = 4  # extra frames run afterwards with sync debugging on
 LINE_WORLD = dict(tex_gain=0.1, grid_band=0.2, grid_dark=0.0)  # BlobWorldRenderer settings
 LINE_T0 = 2.5  # s: the figure-8 moves sideways to the camera, so lines get parallax
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+FLOP_PER_S = 67e12  # H100 SXM: f32 outside the tensor cores, and f64 on them
 FRAME_HZ, IMU_HZ = 10, 200
 
 
@@ -129,8 +140,9 @@ def device_ms(fn, kernel_fn_name, n=20):
 
 
 def bound(bytes_moved, flops):
-    """(bound_ms, bound_by): the larger of the HBM and f32-compute times."""
-    t_b, t_f = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    """(bound_ms, bound_by): the larger of the HBM time and the compute time
+    (f32 or f64 operations, both 67 TFLOP/s on the H100)."""
+    t_b, t_f = bytes_moved / HBM_BYTES_PER_S, flops / FLOP_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -651,11 +663,297 @@ def preintegrate_step_ops():
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (estimator): K11-K14 against their plain twins on staged windows
+# ---------------------------------------------------------------------------
+
+N_EST_FRAMES = 5  # frames after the warm-up that stage the estimator windows
+
+
+@contextlib.contextmanager
+def plain_estimator():
+    """Run the estimator's device ops through the plain twins of K11-K14 on
+    the card: the linearization by vmap of jvp, the block normal equations
+    and the Schur solve in plain PyTorch, the marginalization stack by
+    jacfwd + marginalize_window, and the prior-only marginalization's
+    stage 1 plain."""
+    from vplines_slam_tpu_torch.estimator import linearize, slide
+    from vplines_slam_tpu_torch.estimator import window as win
+    from vplines_slam_tpu_torch.solver import lm, marginalization as marg
+
+    saved = (linearize.window_blocks, linearize.window_cost_residuals, lm.assemble_blocks,
+             lm.schur_solve_blocks, marg._marg_stage1_cuda, slide._stack_prior_blocks)
+    linearize.window_blocks = linearize.window_blocks_plain
+    linearize.window_cost_residuals = win.window_residuals
+    lm.assemble_blocks = lm.assemble_blocks_plain
+    lm.schur_solve_blocks = lm.schur_solve_blocks_plain
+    marg._marg_stage1_cuda = marg.marg_stage1_plain
+    slide._stack_prior_blocks = slide.stack_prior_plain
+    try:
+        yield
+    finally:
+        (linearize.window_blocks, linearize.window_cost_residuals, lm.assemble_blocks,
+         lm.schur_solve_blocks, marg._marg_stage1_cuda, slide._stack_prior_blocks) = saved
+
+
+def estimator_window(S, lines):
+    """A window of the points (lines=False) or lines slice: the truth-seeded
+    warm-up and N_EST_FRAMES frames of the device loop on the plain twins of
+    K11-K14 (a live prior, solved points and lines).  Returns (state, data,
+    cfg, params)."""
+    import torch
+
+    from vplines_slam_tpu_torch.pipeline.device_loop import make_device_loop
+    from vplines_slam_tpu_torch.utils import demo
+
+    cfg, nf = S["wcfg"], S["wcfg"].nf
+    kw = dict(line_cfg=S["lcfg"], map_xy=S["map_xy"]) if lines else {}
+    start = demo.truth_seeded_start(
+        S["cam"], S["tcfg"], cfg, S["params"], S["q_ic"], S["p_ic"],
+        tuple(x[:nf] for x in S["truth"]), S["imgs"][: nf - 1],
+        [b[: nf - 2] for b in S["batches"]], S["frame_t"].cpu().numpy(), 1.0 / FRAME_HZ,
+        S["ridx"][: nf - 1], **kw, **({"vp_u": S["vp_u"][: nf - 1]} if lines else {}))
+    loop = make_device_loop(S["cam"], S["tcfg"], cfg, S["params"], **kw)
+    carry = loop.init_carry(*start[:3], *start[3:])
+    s0, s1 = nf - 1, nf - 1 + N_EST_FRAMES
+    args = (S["imgs"][s0:s1], tuple(b[s0 - 1: s1 - 1] for b in S["batches"]),
+            torch.full((N_EST_FRAMES,), 1.0 / FRAME_HZ, device=S["imgs"].device),
+            S["ridx"][s0:s1]) + ((S["vp_u"][s0:s1],) if lines else ())
+    with plain_estimator():
+        carry, _ = loop.run(carry, *args)
+    return carry[-2], carry[-1], cfg, S["params"]
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b| (0 when both are 0)."""
+    den = float(b.abs().max())
+    return float((a.double() - b.double()).abs().max()) / den if den > 0 else float(
+        a.abs().max())
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def phase_estimator_kernels(rec, windows):
+    """K11-K14 against their twins on each window (points, lines): K11 at f32
+    (the engine dtype) relative to each block's largest entry, K12-K14 at f64
+    (their inputs are the same on both sides).  Times and bounds are taken
+    on the lines window (the larger: the EuRoC profile runs lines)."""
+    import torch
+
+    from vplines_slam_tpu_torch.estimator import linearize, slide
+    from vplines_slam_tpu_torch.estimator import window as win
+    from vplines_slam_tpu_torch.solver import lm, marginalization as marg
+    from vplines_slam_tpu_torch.utils.tree import tree_map
+
+    f64 = torch.float64
+    for label, (state, data, cfg, params) in windows.items():
+        lines = label == "lines"
+        x = (state, data.pt_inv_depth) + ((data.ln_orth,) if lines else ())
+        # relo rows live (the smoke runs no loop closure): every solved track
+        # re-observed from a relo pose near frame 1
+        data_lo = data._replace(relo_valid=torch.ones_like(data.relo_valid),
+                                relo_mask=data.pt_solved, relo_obs=data.pt_obs[:, 1].contiguous())
+        x_lo = (x[0]._replace(p_relo=x[0].p[1] + 0.02, q_relo=x[0].q[1]),) + x[1:]
+        layout = win.layout_for(cfg, lines)
+        bk = linearize._window_lin_cuda(x_lo, data_lo, cfg, params, True, True, True)
+        bp = linearize.window_blocks_plain(x_lo, data_lo, cfg, params)
+        errs = {f: _rel_err(getattr(bk, f), getattr(bp, f)) for f in bk._fields
+                if getattr(bp, f) is not None and f not in ("pt_start", "r")}
+        tol11 = 1e-4
+        # the rows themselves against an f64 evaluation of the same rows, the
+        # kernel's error beside the twin's: the prior rows' r0 + J dx cancels
+        # (whitened terms up to ~1e4), so an f32 sum is off by ~1e-4 of the
+        # largest row in any order
+        to64 = lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+        x64, d64, p64 = (tree_map(to64, v) for v in (x_lo, data_lo, params))
+        zero = torch.zeros(layout.nd + cfg.max_points + (4 * cfg.max_lines if lines else 0),
+                           dtype=f64, device=state.p.device)
+        r64 = win.window_residuals(win.retract_all(x64, zero, cfg), d64, cfg, p64)
+        rk = linearize._window_lin_cuda(x_lo, data_lo, cfg, params, True, True, False)
+        rows = {"rows": (bk.r, bp.r, r64),
+                "cost rows": (rk, win.window_residuals(x_lo, data_lo, cfg, params),
+                              win.window_residuals(x64, d64, cfg, p64))}
+        rows_ok = True
+        for name, (a, b, ref) in rows.items():
+            ek, ep = _rel_err(a, ref), _rel_err(b, ref)
+            errs[f"{name} (f64 ref; plain {ep:.2e})"] = ek
+            rows_ok = rows_ok and ek <= max(tol11, 2 * ep)
+        live = {f: int((getattr(bp, f).abs().amax(dim=-1) > 0).sum()) for f in
+                ("J_imu", "J_pt", "J_relo", "J_ln", "J_vp") if getattr(bp, f) is not None}
+        err11 = max(errs.values())
+        log(f"K11 window_lin ({label} window, relo rows live): live rows {live}; max |kernel - "
+            f"plain| / max |plain| per block {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} "
+            f"(tol {tol11}: f32 jets against f32 vmap(jvp), sums in another order; the rows "
+            f"against f64: within {tol11} or twice the plain version's error)")
+        if not (rows_ok and max(v for k, v in errs.items() if k.startswith("J_")) <= tol11):
+            fail(f"K11 window_lin disagrees with its plain version ({label} window)")
+        # K12 on K11's own blocks
+        nek = lm._assemble_blocks_cuda(bk, layout)
+        nep = lm.assemble_blocks_plain(bk, layout)
+        err12 = max(_rel_err(a, b) for a, b in zip(nek, nep))
+        tol12 = 1e-12
+        log(f"K12 window_blocks ({label}): max |kernel - plain| / max |plain| over the "
+            f"{len(nek)} blocks {err12:.2e} (tol {tol12}: f64 sums of the same f32 products "
+            f"in another order)")
+        if not err12 <= tol12:
+            fail(f"K12 window_blocks disagrees with its plain version ({label} window)")
+        # K13 on the same normal equations, small and large damping
+        err13 = 0.0
+        for lam in (1e-4, 10.0):
+            lam_t = torch.tensor(lam, dtype=f64, device=state.p.device)
+            dk = lm._schur_cuda(*nep[:5], lam_t, 1e-8, *(nep[5:] or (None,) * 3), f64)
+            dp = lm.schur_solve_blocks_plain(*nep[:5], lam, 1e-8, *nep[5:], out_dtype=f64)
+            err13 = max(err13, _rel_err(dk, dp))
+        tol13 = 1e-6
+        log(f"K13 schur_solve ({label}): max |kernel - plain| / max |plain| of the delta "
+            f"{err13:.2e} at lambda 1e-4 and 10 (tol {tol13}: f64; a 177x177 Cholesky in "
+            f"another order, condition up to ~1e6 after the Jacobi scaling)")
+        if not err13 <= tol13:
+            fail(f"K13 schur_solve disagrees with its plain version ({label} window)")
+        # K14 on the marginalization stack's normal equations
+        cfg_m = cfg._replace(marg_lines=True) if lines else cfg
+        data_r = slide.marginalization_stack(data, cfg_m)
+        lay_m = win.layout_for(cfg, lines, use_relo=False, use_vps=False)
+        ne_m = lm._assemble_blocks_cuda(linearize._window_lin_cuda(
+            x, data_r, cfg_m, params, False, False, True), lay_m)
+        m_args = (*ne_m[:5], *(ne_m[5:] or (None,) * 3), 1e-12)
+        mk = marg._marg_stage1_cuda(*m_args)
+        mp = marg.marg_stage1_plain(*m_args)
+        err14 = max(_rel_err(a, b) for a, b in zip(mk, mp))
+        tol14 = 1e-9
+        log(f"K14 marg_window ({label}, marg_lines {lines}): max |kernel - plain| / max "
+            f"|plain| of H1, b1, c {err14:.2e} (tol {tol14}: f64; per-line Jacobi against "
+            f"LAPACK eigh for the clipped inverses)")
+        if not err14 <= tol14:
+            fail(f"K14 marg_window disagrees with its plain version ({label} window)")
+        if not lines:
+            continue
+        # times and bounds on the lines window as the main path gives it
+        blocks = linearize._window_lin_cuda(x, data, cfg, params, True, True, True)
+        ne = lm._assemble_blocks_cuda(blocks, layout)
+        lam_t = torch.tensor(1e-4, dtype=f64, device=state.p.device)
+        n_act = estimator_live_counts(blocks, ne)
+        ins11 = [t for t in (*state, *x[1:], *data.imu_pre, data.imu_sqrt, data.prior.J,
+                             data.prior.r0, data.prior_state.p, data.prior_state.q,
+                             data.pt_obs, data.ln_obs, data.ln_vp) if torch.is_tensor(t)]
+        outs11 = [t for t in blocks[:7] if t is not None]
+        record(rec, "window_lin", err11,
+               lambda: linearize._window_lin_cuda(x, data, cfg, params, True, True, True),
+               lambda: linearize.window_blocks_plain(x, data, cfg, params), "wlin_",
+               _nbytes(*ins11, *outs11), window_lin_ops(n_act, cfg))
+        record(rec, "window_blocks", err12, lambda: lm._assemble_blocks_cuda(blocks, layout),
+               lambda: lm.assemble_blocks_plain(blocks, layout), "wblk_",
+               _nbytes(*outs11, *ne), window_blocks_ops(n_act, cfg))
+        S_, rhs_, _ = lm.schur_system(*ne[:5], lam_t, 1e-8, *ne[5:])
+
+        def library_k13():  # the dense solve alone, on the same S
+            Lc, _ = torch.linalg.cholesky_ex(S_)
+            torch.cholesky_solve(rhs_[:, None], Lc)
+
+        record(rec, "schur_solve", err13,
+               lambda: lm._schur_cuda(*ne[:5], lam_t, 1e-8, *ne[5:], torch.float32),
+               lambda: lm.schur_solve_blocks_plain(*ne[:5], lam_t, 1e-8, *ne[5:],
+                                                   out_dtype=torch.float32),
+               "schur_", _nbytes(*ne, lam_t) + 4 * (cfg.nd + cfg.max_points + 4 * cfg.max_lines),
+               schur_ops(n_act, cfg), library_fn=library_k13)
+        record(rec, "marg_window", err14, lambda: marg._marg_stage1_cuda(*m_args),
+               lambda: marg.marg_stage1_plain(*m_args), "marg_",
+               _nbytes(*ne_m) + 8 * (cfg.nd * cfg.nd + 2 * cfg.nd), marg_ops(ne_m, cfg))
+
+
+def live_landmarks(ne):
+    """Points and lines in the solve (a non-zero diagonal block)."""
+    lines = int((ne[6].diagonal(dim1=1, dim2=2).amax(dim=1) > 0).sum()) if len(ne) > 5 else 0
+    return int((ne[3] > 0).sum()), lines
+
+
+def estimator_live_counts(blocks, ne):
+    """Rows with a non-zero Jacobian entry per family, and the landmarks in
+    the solve: the work the window's data needs."""
+    rows = lambda J: 0 if J is None else int((J.abs().amax(dim=-1) > 0).sum())
+    n = {f: rows(getattr(blocks, f)) for f in ("J_prior", "J_imu", "J_pt", "J_relo", "J_ln",
+                                               "J_vp")}
+    n["points"], n["lines"] = live_landmarks(ne)
+    return n
+
+
+# jet arithmetic of one residual row, estimated from csrc/window_lin.cu: the
+# scalar operations of the row's share of its observation's value (2 rows: a
+# point, relo, line or VP observation; 15 rows: an IMU interval) times
+# (1 + its tangents)
+K11_ROW_OPS = dict(J_pt=125 * 20, J_relo=125 * 20, J_ln=260 * 17, J_vp=250 * 17,
+                   J_imu=45 * 31)
+
+
+def window_lin_ops(n, cfg):
+    """K11's operations on the live rows: the jets, and per prior row its
+    dot product with dx and its 3x3 block products."""
+    prior = n["J_prior"] * (2 * cfg.nd + 18 * (cfg.nf + 2))
+    return prior + sum(n[f] * K11_ROW_OPS[f] for f in K11_ROW_OPS)
+
+
+def window_blocks_ops(n, cfg):
+    """K12's operations: per live row, the upper triangle of its compact
+    block's outer product and its gradient term (multiply-adds x 2)."""
+    width = dict(J_prior=cfg.nd, J_imu=30, J_pt=19, J_relo=19, J_ln=16, J_vp=16)
+    return sum(2 * n[f] * (w * (w + 1) // 2 + w) for f, w in width.items())
+
+
+def schur_ops(n, cfg):
+    """K13's operations: the Schur updates of S's lower triangle by the live
+    points (3 per entry) and lines (32 per entry), the 4x4 inverses, a
+    Cholesky (nd^3/3), two triangular solves and the back-substitution."""
+    nd, tri = cfg.nd, cfg.nd * (cfg.nd + 1) // 2
+    return (tri * (3 * n["points"] + 32 * n["lines"]) + 100 * n["lines"] + nd ** 3 // 3
+            + 2 * nd * nd + 2 * nd * (n["points"] + 4 * n["lines"]))
+
+
+def marg_ops(ne, cfg):
+    """K14's operations: H1 (the whole nd x nd: its two triangles are used)
+    updated by the live points (3 per entry) and lines (32 per entry), the
+    per-line 4x4 eigen-decompositions (~6 Jacobi sweeps of 6 rotations)."""
+    pts, lns = live_landmarks(ne)
+    return cfg.nd * cfg.nd * (3 * pts + 32 * lns) + lns * 6 * 6 * 60
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(S):
+def estimator_check(plain, where):
+    """The plain twins of K11-K14 ran (plain) or not at all (the kernels)."""
+    from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
+
+    calls = dict(TWIN_CALLS)
+    log(f"  calls of the plain twins of K11-K14 (vmap/jvp, jacfwd, assemble, schur, "
+        f"marg stage 1): {calls}")
+    if plain and not calls:
+        fail(f"{where}: the plain-twin run called no twin")
+    if not plain and any(calls.values()):
+        fail(f"{where}: the card path called a plain twin of K11-K14: {calls}")
+
+
+def estimator_kernels():
+    """K11-K14."""
+    from vplines_slam_tpu_torch.estimator.linearize import WINDOW_LIN
+    from vplines_slam_tpu_torch.solver.lm import SCHUR_SOLVE, WINDOW_BLOCKS
+    from vplines_slam_tpu_torch.solver.marginalization import MARG_WINDOW
+
+    return [WINDOW_LIN, WINDOW_BLOCKS, SCHUR_SOLVE, MARG_WINDOW]
+
+
+def phase_slice(S, plain=False):
+    """Phase 4; plain=True runs it on the plain twins of K11-K14 (the
+    --estimator-witness run)."""
+    if plain:
+        with plain_estimator():
+            return _slice(S, True)
+    return _slice(S, False)
+
+
+def _slice(S, plain):
     import torch
 
     from vplines_slam_tpu_torch.kernels import all_kernels
@@ -687,9 +985,13 @@ def phase_slice(S):
 
     from vplines_slam_tpu_torch.utils.stats import SPANS
 
-    kernels = all_kernels()[:5] + [PREINTEGRATE]  # the point front-end's (K1-K4) + K10
+    from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
+
+    # the point front-end's (K1-K4), K10 and the estimator's (K11-K14)
+    kernels = all_kernels()[:5] + [PREINTEGRATE] + ([] if plain else estimator_kernels())
     for k in all_kernels():
         k.launches = 0
+    TWIN_CALLS.clear()
     torch.cuda.synchronize()
     SPANS.start()
     t0 = time.perf_counter()
@@ -697,6 +999,7 @@ def phase_slice(S):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     SPANS.stop()
+    estimator_check(plain, "points slice")
     launches = {k.name: k.launches for k in kernels}
     log(f"launches during the run: {launches}")
     unexpected = {k.name: k.launches for k in all_kernels() if k not in kernels and k.launches}
@@ -757,8 +1060,16 @@ def phase_slice(S):
         lambda: loop.run(carry, *extra), N_SYNC, np.median(fe_ms[st] + be_ms[st]))
 
 
-def phase_lines(S):
-    """Phase 5: the lines-on device loop on the same world."""
+def phase_lines(S, plain=False):
+    """Phase 5: the lines-on device loop on the same world; plain=True runs
+    it on the plain twins of K11-K14."""
+    if plain:
+        with plain_estimator():
+            return _lines(S, True)
+    return _lines(S, False)
+
+
+def _lines(S, plain):
     import torch
 
     from vplines_slam_tpu_torch.kernels import all_kernels
@@ -792,9 +1103,13 @@ def phase_lines(S):
 
     from vplines_slam_tpu_torch.utils.stats import SPANS
 
-    kernels = [k for k in all_kernels() if k not in (CLAHE_LUT, CLAHE_APPLY)]  # CLAHE off
+    from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
+
+    idle = (CLAHE_LUT, CLAHE_APPLY) + (tuple(estimator_kernels()) if plain else ())
+    kernels = [k for k in all_kernels() if k not in idle]  # CLAHE off
     for k in all_kernels():
         k.launches = 0
+    TWIN_CALLS.clear()
     torch.cuda.synchronize()
     SPANS.start()
     t0 = time.perf_counter()
@@ -802,6 +1117,7 @@ def phase_lines(S):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     SPANS.stop()
+    estimator_check(plain, "lines slice")
     launches = {k.name: k.launches for k in kernels}
     log(f"launches during the lines run: {launches}")
     data = carry[3]
@@ -1017,8 +1333,11 @@ def _cold_start(C, profile, draws, plain):
         if on_card:
             torch.cuda.synchronize()
 
+    from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
+
     for k in all_kernels():
         k.launches = 0
+    TWIN_CALLS.clear()
     outs, walls, init_frame, init_wall = [], [], None, None
     j = 0
     t_track = None
@@ -1050,6 +1369,8 @@ def _cold_start(C, profile, draws, plain):
         outs.append(last)
     sync()
     SPANS.stop()
+    if on_card:
+        estimator_check(False, "cold start")
     if init_frame is None:
         fail("the stream ended before the VIO initialized")
     n_tracked = j - 1 - init_frame
@@ -1180,6 +1501,38 @@ def phase_cold_witness(C):
         log(f"  witness: {line}")
 
 
+def phase_estimator_witness(S, SL, C, sl, ll, cs, t_start):
+    """Phases 4-6 again on the kernels (each must repeat its ATE to the last
+    printed digit: K12-K14 reduce in a fixed order), then phases 4-5 on the
+    plain twins of K11-K14 in the same call (ATE within 0.01 m of the
+    kernels')."""
+    runs = [("points slice", lambda: phase_slice(S)[1], sl),
+            ("lines slice", lambda: phase_lines(SL)[1], ll),
+            ("cold start", lambda: phase_cold_start(C)[1], cs)]
+    for label, run, first in runs:
+        log(f"[{time.perf_counter() - t_start:.0f} s] estimator witness: {label} again, kernels")
+        again = run()
+        same = f"{again['ate']:.4f}" == f"{first['ate']:.4f}"
+        log(f"  witness: {label} ATE {first['ate']:.4f} m, again {again['ate']:.4f} m, "
+            f"ms/frame {first['ms_frame']:.2f} / {again['ms_frame']:.2f}: "
+            f"{'repeats' if same else 'DIFFERS'}")
+        if not same:
+            fail(f"the {label} did not repeat its ATE on the kernels")
+    for label, run, first in (("points slice", lambda: phase_slice(S, plain=True)[1], sl),
+                              ("lines slice", lambda: phase_lines(SL, plain=True)[1], ll)):
+        log(f"[{time.perf_counter() - t_start:.0f} s] estimator witness: {label}, plain twins "
+            f"of K11-K14")
+        pl = run()
+        d = abs(pl["ate"] - first["ate"])
+        log(f"  witness: {label} ATE kernels {first['ate']:.4f} m, plain twins {pl['ate']:.4f} m "
+            f"(|diff| {d:.4f}, bar 0.01 m); ms/frame {first['ms_frame']:.2f} against "
+            f"{pl['ms_frame']:.2f}, track_step median {first['be_ms']:.2f} against "
+            f"{pl['be_ms']:.2f} ms, host syncs/frame {first['syncs']:.1f} against "
+            f"{pl['syncs']:.1f}")
+        if not d <= 0.01:
+            fail(f"the {label}'s ATE on the plain twins is {d:.4f} m from the kernels'")
+
+
 def phase_profile(run, n, frame_ms):
     """torch.profiler over n extra frames driven by run() (the same frames
     ran once already, so the run is warm).
@@ -1222,6 +1575,10 @@ def main(argv=None):
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile each slice's extra frames with torch.profiler")
+    ap.add_argument("--estimator-witness", action="store_true",
+                    help="after phase 6, run phases 4-6 again with the kernels (their ATE "
+                         "must repeat) and phases 4-5 with the plain twins of K11-K14 "
+                         "(their ATE within 0.01 m of the kernels')")
     ap.add_argument("--cold-witness", action="store_true",
                     help="after phase 6, run it again with the plain twins of K9/K10, with "
                          "a CPU run's draws, and with other draw seeds (ATE of each)")
@@ -1253,6 +1610,13 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.2f} s")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 3: kernels against their plain twins")
     rec = phase_kernels(S, SL)
+    t0 = time.perf_counter()
+    windows = {"points": estimator_window(S, False), "lines": estimator_window(SL, True)}
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 3, estimator: K11-K14 on the windows "
+        f"of the two slices' warm-ups + {N_EST_FRAMES} frames on the plain twins (staged in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    phase_estimator_kernels(rec, windows)
+    del windows
     if args.kernels_only:
         device_times(rec)
         return
@@ -1265,6 +1629,8 @@ def main(argv=None):
     if args.cold_witness:
         log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
         phase_cold_witness(C)
+    if args.estimator_witness:
+        phase_estimator_witness(S, SL, C, sl, ll, cs, t_start)
     # profiler sessions last: they slow every later launch of the process
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel device times (torch.profiler)")
     device_times(rec)

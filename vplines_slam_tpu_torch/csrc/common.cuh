@@ -3,6 +3,20 @@
 
 #include <cuda_runtime.h>
 
+// Launch through a macro, so that the estimator kernels' sources read the
+// same under nvcc and under a host C++ compiler with a serial stand-in (their
+// loops stride by blockDim, so one thread per block computes the same).
+#ifndef VP_LAUNCH
+#define VP_LAUNCH(kern, grid, block, smem, stream, ...) \
+  kern<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+// Dynamic shared memory of the launch, as an array of `type`.
+#ifndef VP_DYN_SMEM
+#define VP_DYN_SMEM(type, name)                                   \
+  extern __shared__ __align__(16) unsigned char vp_dyn_smem_[];   \
+  type* name = reinterpret_cast<type*>(vp_dyn_smem_)
+#endif
+
 namespace vp {
 
 __device__ __forceinline__ float warp_sum(float v) {

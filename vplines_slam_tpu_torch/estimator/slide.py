@@ -13,15 +13,18 @@ import torch
 from torch.func import jacfwd
 
 from ..models import imu as imu_mod
+from ..solver import lm as lm_mod
 from ..solver import marginalization as marg_mod
 from ..utils.geometry import cross, quat_conj, quat_rotate
 from ..utils.tree import tree_map
+from .linearize import window_blocks
 from .window import (
     TrackData,
     WindowConfig,
     WindowState,
     _first_obs,
     camera_poses,
+    layout_for,
     retract_all,
     window_residuals,
 )
@@ -190,6 +193,58 @@ def marginalize_old(state: WindowState, data: TrackData, cfg: WindowConfig,
     IMU(0,1) + point factors anchored at frame 0 and, in the lines layout
     with cfg.marg_lines, line factors of lines first seen at frame 0 (relo
     and VP factors never enter)."""
+    data_r = marginalization_stack(data, cfg)
+    x0 = (state, data.pt_inv_depth) + ((data.ln_orth,) if use_lines else ())
+    stack_prior = _stack_prior_blocks if state.p.is_cuda else stack_prior_plain
+    Jp, rp, r0 = stack_prior(x0, data_r, cfg, params, use_lines)
+    Jp = marg_mod.project_out_nullspace(Jp, gauge_nullspace(state, cfg))
+    nd = cfg.nd
+    # χ²-capped prior: scale by α = min(1, cap / ms), ms the energy-weighted
+    # mean whitened square Σr⁴/Σr² of the marginalized (non-prior) rows
+    r2 = r0[nd:] * r0[nd:]
+    ms = torch.sum(r2 * r2) / torch.clamp(torch.sum(r2), min=1e-12)
+    alpha = torch.clamp(cfg.prior_chi2_cap / torch.clamp(ms, min=1e-9), max=1.0)
+    return marg_mod.Prior(J=Jp * alpha, r0=rp * alpha,
+                          valid=torch.ones((), dtype=torch.bool, device=Jp.device))
+
+
+def _stack_prior_blocks(x0, data_r, cfg, params, use_lines):
+    """The marginalization stack's √-prior on the dense block from its
+    Jacobian blocks (K11), their block normal equations (K12) and stage 1
+    (K14): (J_prior [nd, nd], r_prior [nd], the stack's residuals)."""
+    blocks = window_blocks(x0, data_r, cfg, params, use_relo=False, use_vps=False)
+    ne = lm_mod.assemble_blocks(blocks, layout_for(cfg, use_lines, use_relo=False, use_vps=False))
+    Jp, rp = marg_mod.marginalize_window_blocks(*ne[:2], cfg.nd, 0, 15, *ne[2:5], *ne[5:],
+                                                out_dtype=x0[0].p.dtype)
+    return Jp, rp, blocks.r
+
+
+def stack_prior_plain(x0, data_r, cfg, params, use_lines):
+    """The twin of ``_stack_prior_blocks``: the stack's dense Jacobian by
+    ``jacfwd`` and ``marginalize_window``.  CPU tensors take it: the clip
+    gates and the nullspace projection carry last-bit differences of the
+    prior into later costs at the 1e-5 level, and the parity tests hold the
+    port to the reference through this route's rounding."""
+    lm_mod.TWIN_CALLS["marg_stack"] += 1
+    zero = torch.zeros(cfg.n_columns(use_lines), dtype=x0[0].p.dtype, device=x0[0].p.device)
+
+    def r_of(d):
+        return window_residuals(retract_all(x0, d, cfg), data_r, cfg, params, use_relo=False,
+                                use_vps=False)
+
+    r0 = r_of(zero)
+    J = jacfwd(r_of)(zero)
+    Jp, rp = marg_mod.marginalize_window(
+        J, r0, cfg.nd, dense_start=0, dense_size=15, n_points=cfg.max_points,
+        n_lines=cfg.max_lines if use_lines else 0)
+    return Jp[:cfg.nd, :cfg.nd], rp[:cfg.nd], r0
+
+
+def marginalization_stack(data: TrackData, cfg: WindowConfig) -> TrackData:
+    """The tables whose residual stack (without relo and VP rows) is the
+    marginalization's: IMU(0, 1), the point tracks marginalize_old absorbs
+    and, with cfg.marg_lines, the lines first seen at frame 0 (without their
+    frame-0 factor); everything else masked out."""
     anchored = _absorbed_points(data)
     imu_valid_r = torch.zeros_like(data.imu_valid)
     imu_valid_r[0] = data.imu_valid[0]
@@ -199,30 +254,8 @@ def marginalize_old(state: WindowState, data: TrackData, cfg: WindowConfig,
         ln_mask_r[:, 0] = False
     else:  # live-only lines: their factors never enter the prior
         ln_mask_r = torch.zeros_like(data.ln_mask)
-    data_r = data._replace(pt_mask=data.pt_mask & anchored[:, None], imu_valid=imu_valid_r,
-                           ln_mask=ln_mask_r)
-    x0 = (state, data.pt_inv_depth) + ((data.ln_orth,) if use_lines else ())
-    zero = torch.zeros(cfg.n_columns(use_lines), dtype=state.p.dtype, device=state.p.device)
-
-    def r_of(d):
-        return window_residuals(retract_all(x0, d, cfg), data_r, cfg, params, use_relo=False,
-                                use_vps=False)
-
-    r0 = r_of(zero)
-    J = jacfwd(r_of)(zero)
-    Jp_full, rp_full = marg_mod.marginalize_window(
-        J, r0, cfg.nd, dense_start=0, dense_size=15, n_points=cfg.max_points,
-        n_lines=cfg.max_lines if use_lines else 0)
-    nd = cfg.nd
-    Jp = marg_mod.project_out_nullspace(Jp_full[:nd, :nd], gauge_nullspace(state, cfg))
-    rp = rp_full[:nd]
-    # χ²-capped prior: scale by α = min(1, cap / ms), ms the energy-weighted
-    # mean whitened square Σr⁴/Σr² of the marginalized (non-prior) rows
-    r2 = r0[nd:] * r0[nd:]
-    ms = torch.sum(r2 * r2) / torch.clamp(torch.sum(r2), min=1e-12)
-    alpha = torch.clamp(cfg.prior_chi2_cap / torch.clamp(ms, min=1e-9), max=1.0)
-    return marg_mod.Prior(J=Jp * alpha, r0=rp * alpha,
-                          valid=torch.ones((), dtype=torch.bool, device=Jp.device))
+    return data._replace(pt_mask=data.pt_mask & anchored[:, None], imu_valid=imu_valid_r,
+                         ln_mask=ln_mask_r)
 
 
 def _shift_frames(arr):
@@ -330,8 +363,10 @@ def slide_window_new(state: WindowState, data: TrackData, cfg: WindowConfig,
     nd = cfg.nd
     dev = state.p.device
 
-    Jp, rp = marg_mod.marginalize_window(data.prior.J, data.prior.r0, nd,
-                                         dense_start=15 * s, dense_size=15)
+    # the prior alone: H = JᵀJ, g = -Jᵀr, no landmarks (stage 1 is K14)
+    J64, r64 = data.prior.J.to(torch.float64), data.prior.r0.to(torch.float64)
+    Jp, rp = marg_mod.marginalize_window_blocks(J64.T @ J64, -(J64.T @ r64), nd, 15 * s, 15,
+                                                out_dtype=data.prior.J.dtype)
     Jp = marg_mod.project_out_nullspace(Jp, gauge_nullspace(data.prior_state, cfg))
     perm = torch.arange(nd, device=dev)
     perm[15 * s: 15 * (s + 1)] = -1

@@ -345,11 +345,13 @@ def retract_all(x, delta, cfg: WindowConfig):
     return out
 
 
-def layout_for(cfg: WindowConfig, use_lines: bool = False):
+def layout_for(cfg: WindowConfig, use_lines: bool = False, use_relo: bool = True,
+               use_vps: bool = True):
+    """The rows and columns of ``window_residuals(x, ..., use_relo, use_vps)``."""
     if not use_lines:
-        return lm_mod.WindowLayout(nd=cfg.nd, nf=cfg.nf, P=cfg.max_points)
+        return lm_mod.WindowLayout(nd=cfg.nd, nf=cfg.nf, P=cfg.max_points, has_relo=use_relo)
     return lm_mod.WindowLayout(nd=cfg.nd, nf=cfg.nf, P=cfg.max_points, L=cfg.max_lines,
-                               has_lines=True, has_vps=True)
+                               has_lines=True, has_vps=use_vps, has_relo=use_relo)
 
 
 # ---------------------------------------------------------------------------
@@ -361,10 +363,14 @@ def solve_window(state: WindowState, data: TrackData, cfg: WindowConfig,
                  params: imu_mod.ImuParams, num_iters: int | None = None,
                  use_lines: bool = False):
     """Sliding-window BA + yaw/position gauge re-anchoring (the solved world
-    lines ride the same correction)."""
+    lines ride the same correction).  The LM's linearization and cost pass
+    are K11 (``estimator/linearize.py``) on CUDA tensors."""
+    from .linearize import window_blocks, window_cost_residuals
+
     x0 = (state, data.pt_inv_depth) + ((data.ln_orth,) if use_lines else ())
     out = lm_mod.lm_solve_window(
-        lambda x: window_residuals(x, data, cfg, params),
+        lambda x: window_cost_residuals(x, data, cfg, params),
+        lambda x: window_blocks(x, data, cfg, params),
         lambda x, d: retract_all(x, d, cfg),
         x0,
         layout_for(cfg, use_lines),

@@ -134,6 +134,14 @@ class Kernel:
         self.launches += 1
 
 
+def args_struct(name, pointers, ints=(), doubles=()):
+    """A ctypes Structure of void pointers, then C ints, then doubles: the
+    field order of the argument struct a kernel's C entry takes by pointer."""
+    fields = ([(n, P) for n in pointers] + [(n, I) for n in ints]
+              + [(n, ctypes.c_double) for n in doubles])
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
 def check(t, name, dtype=torch.float32, ndim=None, shape=None):
     """Validate a tensor handed to a kernel: CUDA, dtype, rank or exact shape,
     contiguity.  Returns its data pointer."""
@@ -152,12 +160,17 @@ def check(t, name, dtype=torch.float32, ndim=None, shape=None):
 
 def all_kernels():
     """Every kernel of the package: the point front-end's (K1-K4), the line
-    front-end's (K5-K8), then CLAHE (K9, both trackers with equalize) and
-    IMU preintegration (K10, the estimator)."""
+    front-end's (K5-K8), then CLAHE (K9, both trackers with equalize), IMU
+    preintegration (K10) and the estimator's window linearization, block
+    assembly, Schur solve and marginalization (K11-K14)."""
+    from .estimator import linearize
     from .models import imu
     from .ops import corners, image, klt, line_match, lines, mvg, vp
+    from .solver import lm, marginalization
 
     return [image.PYR_DOWN, klt.KLT_TRACK_LEVEL, corners.CORNER_RESPONSE,
             corners.CORNER_SELECT, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
             lines.LINE_ANCHORS, lines.LINE_GROW, line_match.LINE_VOTE, vp.VP_GRID,
-            vp.VP_SCORE, image.CLAHE_LUT, image.CLAHE_APPLY, imu.PREINTEGRATE]
+            vp.VP_SCORE, image.CLAHE_LUT, image.CLAHE_APPLY, imu.PREINTEGRATE,
+            linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
+            marginalization.MARG_WINDOW]
