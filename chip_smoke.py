@@ -35,17 +35,38 @@ Phases (any failure exits nonzero; there is no CPU path):
      off; IMU preintegration (K10) runs in both;
   6. cold start: ``SlamSystem`` built from configs/euroc.yaml's values,
      written out here (camera, IMU noise, extrinsic, estimator, frontend and
-     line_frontend with CLAHE on; the profile's loop closure is cut), fed
-     200 Hz IMU and 752x480 rendered frames at EuRoC-epoch stamps from t = 0
-     of the figure-8 in phase 5's world, the body mounted as EuRoC's:
-     window fill, the visual-inertial initializer (it must succeed within
-     N_INIT_MAX frames), then N_TRACK tracked frames, with every kernel's
-     launch count read around the run; prints the init frame and the
-     initializing call's wall time, ms/frame, the CUDA-event split (front
-     ends, the two clahe calls, the VIO step and its preintegrate), host
-     syncs and solved lines; asserts no reboot (failure flag), finite
-     outputs and aligned ATE < 0.25 m.  Its launch counts go to the kernels
-     JSON.
+     line_frontend with CLAHE on, and the pose_graph block: loop closure on,
+     500 FAST + BRIEF per keyframe), fed 200 Hz IMU and 752x480 rendered
+     frames at EuRoC-epoch stamps from t = 0 of the figure-8 in phase 5's
+     world, the body mounted as EuRoC's: window fill, the visual-inertial
+     initializer (it must succeed within N_INIT_MAX frames), then N_TRACK
+     tracked frames, with every kernel's launch count read around the run;
+     prints the init frame and the initializing call's wall time, ms/frame,
+     the CUDA-event split (front ends, the two clahe calls, the VIO step and
+     its preintegrate, the loop stage with its extract and retrieve spans),
+     host syncs, solved lines, the keyframes inserted into the loop-closure
+     database and the launches of K15-K17; asserts no reboot (failure flag),
+     finite outputs, aligned ATE < 0.25 m, and p_corrected == p_vio (no loop
+     can close within skip_recent = 50 keyframes, so verification, K18 and
+     K19 stay idle).  Its launch counts of K1-K14 go to the kernels JSON;
+  7. loop-closure circuit: the chain of loop closure (extract -> add ->
+     retrieve -> candidate gate -> oldest-first verification -> record,
+     then optimize_4dof and drift_correction) over 2 laps of
+     loop_trajectory (radius 3 m, 64 keyframes a lap) at 752x480 with the
+     EuRoC camera and the profile's PoseGraphConfig, the keyframes carrying
+     a synthetic VIO drift; asserts >= 1 verified loop, each a true revisit
+     (< 1.0 m), and that the PGO at least halves the last keyframe's
+     position error; prints the loops, CUDA-event ms per stage, launches per
+     keyframe and the error before/after.  Its launch counts of K15-K19 go
+     to the kernels JSON.
+  Phase 3 also holds loop closure's kernels against their plain twins at the
+  profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
+  K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
+  signature (codes exact, signature 1e-6, the projection matmul timed as its
+  library call), K18's 256 PnP hypotheses against the f64 twin (full-rank
+  counts exact, R/t 1e-6), K19's residuals and normal equations at K = 256
+  (1e-12 of each one's largest entry, the dense f64 solve timed beside it).
+  Phases 6-7 assert that no plain twin of K15-K19 ran.
   Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
   marginalization) was called.
@@ -922,6 +943,426 @@ def marg_ops(ne, cfg):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 3, loop closure: K15-K19 against their plain twins
+# ---------------------------------------------------------------------------
+
+
+def loop_kernels():
+    """K15-K19."""
+    from vplines_slam_tpu_torch.models.pose_graph import PGO4
+    from vplines_slam_tpu_torch.ops.brief import BRIEF, FAST, HAMMING_MATCH, SIMHASH
+    from vplines_slam_tpu_torch.ops.mvg import PNP_HYPOTHESES
+
+    return [FAST, BRIEF, HAMMING_MATCH, SIMHASH, PNP_HYPOTHESES, PGO4]
+
+
+def loop_twin_check(where):
+    """No plain twin of K15-K19 ran."""
+    from vplines_slam_tpu_torch.kernels import TWIN_CALLS
+
+    calls = dict(TWIN_CALLS)
+    log(f"  calls of the plain twins of K15-K19: {calls}")
+    if any(calls.values()):
+        fail(f"{where}: the card path called a plain twin of K15-K19: {calls}")
+
+
+def euroc_pose_graph():
+    """configs/euroc.yaml's pose_graph block (n_features 500, loop closure
+    on) over PoseGraphConfig's defaults, as load_profile reads it."""
+    from vplines_slam_tpu_torch.models.pose_graph import PoseGraphConfig
+
+    return PoseGraphConfig(n_features=500, skip_cnt=0, skip_dis=0.0, loop_edge_weight=1.0)
+
+
+def pgo_database(dev, K=256, n=200, seed=SEED):
+    """A K19 input at the profile's capacity: n keyframes along a 3 m circle
+    with a drifting yaw and translation, 12 loop edges (one on an inactive
+    row) and keyframe 3 of a loaded map (seq 0), in f32 as on the card."""
+    import torch
+
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+    from vplines_slam_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(n) / 64
+    yaw_d = np.cumsum(rng.normal(0, 0.3, n))
+    t_d = np.cumsum(rng.normal(0, 0.02, (n, 3)), axis=0)
+    p = np.stack([3 * np.cos(a), 3 * np.sin(a), 0.2 * np.sin(2 * a)], 1) + t_d
+    ypr = np.stack([np.degrees(a) + 180.0 + yaw_d, 4 * np.sin(a), 3 * np.cos(a)], 1)
+    f32 = torch.float32
+    t = lambda x, dt=f32: torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
+    db = pg_mod.empty_db(pg_mod.PoseGraphConfig(max_keyframes=K, n_features=4, n_window_pts=4),
+                         f32, dev)
+    pad = lambda x, fill=0.0: np.concatenate([x, np.full((K - n,) + x.shape[1:], fill)])
+    q = geo.rot_to_quat(geo.ypr_to_rot(t(pad(ypr), torch.float64))).to(f32)
+    loop_to = np.full(K, -1)
+    loop_t = np.zeros((K, 3))
+    loop_yaw = np.zeros(K)
+    for j in list(range(70, n, 11)) + [n + 5]:
+        loop_to[j] = j - 64
+        loop_t[j] = rng.normal(0, 0.1, 3)
+        loop_yaw[j] = rng.normal(0, 2.0)
+    seq = np.ones(K, np.int64)
+    seq[3] = 0
+    return db._replace(count=torch.tensor(n, device=dev), seq=t(seq, torch.int64),
+                       p_vio=t(pad(p)), q_vio=q, p_pgo=t(pad(p)), yaw_pgo=t(pad(ypr[:, 0])),
+                       loop_to=t(loop_to, torch.int64), loop_t=t(loop_t), loop_yaw=t(loop_yaw))
+
+
+def phase_loop_kernels(rec, S):
+    """K15-K19 at the profile's sizes: FAST + NMS on a 752x480 frame, BRIEF
+    at its 500 corners and at 64 window points, the 64 x 500 Hamming match
+    in both gate settings and the SimHash signature, 256 PnP hypotheses on
+    64 points (~40% outliers), the 4-DoF pose graph at K = 256."""
+    import torch
+
+    from vplines_slam_tpu_torch.kernels import TWIN_CALLS
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+    from vplines_slam_tpu_torch.ops import brief, mvg
+    from vplines_slam_tpu_torch.solver import lm
+
+    img0 = S["imgs"][0].contiguous()
+    dev = img0.device
+    n_px = H * W
+    F_, Wp = 500, 64
+
+    # K15 FAST-9 + 7x7 NMS: score map and detections exact
+    sk, sp = brief.fast_score(img0), brief.fast_score_plain(img0)
+    xy_k, v_k = brief.detect_fast(img0, F_)
+    xy_p, v_p = brief.detect_fast_plain(img0, F_)
+    err15 = max(float((sk - sp).abs().max()), float((xy_k - xy_p).abs().max()))
+    same15 = bool(torch.equal(v_k, v_p)) and err15 == 0.0
+    log(f"K15 fast: score map max |kernel - plain| = {float((sk - sp).abs().max()):.3e}, "
+        f"detections {int(v_k.sum())} of {F_} equal: {same15} (tol: exact)")
+    if not same15:
+        fail("K15 fast disagrees with its plain version")
+    record(rec, "fast", err15, lambda: brief._fast_cuda(img0, 0.05, True),
+           lambda: brief._nms_plain(brief.fast_score_plain(img0), 3), "fast_",
+           4 * 2 * n_px, n_px * (16 * 8 + 40 + 49))
+
+    # K16 blur + BRIEF at the 500 corners and at 64 window points (corners
+    # moved by up to 2 px, so most fall between pixels)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    wxy = xy_k[:Wp] + 4.0 * torch.rand(Wp, 2, generator=gen, device=dev) - 2.0
+    wv = torch.rand(Wp, generator=gen, device=dev) < 0.9
+    d_k, d_p = brief.describe_brief(img0, xy_k, v_k), brief.describe_brief_plain(img0, xy_k, v_k)
+    w_k, w_p = brief.describe_brief(img0, wxy, wv), brief.describe_brief_plain(img0, wxy, wv)
+    same16 = bool(torch.equal(d_k, d_p)) and bool(torch.equal(w_k, w_p))
+    n_diff = int((d_k != d_p).sum()) + int((w_k != w_p).sum())
+    log(f"K16 brief: 500 corners and 64 window points, every bit equal: {same16} "
+        f"({n_diff} words differ; tol: exact)")
+    if not same16:
+        fail("K16 brief disagrees with its plain version")
+    record(rec, "brief", float(n_diff), lambda: brief.describe_brief(img0, xy_k, v_k),
+           lambda: brief.describe_brief_plain(img0, xy_k, v_k), "brief_",
+           4 * n_px + F_ * (8 + 1 + 32), n_px * 28 + F_ * 256 * 2 * 14)
+
+    # K17 (a) match 64 x 500, the verification's gates and the default ones
+    outs = {}
+    for margin, mutual in ((16, True), (0, False)):
+        ik, dk = brief.match_descriptors(w_k, wv, d_k, v_k, 80, margin, mutual)
+        ip, dp = brief.match_descriptors_plain(w_k, wv, d_k, v_k, 80, margin, mutual)
+        outs[(margin, mutual)] = (bool(torch.equal(ik, ip)) and bool(torch.equal(dk, dp)),
+                                  int((ik >= 0).sum()))
+    log(f"K17 hamming_match: (margin, mutual) -> (equal, matches): {outs} (tol: exact)")
+    if not all(ok for ok, _ in outs.values()):
+        fail("K17 hamming_match disagrees with its plain version")
+    hd = brief.hamming_matrix(w_k, d_k)
+    if not torch.equal(hd, brief.hamming_matrix_plain(w_k, d_k)):
+        fail("K17's distance table disagrees with hamming_matrix_plain")
+    record(rec, "hamming_match", 0.0,
+           lambda: brief.match_descriptors(w_k, wv, d_k, v_k, 80, 16, True),
+           lambda: brief.match_descriptors_plain(w_k, wv, d_k, v_k, 80, 16, True),
+           "hamming_match", (Wp + F_) * 33 + Wp * 8, 2 * Wp * F_ * 8 * 3)
+
+    # K17 (b) the signature of the 500 corners: codes exact, signature 1e-6
+    codes = torch.empty(F_, 256, dtype=torch.int8, device=dev)
+    sig_k = brief.global_signature(d_k, v_k, xy=xy_k, img_hw=(H, W), codes_out=codes)
+    sig_p = brief.global_signature_plain(d_k, v_k, xy=xy_k, img_hw=(H, W))
+    codes_p = brief.simhash_codes_plain(d_k, v_k)
+    codes_same = bool(torch.equal(codes.to(torch.float32), codes_p))
+    err17 = float((sig_k - sig_p).abs().max())
+    log(f"K17 simhash_signature: codes equal: {codes_same} (tol: exact), signature max |kernel "
+        f"- plain| = {err17:.3e} (tol 1e-6)")
+    if not (codes_same and err17 <= 1e-6):
+        fail("K17 simhash_signature disagrees with its plain version")
+    bits = brief._unpack_bits(d_k) - 0.5
+    Wv = torch.from_numpy(brief._random_vocab(256, 256)).to(device=dev, dtype=torch.float32)
+    record(rec, "simhash_signature", err17,
+           lambda: brief.global_signature(d_k, v_k, xy=xy_k, img_hw=(H, W)),
+           lambda: brief.global_signature_plain(d_k, v_k, xy=xy_k, img_hw=(H, W)),
+           "hamming_simhash", F_ * (32 + 1 + 8) + 256 * 32 + 4 * 1024, F_ * 256 * 8 * 3,
+           library_fn=lambda: torch.sign(bits @ Wv))
+
+    # K18: 256 six-point hypotheses over 64 points, ~40% outliers, against
+    # the twin at f64 on the same (f32) inputs
+    N, n_hyp = 64, 256
+    g = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=torch.float64)
+    from vplines_slam_tpu_torch.utils import geometry as geo
+
+    R = geo.ypr_to_rot(torch.tensor([20.0, -5.0, 3.0], dtype=torch.float64, device=dev))
+    tt = torch.tensor([0.2, -0.1, 0.3], dtype=torch.float64, device=dev)
+    Xc = torch.stack([4 * g(N) - 2, 3 * g(N) - 1.5, 2 + 4 * g(N)], 1)
+    X_w = (Xc - tt) @ R
+    x = Xc[:, :2] / Xc[:, 2:3] + 2e-3 * (g(N, 2) - 0.5)
+    bad = g(N) < 0.4
+    x = torch.where(bad[:, None], 1.2 * g(N, 2) - 0.6, x)
+    mask = g(N) < 0.9
+    X32, x32 = X_w.float().contiguous(), x.float().contiguous()
+    draws = torch.randint(0, N, (n_hyp, 6), generator=gen, device=dev)
+    order = torch.argsort((~mask).to(torch.int8), stable=True)
+    idx = order[draws % torch.clamp(mask.sum(), min=6)]
+    thr = 8.0 / 460.0
+    Rk, tk, ck, ik = mvg.pnp_hypotheses(X32, x32, mask, idx, thr)
+    Rp, tp, cp, ip_ = mvg.pnp_hypotheses_plain(X32.double(), x32.double(), mask, idx, thr)
+    srt = torch.sort(idx, dim=1).values
+    full = (srt[:, 1:] != srt[:, :-1]).all(1) & mask[idx].all(1)
+    err18 = max(float((Rk - Rp)[full].abs().max()), float((tk - tp)[full].abs().max()))
+    counts_same = bool(torch.equal(ck[full], cp[full]))
+    chosen = int(torch.argmax(ck)), int(torch.argmax(cp))
+    log(f"K18 pnp_hypotheses: {int(full.sum())} full-rank of {n_hyp}, counts equal: "
+        f"{counts_same} (tol: exact), R/t max |kernel - f64 twin| = {err18:.3e} (tol 1e-6), "
+        f"chosen {chosen} with {int(ck.max())} of {int(mask.sum())} inliers")
+    if not (counts_same and err18 <= 1e-6 and chosen[0] == chosen[1]
+            and bool(full[chosen[0]])):
+        fail("K18 pnp_hypotheses disagrees with its plain version")
+    n_s = 6
+    record(rec, "pnp_hypotheses", err18, lambda: mvg.pnp_hypotheses(X32, x32, mask, idx, thr),
+           lambda: mvg.pnp_hypotheses_plain(X32, x32, mask, idx, thr), "pnp_kernel",
+           N * (20 + 1) + n_hyp * n_s * 8 + n_hyp * (12 * 8 + 4 + N),
+           # per hypothesis: A^T A over the sample, a 12x12 symmetric eigen-
+           # decomposition with vectors (~9 n^3), a 3x3 SVD, N reprojections
+           n_hyp * (n_s * 78 * 4 + 9 * 12 ** 3 + 400 + N * 30))
+
+    # K19 at K = 256: r, H and g against jacfwd + J^T J in f64
+    cfg = euroc_pose_graph()
+    db = pgo_database(dev)
+    K = db.p_vio.shape[0]
+    x0 = torch.cat([db.yaw_pgo[:, None], db.p_pgo], 1)
+    xk = x0 + 0.05 * (torch.rand(K, 4, generator=gen, device=dev) - 0.5)
+    ypr = pg_mod._ypr_vio(db)
+    rk, Hk, gk = pg_mod.pgo_normal(xk, db, ypr, cfg)
+    rp, Hp, gp = pg_mod.pgo_normal_plain(xk, db, ypr, cfg)
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+    errs19 = dict(r=rel(rk, rp), H=rel(Hk, Hp), g=rel(gk, gp))
+    err19 = max(errs19.values())
+    log(f"K19 pgo4: K = {K}, {int(db.count)} keyframes, {int((db.loop_to >= 0).sum())} loop "
+        f"edges: max |kernel - plain| / max |plain| {errs19} (tol 1e-12, f64)")
+    if not err19 <= 1e-12:
+        fail("K19 pgo4 disagrees with its plain version")
+    spec = lm.SchurSpec(dense_dim=4 * K)
+    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    solve_ms = time_ms(lambda: lm.schur_solve(Hk, gk, spec, lam))
+    log(f"  the dense {4 * K} x {4 * K} f64 solve beside it (solver/lm.schur_solve, "
+        f"torch.linalg Cholesky): {solve_ms:.4f} ms/call")
+    n_e = K * (cfg.seq_edges + 2)
+    record(rec, "pgo4", err19, lambda: pg_mod.pgo_normal(xk, db, ypr, cfg),
+           lambda: pg_mod.pgo_normal_plain(xk, db, ypr, cfg), "pgo4_",
+           K * 8 * 20 + K * 4 * 3 + 8 * (16 * K * K + 4 * K + 4 * n_e), n_e * (150 + 4 * 2 * 64))
+    rec["pgo4"]["solve_ms"] = solve_ms
+    TWIN_CALLS.clear()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the loop-closure circuit at the profile's size
+# ---------------------------------------------------------------------------
+
+N_LOOP_LAP = 64  # keyframes a lap of the circuit
+R_BC_INWARD = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))  # camera z = body x
+
+
+def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None, profile=False):
+    """The loop-closure chain over 2 laps of loop_trajectory (radius 3 m,
+    64 keyframes a lap) at 752x480 with the EuRoC camera, with the
+    profile's PoseGraphConfig, the keyframes carrying a synthetic VIO drift
+    (yaw walk 0.15 deg, translation walk 0.01 m, numpy seed 0): extract ->
+    add -> retrieve -> candidate gate -> oldest-first verification ->
+    record, then optimize_4dof and drift_correction.  Bars: >= 1 verified
+    loop, each a true revisit (< 1.0 m), the PGO at least halves the last
+    keyframe's position error.  Then the last loop's verification 3 times
+    more with host-sync debugging on (and, with profile, under
+    torch.profiler).  A CPU rehearsal passes a small camera, fewer
+    keyframes a lap and a PoseGraphConfig of that size (no CUDA events)."""
+    import torch
+
+    from vplines_slam_tpu_torch.kernels import TWIN_CALLS, all_kernels
+    from vplines_slam_tpu_torch.models import camera as cam_mod
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+    from vplines_slam_tpu_torch.utils import demo
+    from vplines_slam_tpu_torch.utils import geometry as geo
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
+    f32, f64 = torch.float32, torch.float64
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or euroc_pose_graph()
+    cam = cam or cam_mod.pinhole(461.6, 460.3, 363.0, 248.1, -2.917e-01, 8.228e-02, 5.333e-05,
+                                 -1.578e-04, width=W, height=H, dtype=f32, device=dev)
+    Hc, Wc = int(cam.height), int(cam.width)
+    q_ic = geo.rot_to_quat(torch.tensor(R_BC_INWARD, dtype=f64, device=dev)).to(f32)
+    p_ic = torch.zeros(3, dtype=f32, device=dev)
+    rend = demo.BlobWorldRenderer(cam, q_ic, p_ic, n_pts=700, seed=4, dtype=f32, device=dev)
+    traj = syn.loop_trajectory(radius=3.0)
+    times = np.linspace(0.0, 60.0, 2 * n_lap, endpoint=False)
+    rng = np.random.default_rng(0)
+    lift = lambda xy: cam_mod.lift(cam, xy)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def window_points(q_wb, p_wb):
+        q_cw, p_cw = geo.pose_inverse(*geo.pose_compose(q_wb, p_wb, q_ic, p_ic))
+        Xc = geo.transform_point(q_cw, p_cw, rend.X)
+        uv, vis = cam_mod.project(cam, Xc)
+        ok = (vis & (Xc[:, 2] > 0.5) & (uv[:, 0] >= 16) & (uv[:, 0] < Wc - 16)
+              & (uv[:, 1] >= 16) & (uv[:, 1] < Hc - 16))
+        idx = torch.argsort(torch.where(ok, Xc[:, 2], torch.full_like(Xc[:, 2], 1e9)),
+                            stable=True)[:cfg.n_window_pts]
+        return rend.X[idx], uv[idx], ok[idx]
+
+    # truth, drift and frames first, so the timed chain runs on staged data
+    staged = []
+    yaw_d, t_d = 0.0, np.zeros(3)
+    for t in times:
+        tt = torch.tensor(float(t), dtype=f64, device=dev)
+        q_gt, p_gt = traj.quat(tt).to(f32), traj.pos(tt).to(f32)
+        yaw_d += rng.normal(0.0, 0.15)
+        t_d = t_d + rng.normal(0.0, 0.01, 3)
+        Rz = geo.ypr_to_rot(torch.tensor([yaw_d, 0.0, 0.0], dtype=f32, device=dev))
+        td = torch.tensor(t_d, dtype=f32, device=dev)
+        w3d, wxy, wv = window_points(q_gt, p_gt)
+        staged.append(dict(p_gt=p_gt.cpu().numpy(), img=rend.render(q_gt, p_gt),
+                           p_vio=Rz @ p_gt + td, q_vio=geo.rot_to_quat(Rz @ geo.quat_to_rot(q_gt)),
+                           w3d=w3d @ Rz.T + td, wxy=wxy, wv=wv))
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    for k in all_kernels():
+        k.launches = 0
+    TWIN_CALLS.clear()
+    db = pg_mod.empty_db(cfg, f32, dev)
+    ev = {s: [] for s in ("extract", "retrieve", "verify", "pgo")}
+
+    def timed(stage, fn):
+        if not on_card:
+            return fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        ev[stage].append((a, b))
+        return out
+
+    loops, n_verify = [], 0
+    t0 = time.perf_counter()
+    for k, kf in enumerate(staged):
+        if k >= db.p_vio.shape[0]:
+            db = pg_mod.grow_db(db)
+
+        def extract(db=db, kf=kf):
+            fb = pg_mod.extract_keyframe_features(kf["img"], lift, cfg,
+                                                  window_xy=(kf["wxy"], kf["wv"]))
+            return fb, pg_mod.add_keyframe(db, cfg, kf["p_vio"], kf["q_vio"], fb["sig"],
+                                           fb["desc"], fb["kp_norm"], fb["kp_valid"],
+                                           fb["wdesc"], kf["w3d"], kf["wv"])
+
+        fb, db = timed("extract", extract)
+        cand_i, cand_s, floor = (x.cpu().numpy() for x in timed(
+            "retrieve", lambda db=db, fb=fb: pg_mod.retrieve_candidates(db, cfg, fb["sig"])))
+        best = float(cand_s[0])
+        if k <= cfg.skip_recent or best <= max(cfg.min_score, float(floor)):
+            continue
+        queue = sorted(int(c) for c, s in zip(cand_i, cand_s) if s >= best - cfg.rel_margin)
+        for cand in queue:  # oldest first; the next one when a verification fails
+            draws = torch.randint(0, cfg.n_window_pts, (256, 6), generator=gen, device=dev)
+            lr = timed("verify", lambda cand=cand, draws=draws, db=db, fb=fb, kf=kf:
+                       pg_mod.verify_loop(db, cfg, cand, fb["wdesc"], kf["w3d"], kf["wv"],
+                                          kf["p_vio"], kf["q_vio"], draws, q_ic, p_ic))
+            n_verify += 1
+            if bool(lr.ok):
+                db = pg_mod.record_loop(db, k, cand, lr.rel_t, lr.rel_yaw)
+                loops.append((k, cand, int(lr.n_inliers), int(lr.n_matches)))
+                break
+    db2, out = timed("pgo", lambda: pg_mod.optimize_4dof(db, cfg))
+    R_d, t_d = pg_mod.drift_correction(db2, cfg)
+    sync()
+    wall = time.perf_counter() - t0
+    ms = {s: sum(a.elapsed_time(b) for a, b in v) for s, v in ev.items()}
+    n_kf = len(staged)
+    launches = {k.name: k.launches for k in loop_kernels()}
+    gt = np.stack([kf["p_gt"] for kf in staged])
+    err_before = np.linalg.norm(db.p_pgo[:n_kf].cpu().numpy() - gt, axis=1)
+    err_after = np.linalg.norm(db2.p_pgo[:n_kf].cpu().numpy() - gt, axis=1)
+    revisit = [float(np.linalg.norm(gt[k] - gt[c])) for k, c, _, _ in loops]
+    log(f"  {n_kf} keyframes ({Wc}x{Hc}, {cfg.n_features} FAST + BRIEF, {cfg.n_window_pts} window "
+        f"points, capacity {cfg.max_keyframes}, skip_recent {cfg.skip_recent}), "
+        f"{n_verify} verifications, {len(loops)} loops: {[(k, c) for k, c, _, _ in loops]}")
+    if loops:
+        log(f"  loop inliers / matches: {[(i, m) for _, _, i, m in loops]}; true distance of "
+            f"each loop's keyframes: max {max(revisit):.4f} m")
+    log(f"  CUDA-event ms in all: extract + add {ms['extract']:.2f} ({ms['extract'] / n_kf:.3f} "
+        f"per keyframe), retrieve {ms['retrieve']:.2f} ({ms['retrieve'] / n_kf:.3f} per "
+        f"keyframe), verify {ms['verify']:.2f} ({ms['verify'] / max(n_verify, 1):.3f} per "
+        f"verification), pgo {ms['pgo']:.2f} (one optimize_4dof, {cfg.pgo_iters} iterations); "
+        f"wall {wall:.2f} s")
+    log(f"  launches: {launches}; per keyframe: "
+        f"{ {n: round(c / n_kf, 3) for n, c in launches.items()} }")
+    log(f"  last keyframe's position error: before PGO {err_before[-1]:.4f} m, after "
+        f"{err_after[-1]:.4f} m (bar: at most half); mean over keyframes {err_before.mean():.4f} "
+        f"-> {err_after.mean():.4f} m; LM cost {float(out.cost0):.4f} -> {float(out.cost):.4f}")
+    if on_card:
+        loop_twin_check("loop-closure circuit")
+    if on_card and loops:
+        k, c = loops[-1][:2]
+        kf = staged[k]
+        wdesc = pg_mod.extract_keyframe_features(kf["img"], lift, cfg,
+                                                 window_xy=(kf["wxy"], kf["wv"]))["wdesc"]
+        draws = torch.randint(0, cfg.n_window_pts, (256, 6), generator=gen, device=dev)
+
+        def verify_again():
+            lr = pg_mod.verify_loop(db, cfg, c, wdesc, kf["w3d"], kf["wv"], kf["p_vio"],
+                                    kf["q_vio"], draws, q_ic, p_ic)
+            return bool(lr.ok)
+
+        verify_again()
+        torch.cuda.synchronize()
+        n_again = 3
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t1 = time.perf_counter()
+                for _ in range(n_again):
+                    verify_again()
+                wall_v = (time.perf_counter() - t1) / n_again
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message).lower() for w in caught) / n_again
+        log(f"  one verification again ({k} onto {c}): {1e3 * wall_v:.2f} ms wall with sync "
+            f"debugging on, {syncs:.1f} host syncs (the final ok readback included)")
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as tprofile
+
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_again):
+                    verify_again()
+                torch.cuda.synchronize()
+            log("  torch.profiler, 3 verifications (top ops by host time):")
+            for line in prof.key_averages().table(sort_by="cpu_time_total",
+                                                  row_limit=14).splitlines():
+                log("    " + line)
+    if not loops:
+        fail("phase 7: no loop verified")
+    if not max(revisit) < 1.0:
+        fail(f"phase 7: a loop is no true revisit ({max(revisit):.3f} m apart)")
+    if not err_after[-1] <= 0.5 * err_before[-1]:
+        fail("phase 7: the PGO did not halve the last keyframe's error")
+    if not bool(torch.isfinite(t_d).all()):
+        fail("phase 7: non-finite drift correction")
+    if on_card and any(c == 0 for c in launches.values()):
+        fail(f"phase 7: a kernel of the loop-closure path never launched: {launches}")
+    return launches, dict(loops=len(loops), n_verify=n_verify, ms=ms, n_kf=n_kf,
+                          err_before=float(err_before[-1]), err_after=float(err_after[-1]))
+
+
 def estimator_check(plain, where):
     """The plain twins of K11-K14 ran (plain) or not at all (the kernels)."""
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
@@ -1105,8 +1546,9 @@ def _lines(S, plain):
 
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
-    idle = (CLAHE_LUT, CLAHE_APPLY) + (tuple(estimator_kernels()) if plain else ())
-    kernels = [k for k in all_kernels() if k not in idle]  # CLAHE off
+    idle = ((CLAHE_LUT, CLAHE_APPLY) + tuple(loop_kernels())
+            + (tuple(estimator_kernels()) if plain else ()))
+    kernels = [k for k in all_kernels() if k not in idle]  # CLAHE off, no loop closure
     for k in all_kernels():
         k.launches = 0
     TWIN_CALLS.clear()
@@ -1288,9 +1730,9 @@ def plain_twins_of_k9_k10():
 
 
 def phase_cold_start(C, profile=False, draws=None, plain=False):
-    """Phase 6: SlamSystem from a cold start (loop closure cut), fill ->
-    initializer -> tracking, with every kernel's launches counted over the
-    run.  Works on CPU tensors too (a rehearsal: no events, no sync count).
+    """Phase 6: SlamSystem from a cold start with the profile's loop closure,
+    fill -> initializer -> tracking, with every kernel's launches counted
+    over the run.  Works on CPU tensors too (a rehearsal: no events, no sync count).
     The witness runs of --cold-witness pass draws=(generator device, seed)
     for ``use_draws``, or plain=True for ``plain_twins_of_k9_k10``."""
     if plain:
@@ -1312,13 +1754,15 @@ def _cold_start(C, profile, draws, plain):
 
     on_card = C["imgs"].is_cuda
     dev = C["imgs"].device
-    sysm = SlamSystem(C["cam"], C["wcfg"], C["tcfg"], C["lcfg"], imu_params=C["params"],
-                      q_ic=C["q_ic"], p_ic=C["p_ic"], use_loop_closure=False,
-                      dtype=torch.float32, device=dev)
+    sysm = SlamSystem(C["cam"], C["wcfg"], C["tcfg"], C["lcfg"], pg_cfg=euroc_pose_graph(),
+                      imu_params=C["params"], q_ic=C["q_ic"], p_ic=C["p_ic"],
+                      use_loop_closure=True, dtype=torch.float32, device=dev)
     if draws is not None:
         use_draws(sysm, *draws)
-    log(f"cold start: SlamSystem on the EuRoC profile's values (loop closure cut), native "
-        f"IMU synchronizer: {native_available()}, stamps from {C['frame_t'][0]:.6f} s")
+    log(f"cold start: SlamSystem on the EuRoC profile's values (loop closure on: "
+        f"{sysm.pg_cfg.n_features} FAST + BRIEF per keyframe, skip_recent "
+        f"{sysm.pg_cfg.skip_recent}), native IMU synchronizer: {native_available()}, stamps "
+        f"from {C['frame_t'][0]:.6f} s")
     n_total = C["imgs"].shape[0]
     imu_t, accs, gyrs, frame_t = C["imu_t"], C["accs"], C["gyrs"], C["frame_t"]
     state = dict(i=0)
@@ -1333,11 +1777,13 @@ def _cold_start(C, profile, draws, plain):
         if on_card:
             torch.cuda.synchronize()
 
+    from vplines_slam_tpu_torch.kernels import TWIN_CALLS as LOOP_TWIN_CALLS
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
     for k in all_kernels():
         k.launches = 0
     TWIN_CALLS.clear()
+    LOOP_TWIN_CALLS.clear()
     outs, walls, init_frame, init_wall = [], [], None, None
     j = 0
     t_track = None
@@ -1371,6 +1817,7 @@ def _cold_start(C, profile, draws, plain):
     SPANS.stop()
     if on_card:
         estimator_check(False, "cold start")
+        loop_twin_check("cold start")
     if init_frame is None:
         fail("the stream ended before the VIO initialized")
     n_tracked = j - 1 - init_frame
@@ -1386,14 +1833,21 @@ def _cold_start(C, profile, draws, plain):
         per = SPANS.per_frame_ms()[2:]  # the first tracked frames pay one-time costs
         spans = dict(frontend=("frontend",), line_frontend=("line_frontend",),
                      clahe=(CLAHE_LUT.name, CLAHE_APPLY.name), vio=("vio",),
-                     preintegrate=(PREINTEGRATE.name,))
+                     preintegrate=(PREINTEGRATE.name,), loop_stage=("loop_stage",),
+                     lc_extract=("lc_extract",), lc_retrieve=("lc_retrieve",))
         split = {k: float(np.median([sum(d.get(n, 0.0) for n in names) for d in per]))
                  for k, names in spans.items()}
+        lc_sum = {k: float(sum(d.get(k, 0.0) for d in per))
+                  for k in ("loop_stage", "lc_extract", "lc_retrieve")}
         log(f"  per-frame CUDA-event split, tracked frames 3..{n_tracked}: point front end "
             f"median {split['frontend']:.2f} ms, line front end (remap + line tracker) "
             f"{split['line_frontend']:.2f} ms, of which the two clahe calls {split['clahe']:.3f} "
             f"ms, VIO step {split['vio']:.2f} ms, of which preintegrate "
-            f"{split['preintegrate']:.3f} ms")
+            f"{split['preintegrate']:.3f} ms; loop stage median {split['loop_stage']:.3f} ms "
+            f"(over these frames in all: loop stage {lc_sum['loop_stage']:.2f} ms, of which "
+            f"extract + add {lc_sum['lc_extract']:.2f} ms, retrieve "
+            f"{lc_sum['lc_retrieve']:.2f} ms)")
+        split["lc_sum"] = lc_sum
     # every output is one frame's pose; the initializing frame's is the
     # second-newest window frame, the others the newest
     ts = np.array([o.t for o in outs])
@@ -1446,7 +1900,21 @@ def _cold_start(C, profile, draws, plain):
 
             res["profile"] = (run_profiled, N_SYNC,
                               split["frontend"] + split["line_frontend"] + split["vio"])
-    idle = {CLAHE_LUT.name, CLAHE_APPLY.name, PREINTEGRATE.name} if plain else ()
+    n_kf_db = sysm._db_count
+    loop_l = {k.name: k.launches for k in loop_kernels()}
+    lc_ms = sysm.stats.timers.mean("loop_stage")
+    log(f"  loop closure: {n_kf_db} keyframes inserted, loop_stage timer mean {lc_ms:.3f} ms "
+        f"per drain; launches of K15-K17: {loop_l}")
+    res["n_kf_db"], res["loop_stage_ms"], res["loop_launches"] = n_kf_db, lc_ms, loop_l
+    # no loop can close within skip_recent keyframes: verification, PnP and
+    # the pose graph stay idle, and the corrected pose is the VIO pose
+    idle = {k.name for k in loop_kernels()[2:3] + loop_kernels()[4:]}
+    if plain:
+        idle |= {CLAHE_LUT.name, CLAHE_APPLY.name, PREINTEGRATE.name}
+    if n_kf_db == 0:
+        fail("the cold-start run inserted no keyframe into the loop-closure database")
+    if not all(np.array_equal(o.p_corrected, o.p_vio) for o in outs):
+        fail("p_corrected differs from p_vio although no loop closed")
     if any(c == 0 for n, c in launches.items() if n not in idle):
         fail(f"a kernel of the cold-start path never launched: {launches}")
     if not np.all(np.isfinite(p_est)):
@@ -1610,6 +2078,8 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.2f} s")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 3: kernels against their plain twins")
     rec = phase_kernels(S, SL)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 3, loop closure: K15-K19")
+    phase_loop_kernels(rec, S)
     t0 = time.perf_counter()
     windows = {"points": estimator_window(S, False), "lines": estimator_window(SL, True)}
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 3, estimator: K11-K14 on the windows "
@@ -1626,6 +2096,8 @@ def main(argv=None):
     _, ll, prof_lines = phase_lines(SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
     launches, cs = phase_cold_start(C, profile=args.profile)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
+    loop_launches, lc = phase_loop_circuit(dev, profile=args.profile)
     if args.cold_witness:
         log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
         phase_cold_witness(C)
@@ -1647,16 +2119,18 @@ def main(argv=None):
 
     from vplines_slam_tpu_torch.kernels import all_kernels
 
-    # launches: the cold-start run (phase 6), which drives every kernel
+    # launches: K1-K14 from the cold-start run (phase 6), K15-K19 from the
+    # loop-closure circuit (phase 7), the path that drives all of them
     kernels_json = []
     for k in all_kernels():
         short = k.name.removeprefix("vp_")
         r = rec[short]
         kernels_json.append(dict(
             name=short, route="cuda", source=k.source, replaces=k.replaces,
-            launches=launches[k.name], max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            device_ms=r["device_ms"]))
+            launches=loop_launches.get(k.name, launches[k.name]), max_abs_err=r["err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], device_ms=r["device_ms"],
+            **({"solve_ms": r["solve_ms"]} if "solve_ms" in r else {})))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")
@@ -1671,7 +2145,16 @@ def main(argv=None):
         f"{sp['line_frontend']:.2f} ms, clahe x2 {sp['clahe']:.3f} ms, VIO {sp['vio']:.2f} ms, "
         f"preintegrate {sp['preintegrate']:.3f} ms; {cs['syncs']:.1f} host syncs/frame, "
         f"ATE {cs['ate']:.4f} m (scale truth/estimate {cs['scale']:.4f}, sim(3) ATE "
-        f"{cs['ate_sim3']:.4f} m), {cs['solved']} solved lines")
+        f"{cs['ate_sim3']:.4f} m), {cs['solved']} solved lines; loop closure: "
+        f"{cs['n_kf_db']} keyframes inserted, loop_stage {cs['loop_stage_ms']:.3f} ms per drain, "
+        f"loop-stage CUDA events {sp['lc_sum']['loop_stage']:.2f} ms over the tracked frames")
+    ms7 = lc["ms"]
+    log(f"summary (loop-closure circuit): {lc['n_kf']} keyframes, {lc['n_verify']} "
+        f"verifications, {lc['loops']} loops; CUDA-event ms extract + add "
+        f"{ms7['extract'] / lc['n_kf']:.3f}/keyframe, retrieve {ms7['retrieve'] / lc['n_kf']:.3f}"
+        f"/keyframe, verify {ms7['verify'] / max(lc['n_verify'], 1):.3f}/verification, pgo "
+        f"{ms7['pgo']:.2f}; last keyframe's error {lc['err_before']:.4f} -> "
+        f"{lc['err_after']:.4f} m")
     log(smi)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -424,6 +424,7 @@ def test_load_profile_matches_jax():
     for f in ("td", "name", "estimate_extrinsic", "estimate_td", "use_loop_closure",
               "use_feature_selector", "use_global_fusion", "landmark_mesh_devices"):
         assert getattr(jp, f) == getattr(tp, f), f
+    assert tuple(jp.pose_graph) == tuple(tp.pose_graph) and tp.pose_graph.n_features == 500
 
 
 def _unported():
@@ -450,11 +451,6 @@ def _unported():
         "vio.estimate_extrinsic=2": engine(estimate_extrinsic=2),
         "vio.estimate_td": engine(estimate_td=True),
         "vio.mesh": engine(mesh=object()),
-        "vio.set_relo": lambda: engine()().set_relo([0], np.zeros((1, 2)), np.zeros(3), q),
-        "system.loop_closure": system(use_loop_closure=True),
-        "system.loop_closure_by_default": lambda: tsys.SlamSystem(
-            cam(), cfg, tc, q_ic=q, p_ic=np.zeros(3), device=CPU),
-        "system.pose_graph_config": system(pg_cfg=object()),
         "system.fusion": system(fusion_cfg=object()),
         "system.selector": system(use_feature_selector=True),
         "system.selector_config": system(selector_cfg=object()),

@@ -5,9 +5,10 @@ Port of ``vplines_slam_tpu/estimator/vio.py``: ``StepOutput``,
 ``pack_output``, ``unpack_output``, ``_propagate_interval``,
 ``_failure_detection``, ``track_step`` (points only, or with the line
 channel) and ``VioEngine`` (fill / init / track; its jitted closures are
-plain methods).  Not ported, and raising when asked for: online calibration
-(``estimate_extrinsic=2``, ``estimate_td=True``), fast relocalization
-(``set_relo``, loop closure) and the distributed BA (``mesh=``).
+plain methods; ``set_relo`` arms fast relocalization for loop closure).
+Not ported, and raising when asked for: online calibration
+(``estimate_extrinsic=2``, ``estimate_td=True``) and the distributed BA
+(``mesh=``).
 
 The reference's ``lax.cond`` between the keyframe and non-keyframe slides is
 a Python branch on one ``bool()``: one host sync per frame.
@@ -444,8 +445,41 @@ class VioEngine:
             t=float(t), ln_args=ln_args, use_lines=self.use_lines)
         return pack_output(out) if packed else out
 
-    def set_relo(self, *args, **kwargs):
-        raise NotImplementedError("fast relocalization (loop closure) is not ported")
+    def set_relo(self, match_ids, match_obs, old_p, old_q, kf_stamp=None):
+        """Arm fast relocalization for the next solve.
+
+        match_ids: [M] feature ids verified against an old keyframe;
+        match_obs: [M, 2|3] their normalized observations in the old
+        keyframe's camera; old_p/old_q: the old keyframe's (VIO-frame) pose,
+        the seed of the relo pose the next BA optimizes with the window.
+        kf_stamp: the loop keyframe's stamp (kept f64): the refined relative
+        pose comes back in StepOutput.relo_rel_* against the window frame of
+        that stamp; without it the refinement never reports valid.  Returns
+        whether any id is in the window."""
+        ids = np.asarray(match_ids, np.int64)
+        obs = np.asarray(match_obs, float)
+        if obs.shape[-1] == 2:
+            obs = np.concatenate([obs, np.ones_like(obs[..., :1])], axis=-1)
+        table = self.data.pt_id.cpu().numpy()
+        relo_obs = self.data.relo_obs.cpu().numpy().copy()
+        relo_mask = np.zeros(table.shape[0], bool)
+        slot_of = {int(t): s for s, t in enumerate(table) if t >= 0}
+        for m, fid in enumerate(ids):
+            s = slot_of.get(int(fid))
+            if s is not None:
+                relo_obs[s] = obs[m]
+                relo_mask[s] = True
+        if not relo_mask.any():
+            return False
+        dev, dt = self.device, self.dtype
+        t = lambda x, dtype=dt: (x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x, float))).to(device=dev, dtype=dtype)
+        self.data = self.data._replace(
+            relo_obs=t(relo_obs), relo_mask=torch.from_numpy(relo_mask).to(dev),
+            relo_valid=torch.ones((), dtype=torch.bool, device=dev),
+            relo_stamp=t(-2.0 if kf_stamp is None else float(kf_stamp), torch.float64))
+        self.state = self.state._replace(p_relo=t(old_p), q_relo=t(old_q))
+        return True
 
     def reset(self):
         """Full reboot on failure (the reference's clearState)."""

@@ -15,6 +15,7 @@ kernel (a no-op unless spans are recording).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+
+# calls of the plain twins of K15-K19 on any device, by name ("fast", "nms",
+# "brief", "match", "signature", "pnp", "pgo4"); a run on the card reads 0 for
+# each (the twins of K11-K14 count in solver/lm.TWIN_CALLS)
+TWIN_CALLS = collections.Counter()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -161,11 +167,13 @@ def check(t, name, dtype=torch.float32, ndim=None, shape=None):
 def all_kernels():
     """Every kernel of the package: the point front-end's (K1-K4), the line
     front-end's (K5-K8), then CLAHE (K9, both trackers with equalize), IMU
-    preintegration (K10) and the estimator's window linearization, block
-    assembly, Schur solve and marginalization (K11-K14)."""
+    preintegration (K10), the estimator's window linearization, block
+    assembly, Schur solve and marginalization (K11-K14), then loop
+    closure's FAST (K15), BRIEF (K16), Hamming match and SimHash signature
+    (K17), PnP hypotheses (K18) and 4-DoF pose graph (K19)."""
     from .estimator import linearize
-    from .models import imu
-    from .ops import corners, image, klt, line_match, lines, mvg, vp
+    from .models import imu, pose_graph
+    from .ops import brief, corners, image, klt, line_match, lines, mvg, vp
     from .solver import lm, marginalization
 
     return [image.PYR_DOWN, klt.KLT_TRACK_LEVEL, corners.CORNER_RESPONSE,
@@ -173,4 +181,5 @@ def all_kernels():
             lines.LINE_ANCHORS, lines.LINE_GROW, line_match.LINE_VOTE, vp.VP_GRID,
             vp.VP_SCORE, image.CLAHE_LUT, image.CLAHE_APPLY, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
-            marginalization.MARG_WINDOW]
+            marginalization.MARG_WINDOW, brief.FAST, brief.BRIEF, brief.HAMMING_MATCH,
+            brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4]

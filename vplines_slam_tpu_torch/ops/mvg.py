@@ -4,8 +4,7 @@ triangulation, PnP.
 Port of ``vplines_slam_tpu/ops/mvg.py`` (``_solve3x3``, ``_smallest_eigvec``,
 ``eight_point_essential``, ``ransac_essential``, ``decompose_essential``,
 ``_two_view_depths``, ``triangulate_two_view``, ``triangulate_tracks``,
-``pnp_dlt``, ``pnp_refine``; ``ransac_pnp`` belongs to loop closure and is
-not ported yet).
+``pnp_dlt``, ``pnp_refine``, ``ransac_pnp``).
 Everything works on normalized image coordinates; masked entries contribute
 zero rows, so padding never changes results.
 
@@ -14,10 +13,16 @@ in ``[0, N)``): torch generators cannot reproduce ``jax.random`` draws, so
 the tests feed the JAX draws and callers on the card draw with a seeded
 ``torch.Generator``.  The hypothesis scoring is kernel K4
 (``csrc/sampson.cu``); the 8-point fits stay ``torch.linalg`` (batched eigh
-9x9 and svd 3x3), as the reference left them to XLA.
+9x9 and svd 3x3), as the reference left them to XLA.  ``ransac_pnp`` takes
+its draws the same way (``[n_hyp, 6]``); its hypotheses -- a six-point DLT
+pose each and its reprojection inliers -- are kernel K18
+(``csrc/pnp.cu``, f64 inside whatever the input type), the choice of the
+best, its Gauss-Newton refinement and the final score plain torch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 from torch.func import jacfwd
@@ -30,6 +35,13 @@ SAMPSON_SCORE = kernels.Kernel(
     "vplines_slam_tpu/ops/mvg.py:307",
     [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I,
      kernels.F, kernels.P, kernels.P],
+)
+
+PNP_HYPOTHESES = kernels.Kernel(
+    "vp_pnp_hypotheses", "vplines_slam_tpu_torch/csrc/pnp.cu",
+    "vplines_slam_tpu/ops/mvg.py:241",
+    [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I,
+     ctypes.c_double, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P],
 )
 
 
@@ -229,7 +241,9 @@ def pnp_refine(R0, t0, X_w, x, mask, iters=5):
     for _ in range(iters):
         r = residual(params)
         J = jacfwd(residual)(params)
-        params = params - torch.linalg.solve(J.T @ J + 1e-8 * eye, J.T @ r)
+        # solve_ex: a singular system gives non-finite values, as JAX's
+        # solve does, and neither raises nor syncs with the host
+        params = params - torch.linalg.solve_ex(J.T @ J + 1e-8 * eye, J.T @ r)[0]
     return so3_exp_matrix(params[:3]) @ R0, params[3:]
 
 
@@ -256,3 +270,76 @@ def triangulate_tracks(poses_R, poses_t, obs, mask):
     X = torch.where(torch.isfinite(X), X, torch.zeros_like(X))
     ok = (torch.sum(mask.to(torch.int64), dim=1) >= 2) & cond_ok
     return X, ok
+
+
+def _pnp_score(R, t, X_w, x, mask, threshold):
+    """Reprojection inliers of pose(s) R [..., 3, 3], t [..., 3]: depth >
+    0.05, error < threshold, mask.  Returns (count int32 [...], inl [..., N])."""
+    Xc = X_w @ R.transpose(-1, -2) + t[..., None, :]
+    good_z = Xc[..., 2] > 0.05
+    proj = Xc[..., :2] / torch.where(good_z, Xc[..., 2], torch.ones_like(Xc[..., 2]))[..., None]
+    err = torch.linalg.norm(proj - x, dim=-1)
+    inl = (err < threshold) & mask & good_z
+    return torch.sum(inl.to(torch.int32), dim=-1, dtype=torch.int32), inl
+
+
+def pnp_hypotheses_plain(X_w, x, mask, idx, threshold):
+    """K18's twin: for each sample row of idx [n_hyp, S] (indices into the N
+    points), the DLT pose of the sample SET intersected with mask and its
+    inliers over all points.  Returns (Rs [n_hyp, 3, 3], ts [n_hyp, 3],
+    counts [n_hyp] int32, inls [n_hyp, N])."""
+    kernels.TWIN_CALLS["pnp"] += 1
+    n_hyp, N = idx.shape[0], X_w.shape[0]
+    sm = torch.zeros(n_hyp, N, dtype=torch.bool, device=x.device).scatter(1, idx, True) & mask
+    Rs, ts, _ = pnp_dlt(X_w, x.expand(n_hyp, N, 2), sm)
+    counts, inls = _pnp_score(Rs, ts, X_w, x, mask, threshold)
+    return Rs, ts, counts, inls
+
+
+def pnp_hypotheses(X_w, x, mask, idx, threshold):
+    """K18.  CPU tensors: ``pnp_hypotheses_plain``.  CUDA tensors: one block
+    per hypothesis, in f64 inside; Rs and ts come back as f64 (the caller
+    casts), the inliers scored from them."""
+    if not x.is_cuda:
+        return pnp_hypotheses_plain(X_w, x, mask, idx, threshold)
+    n_hyp, S = idx.shape
+    N = X_w.shape[0]
+    dt, dev = x.dtype, x.device
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"K18 takes float32 or float64, got {dt}")
+    X_w, x = X_w.contiguous(), x.contiguous()
+    m8 = mask.to(torch.uint8).contiguous()
+    idx = idx.to(torch.int64).contiguous()
+    Rs = torch.empty(n_hyp, 3, 3, dtype=torch.float64, device=dev)
+    ts = torch.empty(n_hyp, 3, dtype=torch.float64, device=dev)
+    counts = torch.empty(n_hyp, dtype=torch.int32, device=dev)
+    inl = torch.empty(n_hyp, N, dtype=torch.uint8, device=dev)
+    PNP_HYPOTHESES(kernels.check(X_w, "X_w", dt, shape=(N, 3)),
+                   kernels.check(x, "x", dt, shape=(N, 2)),
+                   kernels.check(m8, "mask", torch.uint8, shape=(N,)),
+                   kernels.check(idx, "idx", torch.int64, shape=(n_hyp, S)), n_hyp, N, S,
+                   float(threshold), int(dt == torch.float64),
+                   kernels.check(Rs, "Rs", torch.float64), kernels.check(ts, "ts", torch.float64),
+                   kernels.check(counts, "counts", torch.int32),
+                   kernels.check(inl, "inl", torch.uint8))
+    return Rs, ts, counts, inl.bool()
+
+
+def ransac_pnp(X_w, x, mask, sample_idx, threshold=8.0 / 460.0, min_pts=6):
+    """Fixed-trial batched PnP-RANSAC: n_hyp six-point DLT hypotheses scored
+    by reprojection inliers, the first best refined by Gauss-Newton on its
+    inliers and scored again.
+
+    sample_idx: [n_hyp, min_pts] long draws in [0, N) (the reference draws
+    ``jax.random.randint(key, (n_hyp, min_pts), 0, N)``), remapped onto the
+    valid entries as the reference does.  Returns (R, t, inlier_mask,
+    n_inliers) with x ~ project(R X_w + t)."""
+    order = torch.argsort((~mask).to(torch.int8), stable=True)  # valid first
+    n_valid = torch.clamp(torch.sum(mask.to(torch.int64)), min=min_pts)
+    idx = order[sample_idx % n_valid]
+    Rs, ts, counts, inls = pnp_hypotheses(X_w, x, mask, idx, threshold)
+    best = torch.argmax(counts)  # the first maximum
+    R_b, t_b, inl_b = Rs[best].to(x.dtype), ts[best].to(x.dtype), inls[best]
+    R_f, t_f = pnp_refine(R_b, t_b, X_w, x, inl_b)
+    n_f, inl_f = _pnp_score(R_f, t_f, X_w, x, mask, threshold)
+    return R_f, t_f, inl_f, n_f

@@ -4,8 +4,9 @@ Port of ``vplines_slam_tpu/utils/config.py`` for pinhole cameras (the
 equidistant and MEI models are not ported and raise).  One yaml file
 describes the camera, IMU noise, extrinsics, front-end knobs and factor
 weights; ``load_profile`` returns the typed configs the modules take.  The
-pose-graph and selector blocks configure modules that are not ported: only
-their on/off switches are read, and ``SlamSystem`` raises when one is on.
+pose-graph block gives ``pose_graph`` (a ``PoseGraphConfig``) and the
+loop-closure switch; of the selector and GNSS blocks, whose modules are not
+ported, only the switches are read (``SlamSystem`` raises when one is on).
 PyYAML is imported when a profile is loaded, not with this module.
 """
 
@@ -23,6 +24,7 @@ from ..models import camera as cam_mod
 from ..models import imu as imu_mod
 from ..models.feature_tracker import TrackerConfig
 from ..models.line_tracker import LineTrackerConfig
+from ..models.pose_graph import PoseGraphConfig
 from ..ops.lines import LineDetectConfig
 from ..ops.vp import VPConfig
 from ..utils.geometry import rot_to_quat
@@ -40,6 +42,7 @@ class SystemProfile(NamedTuple):
     name: str
     estimate_extrinsic: int = 1
     estimate_td: bool = False
+    pose_graph: PoseGraphConfig = PoseGraphConfig()
     use_loop_closure: bool = True
     use_feature_selector: bool = False
     use_global_fusion: bool = False
@@ -111,13 +114,22 @@ def load_profile(path, dtype=torch.float64, device=torch.device("cuda")) -> Syst
             vp=vp_cfg,
         )
 
+    pg = y.get("pose_graph", {})
+    pg_cfg = PoseGraphConfig(
+        n_features=pg.get("n_features", 500),
+        skip_cnt=pg.get("skip_cnt", 0),
+        skip_dis=pg.get("skip_dis", 0.0),
+        loop_edge_weight=pg.get("loop_edge_weight", 1.0),
+    )
+
     return SystemProfile(
         camera=cam, imu_params=imu_params, q_ic=q_ic, p_ic=p_ic, window=window,
         tracker=tracker, lines=lines, td=float(y.get("td", 0.0)),
         name=y.get("name", os.path.basename(path)),
         estimate_extrinsic=int(y.get("estimate_extrinsic", 1)),
         estimate_td=bool(y.get("estimate_td", False)),
-        use_loop_closure=bool(y.get("pose_graph", {}).get("loop_closure", True)),
+        pose_graph=pg_cfg,
+        use_loop_closure=bool(pg.get("loop_closure", True)),
         use_feature_selector=bool(y.get("selector", {}).get("use_feature_selector", False)),
         use_global_fusion=bool(y.get("global_fusion", {}).get("enabled", False)),
         landmark_mesh_devices=int(y.get("parallel", {}).get("landmark_mesh_devices", 0)),

@@ -90,3 +90,29 @@ def scatter_landmarks(n, seed=0, box=((-6.0, 6.0), (-6.0, 6.0), (-1.5, 3.5)),
     lo = np.array([b[0] for b in box])
     hi = np.array([b[1] for b in box])
     return torch.as_tensor(rng.uniform(lo, hi, size=(n, 3)), dtype=dtype, device=device)
+
+
+def loop_trajectory(radius=3.0, omega=2.0 * np.pi / 30.0, height_amp=0.25,
+                    wobble_deg=(6.0, 4.0), speed_mod=0.12, radius_mod=0.05):
+    """A closed circular survey lap with tangent-following yaw, exactly
+    periodic with period 2π/ω (every attitude and height frequency is an
+    integer multiple of the lap's), so lap k revisits lap 0's poses exactly:
+    the revisit geometry loop closure needs.  The camera (body x) looks
+    inward; the 3ω speed and 2ω radius harmonics keep monocular scale
+    observable (at constant angular rate the centripetal acceleration is a
+    near-constant body vector that the accelerometer bias absorbs)."""
+
+    def pos(t):
+        ph = omega * t + speed_mod * torch.sin(3.0 * omega * t)
+        r = radius * (1.0 + radius_mod * torch.sin(2.0 * omega * t + 0.7))
+        return torch.stack([r * torch.cos(ph), r * torch.sin(ph),
+                            height_amp * torch.sin(2.0 * omega * t)])
+
+    def quat(t):
+        yaw = (torch.rad2deg(omega * t + speed_mod * torch.sin(3.0 * omega * t))
+               + 180.0 + 5.0 * torch.sin(3.0 * omega * t + 1.3))
+        pitch = wobble_deg[0] * torch.sin(2.0 * omega * t + 0.4)
+        roll = wobble_deg[1] * torch.sin(4.0 * omega * t + 1.1)
+        return rot_to_quat(ypr_to_rot(torch.stack([yaw, pitch, roll])))
+
+    return Trajectory(pos=pos, quat=quat)
