@@ -57,16 +57,32 @@ Phases (any failure exits nonzero; there is no CPU path):
      a synthetic VIO drift; asserts >= 1 verified loop, each a true revisit
      (< 1.0 m), and that the PGO at least halves the last keyframe's
      position error; prints the loops, CUDA-event ms per stage, launches per
-     keyframe and the error before/after.  Its launch counts of K15-K19 go
-     to the kernels JSON.
+     keyframe and per verification (K21, the refinement) and the error
+     before/after.  Its launch counts of K15-K19 and K21 go to the kernels
+     JSON;
+  8. selector cold start: phase 6's construction and stream with the
+     attention feature selector on and configs/euroc.yaml's selector block
+     (max_features 30, init_threshold 30) loaded by name through the port's
+     load_profile; prints per tracked frame the candidates, tracked ids,
+     budget, kept ids and the selector stage's CUDA-event ms; asserts phase
+     6's bars, every tracked id kept, kept <= max(max_features, tracked), K20
+     launched on every tracked frame, and K20's greedy pass against its twin
+     on the last frame's real inputs with budget = max_features.  Its launch
+     counts of K20 go to the kernels JSON.
   Phase 3 also holds loop closure's kernels against their plain twins at the
   profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
   K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
   signature (codes exact, signature 1e-6, the projection matmul timed as its
   library call), K18's 256 PnP hypotheses against the f64 twin (full-rank
   counts exact, R/t 1e-6), K19's residuals and normal equations at K = 256
-  (1e-12 of each one's largest entry, the dense f64 solve timed beside it).
-  Phases 6-7 assert that no plain twin of K15-K19 ran.
+  (1e-12 of each one's largest entry, the dense f64 solve timed beside it),
+  and K20 and K21: selector_info on 150 candidates of a staged 752x480 frame
+  with the horizon from the truth (1e-12 of each candidate's largest entry),
+  selector_greedy at budgets 0, 7, 30 and max_features 30, 60 (sets
+  identical, gains 1e-9; one round's batched slogdet timed as its library
+  call), pnp_refine on the initializer's 11 x 128 and a verification's
+  1 x 64 batches (f64 twin 1e-9, f32 twin 1e-5).
+  Phases 6-8 assert that no plain twin of K15-K21 ran.
   Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
   marginalization) was called.
@@ -78,8 +94,9 @@ Phases (any failure exits nonzero; there is no CPU path):
   must repeat its ATE) and phases 4-5 on the plain twins of K11-K14 (ATE
   within 0.01 m of the kernels').  Every profiler session (those and the
   kernels' device times) runs
-  after phase 6: once the profiler has run, each later launch of the
-  process costs more.
+  after phase 8: once the profiler has run, each later launch of the
+  process costs more (so do the launch counts of one loop verification and
+  one selector call, taken under torch.profiler at the end).
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -87,6 +104,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -208,6 +226,12 @@ def phase_toolchain():
         log(f"triton {triton.__version__}")
     except ImportError:
         log("triton: not installed")
+    try:
+        import yaml
+
+        log(f"PyYAML {yaml.__version__} (phase 8 reads configs/euroc.yaml's selector block)")
+    except ImportError:
+        log("PyYAML: not installed (phase 8 needs it)")
     smi = nvidia_smi_line()
     log(f"nvidia-smi: {smi}")
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -949,22 +973,29 @@ def marg_ops(ne, cfg):
 
 
 def loop_kernels():
-    """K15-K19."""
+    """K15-K19 and K21, the kernels of a loop verification's path."""
     from vplines_slam_tpu_torch.models.pose_graph import PGO4
     from vplines_slam_tpu_torch.ops.brief import BRIEF, FAST, HAMMING_MATCH, SIMHASH
-    from vplines_slam_tpu_torch.ops.mvg import PNP_HYPOTHESES
+    from vplines_slam_tpu_torch.ops.mvg import PNP_HYPOTHESES, PNP_REFINE
 
-    return [FAST, BRIEF, HAMMING_MATCH, SIMHASH, PNP_HYPOTHESES, PGO4]
+    return [FAST, BRIEF, HAMMING_MATCH, SIMHASH, PNP_HYPOTHESES, PGO4, PNP_REFINE]
+
+
+def selector_kernels():
+    """K20."""
+    from vplines_slam_tpu_torch.models.selector import SELECTOR_GREEDY, SELECTOR_INFO
+
+    return [SELECTOR_INFO, SELECTOR_GREEDY]
 
 
 def loop_twin_check(where):
-    """No plain twin of K15-K19 ran."""
+    """No plain twin of K15-K21 ran."""
     from vplines_slam_tpu_torch.kernels import TWIN_CALLS
 
     calls = dict(TWIN_CALLS)
-    log(f"  calls of the plain twins of K15-K19: {calls}")
+    log(f"  calls of the plain twins of K15-K21: {calls}")
     if any(calls.values()):
-        fail(f"{where}: the card path called a plain twin of K15-K19: {calls}")
+        fail(f"{where}: the card path called a plain twin of K15-K21: {calls}")
 
 
 def euroc_pose_graph():
@@ -1166,6 +1197,190 @@ def phase_loop_kernels(rec, S):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the selector and PnP refinement: K20 and K21 against their twins
+# ---------------------------------------------------------------------------
+
+SEL_FRAME = 10  # the staged points-slice frame whose corners are the candidates
+
+
+def selector_inputs(S, k=SEL_FRAME, seed=SEED + 20):
+    """K20's inputs at frame k of the points slice (752x480): its 150 Shi-
+    Tomasi corners lifted to unit bearings (depths 1.5-8 m and ~80% of them
+    new, from a seeded generator), the f64 horizon propagated from the truth
+    state at frame k by the mean of the frame's IMU interval, and the prior
+    of the profile's selector block (max_features 30) over it."""
+    import torch
+
+    from vplines_slam_tpu_torch.models import camera as cam_mod
+    from vplines_slam_tpu_torch.models import selector as sel
+    from vplines_slam_tpu_torch.ops import corners
+
+    f64 = torch.float64
+    img = S["imgs"][k].contiguous()
+    dev = img.device
+    cfg = S["tcfg"]
+    xy, _, ok = corners.detect(img, cfg.max_features, cfg.min_dist, cfg.quality)
+    rays = cam_mod.lift(S["cam"], xy).to(f64)
+    rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = rays.shape[0]
+    depths = 1.5 + 6.5 * torch.rand(n, generator=gen, device=dev, dtype=f64)
+    new = ok & (torch.rand(n, generator=gen, device=dev) < 0.8)
+    p, q, v = (x[k].to(f64) for x in S["truth"])
+    _, accs, gyrs, mask, _ = S["batches"]
+    m = torch.cat([mask[k], mask[k][-1:]]).to(f64)[:, None]
+    acc, gyr = (torch.sum(a[k].to(f64) * m, 0) / torch.sum(m) for a in (accs, gyrs))
+    z3 = torch.zeros(3, dtype=f64, device=dev)
+    dt = 1.0 / FRAME_HZ
+    ps, qs, _ = sel.propagate_horizon(p, q, v, z3, z3, acc, gyr, dt, S["params"].g.to(f64))
+    prior = sel.imu_prior_information(qs, dt, sel.SelectorConfig().acc_var)
+    return dict(rays=rays.contiguous(), depths=depths, new=new, ps=ps, qs=qs,
+                q_ic=S["q_ic"].to(f64), p_ic=S["p_ic"].to(f64), prior=prior)
+
+
+def lu_flops(n):
+    """f64 operations of one n x n LU with partial pivoting and its log-det:
+    the multipliers and the trailing updates (2 per entry), plus n logs."""
+    return sum((n - k - 1) + 2 * (n - k - 1) ** 2 for k in range(n)) + n
+
+
+def greedy_work(selected, new, rounds):
+    """(rounds run, matrices factored) by K20's greedy pass on this data: a
+    round that selects nothing ends the pass (the later rounds return at
+    once); each round factors the base and every new candidate not yet
+    selected."""
+    k, n_new = int(selected.sum()), int(new.sum())
+    run = min(k + 1, rounds) if rounds > 0 else 1
+    return run, sum(1 + n_new - r for r in range(run))
+
+
+def pnp_batch(dev, B, N, dtype, seed):
+    """A K21 input: B poses over N points at 2-6 m (one shared set, as the
+    initializer's window), 1e-3 observation noise, ~20% masked, starts
+    ~6 degrees and 5 cm off."""
+    import torch
+
+    from vplines_slam_tpu_torch.utils import geometry as geo
+
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=f64)
+    X = torch.stack([4 * g(N) - 2, 3 * g(N) - 1.5, 2 + 4 * g(N)], 1)
+    R = geo.so3_exp_matrix(0.4 * (g(B, 3) - 0.5))
+    t = 0.6 * (g(B, 3) - 0.5)
+    Xc = X @ R.transpose(-1, -2) + t[:, None]
+    x = Xc[..., :2] / Xc[..., 2:3] + 2e-3 * (g(B, N, 2) - 0.5)
+    R0 = geo.so3_exp_matrix(0.2 * (g(B, 3) - 0.5)) @ R
+    t0 = t + 0.1 * (g(B, 3) - 0.5)
+    mask = g(B, N) < 0.8
+    return [a.to(dtype).contiguous() for a in (R0, t0, X, x)] + [mask]
+
+
+def pnp_refine_flops(B, N, iters=5):
+    """f64 operations of K21: per problem and step, the rotation's jets
+    (~800), per point the jet transform, projection and the 27 sums (~310),
+    the 6x6 solve (~150)."""
+    return B * iters * (800 + 310 * N + 150)
+
+
+def phase_selector_kernels(rec, S):
+    """K20 at a frame's size (150 candidates of a staged 752x480 frame, the
+    horizon from the truth) and K21 at the initializer's (11 x 128) and a
+    verification's (1 x 64) batches, against their plain twins."""
+    import torch
+
+    from vplines_slam_tpu_torch.kernels import TWIN_CALLS
+    from vplines_slam_tpu_torch.models import selector as sel
+    from vplines_slam_tpu_torch.ops import mvg
+
+    f64 = torch.float64
+    I = selector_inputs(S)
+    dev = I["rays"].device
+    N, dim = I["rays"].shape[0], sel.DIM
+    info_args = (I["rays"], I["depths"], I["new"], I["ps"], I["qs"], I["q_ic"], I["p_ic"])
+    Fk = sel.feature_information(*info_args)
+    Fp = sel.feature_information_plain(*info_args)
+    scale = Fp.abs().amax(dim=(1, 2)).clamp(min=1e-300)
+    err20 = float(((Fk - Fp).abs().amax(dim=(1, 2)) / scale).max())
+    live = int((Fp.abs().amax(dim=(1, 2)) > 0).sum())
+    log(f"K20 selector_info: {N} candidates of frame {SEL_FRAME} ({int(I['new'].sum())} new, "
+        f"{live} with information), max |kernel - plain| / the candidate's largest entry = "
+        f"{err20:.3e} (tol 1e-12, f64)")
+    if not err20 <= 1e-12:
+        fail("K20 selector_info disagrees with its plain version")
+    record(rec, "selector_info", err20, lambda: sel.feature_information(*info_args),
+           lambda: sel.feature_information_plain(*info_args), "selector_info_kernel",
+           N * (3 + 1) * 8 + N + 5 * 7 * 8 + 7 * 8 + N * dim * dim * 8,
+           N * (5 * 420 + 60 + 5 * 45 + 25 * 9 * 6))
+
+    # greedy: budgets 0, 7, 30 at max_features 30 and 60 on the same matrices
+    errs, picks = {}, {}
+    for rounds in (30, 60):
+        cfg = sel.SelectorConfig(max_features=rounds)
+        for b in (0, 7, 30):
+            budget = torch.tensor(b, device=dev)
+            sk, gk = sel.select_features(I["prior"], Fk, I["new"], budget, cfg)
+            sp, gp = sel.select_features_plain(I["prior"], Fk, I["new"], budget, cfg)
+            if not torch.equal(sk, sp):
+                fail(f"K20 selector_greedy (max_features {rounds}, budget {b}) selected "
+                     f"{torch.nonzero(sk).flatten().tolist()}, its plain version "
+                     f"{torch.nonzero(sp).flatten().tolist()}")
+            errs[(rounds, b)] = float((gk - gp).abs().max())
+            picks[(rounds, b)] = int(sk.sum())
+    err_g = max(errs.values())
+    log(f"K20 selector_greedy: (max_features, budget) -> picks {picks}, selected sets "
+        f"identical; first-round gains max |kernel - plain| = {err_g:.3e} (tol 1e-9 absolute)")
+    if not err_g <= 1e-9:
+        fail("K20 selector_greedy's gains disagree with its plain version")
+    cfg30 = sel.SelectorConfig(max_features=30)
+    b30 = torch.tensor(30, device=dev)
+    sk, _ = sel.select_features(I["prior"], Fk, I["new"], b30, cfg30)
+    rounds_run, n_lu = greedy_work(sk, I["new"], 30)
+    batch = torch.cat([I["prior"][None], I["prior"] + Fk]) + 1e-9 * torch.eye(
+        dim, dtype=f64, device=dev)
+    record(rec, "selector_greedy", err_g,
+           lambda: sel.select_features(I["prior"], Fk, I["new"], b30, cfg30),
+           lambda: sel.select_features_plain(I["prior"], Fk, I["new"], b30, cfg30),
+           "greedy_", (N + 1) * dim * dim * 8 + N + 8 + N * 9,
+           n_lu * lu_flops(dim) + rounds_run * (N * 4 + dim * dim),
+           library_fn=lambda: torch.linalg.slogdet(batch))
+    log(f"  max_features 30, budget 30: {rounds_run} rounds run, {n_lu} LU factorizations "
+        f"(the bound's work); the library call is one round's batched slogdet of "
+        f"{N + 1} 45x45 f64 matrices")
+
+    # K21 at the initializer's and a verification's batches, f64 and f32
+    out = {}
+    for B, Np in ((11, 128), (1, 64)):
+        a64 = pnp_batch(dev, B, Np, f64, SEED + 21 + B)
+        a32 = [x.float() if x.is_floating_point() else x for x in a64]
+        Rk, tk = mvg.pnp_refine(*a64)
+        Rp, tp = mvg.pnp_refine_plain(*a64)
+        e64 = max(float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
+        Rk, tk = mvg.pnp_refine(*a32)
+        Rp, tp = mvg.pnp_refine_plain(*a32)
+        e32 = max(float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
+        moved = float((Rp.double() - a64[0]).abs().max())
+        out[(B, Np)] = (e64, e32, a64, a32)
+        # f32: the twin rounds every step of its jacfwd Gauss-Newton to f32
+        # (~1e-7 of the pose), the kernel only its inputs and outputs
+        log(f"K21 pnp_refine {B} x {Np}: R/t max |kernel - f64 twin| = {e64:.3e} (tol 1e-9); "
+            f"at f32 against the f32 twin {e32:.3e} (tol 1e-5); the refinement moved R by "
+            f"{moved:.3e}")
+        if not (e64 <= 1e-9 and e32 <= 1e-5):
+            fail(f"K21 pnp_refine ({B} x {Np}) disagrees with its plain version")
+        if B == 11:
+            log(f"  the initializer's batch: kernel {time_ms(lambda: mvg.pnp_refine(*a32)):.4f} "
+                f"ms/call, plain {time_ms(lambda: mvg.pnp_refine_plain(*a32), n=5):.4f} ms, "
+                f"bound {bound(0, pnp_refine_flops(B, Np))[0]:.5f} ms (operations)")
+    e64, e32, _, a32 = out[(1, 64)]
+    record(rec, "pnp_refine", max(e64, e32), lambda: mvg.pnp_refine(*a32),
+           lambda: mvg.pnp_refine_plain(*a32), "pnp_refine_kernel",
+           4 * (12 + 64 * 3 + 64 * 2 + 12) + 64, pnp_refine_flops(1, 64))
+    TWIN_CALLS.clear()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the loop-closure circuit at the profile's size
 # ---------------------------------------------------------------------------
 
@@ -1173,7 +1388,7 @@ N_LOOP_LAP = 64  # keyframes a lap of the circuit
 R_BC_INWARD = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))  # camera z = body x
 
 
-def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None, profile=False):
+def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None):
     """The loop-closure chain over 2 laps of loop_trajectory (radius 3 m,
     64 keyframes a lap) at 752x480 with the EuRoC camera, with the
     profile's PoseGraphConfig, the keyframes carrying a synthetic VIO drift
@@ -1182,8 +1397,9 @@ def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None, profile=False)
     record, then optimize_4dof and drift_correction.  Bars: >= 1 verified
     loop, each a true revisit (< 1.0 m), the PGO at least halves the last
     keyframe's position error.  Then the last loop's verification 3 times
-    more with host-sync debugging on (and, with profile, under
-    torch.profiler).  A CPU rehearsal passes a small camera, fewer
+    more with host-sync debugging on; it is returned as ``probe``, whose
+    launches main counts under torch.profiler at the end.  A CPU rehearsal
+    passes a small camera, fewer
     keyframes a lap and a PoseGraphConfig of that size (no CUDA events)."""
     import torch
 
@@ -1304,12 +1520,14 @@ def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None, profile=False)
         f"verification), pgo {ms['pgo']:.2f} (one optimize_4dof, {cfg.pgo_iters} iterations); "
         f"wall {wall:.2f} s")
     log(f"  launches: {launches}; per keyframe: "
-        f"{ {n: round(c / n_kf, 3) for n, c in launches.items()} }")
+        f"{ {n: round(c / n_kf, 3) for n, c in launches.items()} }; K21 (pnp_refine) per "
+        f"verification: {launches.get('vp_pnp_refine', 0) / max(n_verify, 1):.2f}")
     log(f"  last keyframe's position error: before PGO {err_before[-1]:.4f} m, after "
         f"{err_after[-1]:.4f} m (bar: at most half); mean over keyframes {err_before.mean():.4f} "
         f"-> {err_after.mean():.4f} m; LM cost {float(out.cost0):.4f} -> {float(out.cost):.4f}")
     if on_card:
         loop_twin_check("loop-closure circuit")
+    probe = None
     if on_card and loops:
         k, c = loops[-1][:2]
         kf = staged[k]
@@ -1338,17 +1556,7 @@ def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None, profile=False)
         syncs = sum("synchroniz" in str(w.message).lower() for w in caught) / n_again
         log(f"  one verification again ({k} onto {c}): {1e3 * wall_v:.2f} ms wall with sync "
             f"debugging on, {syncs:.1f} host syncs (the final ok readback included)")
-        if profile:
-            from torch.profiler import ProfilerActivity, profile as tprofile
-
-            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(n_again):
-                    verify_again()
-                torch.cuda.synchronize()
-            log("  torch.profiler, 3 verifications (top ops by host time):")
-            for line in prof.key_averages().table(sort_by="cpu_time_total",
-                                                  row_limit=14).splitlines():
-                log("    " + line)
+        probe = verify_again  # its launches are counted under torch.profiler at the end
     if not loops:
         fail("phase 7: no loop verified")
     if not max(revisit) < 1.0:
@@ -1360,7 +1568,34 @@ def phase_loop_circuit(dev, n_lap=N_LOOP_LAP, cam=None, cfg=None, profile=False)
     if on_card and any(c == 0 for c in launches.values()):
         fail(f"phase 7: a kernel of the loop-closure path never launched: {launches}")
     return launches, dict(loops=len(loops), n_verify=n_verify, ms=ms, n_kf=n_kf,
-                          err_before=float(err_before[-1]), err_after=float(err_after[-1]))
+                          err_before=float(err_before[-1]), err_after=float(err_after[-1]),
+                          probe=probe)
+
+
+def count_launches(fn, n, label, table=False):
+    """Kernel launches (cudaLaunchKernel calls) and device kernels per call
+    of fn, over n calls under torch.profiler; with table, the top ops by host
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    n_launch = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel") / n
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / n
+    log(f"  {label}: {n_launch:.0f} cudaLaunchKernel calls and {len(dev) / n:.0f} device "
+        f"kernels per call, {busy:.3f} ms of kernel time per call (torch.profiler, {n} calls)")
+    if table:
+        for line in prof.key_averages().table(sort_by="cpu_time_total",
+                                              row_limit=14).splitlines():
+            log("    " + line)
+    return n_launch
 
 
 def estimator_check(plain, where):
@@ -1546,9 +1781,10 @@ def _lines(S, plain):
 
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
-    idle = ((CLAHE_LUT, CLAHE_APPLY) + tuple(loop_kernels())
+    idle = ((CLAHE_LUT, CLAHE_APPLY) + tuple(loop_kernels()) + tuple(selector_kernels())
             + (tuple(estimator_kernels()) if plain else ()))
-    kernels = [k for k in all_kernels() if k not in idle]  # CLAHE off, no loop closure
+    # CLAHE off, no loop closure, no selector
+    kernels = [k for k in all_kernels() if k not in idle]
     for k in all_kernels():
         k.launches = 0
     TWIN_CALLS.clear()
@@ -1729,56 +1965,154 @@ def plain_twins_of_k9_k10():
         ft_mod.clahe, lt_mod.clahe, imu_mod.preintegrate = saved
 
 
-def phase_cold_start(C, profile=False, draws=None, plain=False):
+def phase_cold_start(C, profile=False, draws=None, plain=False, selector=None):
     """Phase 6: SlamSystem from a cold start with the profile's loop closure,
     fill -> initializer -> tracking, with every kernel's launches counted
     over the run.  Works on CPU tensors too (a rehearsal: no events, no sync count).
     The witness runs of --cold-witness pass draws=(generator device, seed)
-    for ``use_draws``, or plain=True for ``plain_twins_of_k9_k10``."""
+    for ``use_draws``, or plain=True for ``plain_twins_of_k9_k10``.  Phase 8
+    passes selector=<the profile's SelectorConfig>: the same run with the
+    attention feature selector on (``selector_checks``)."""
     if plain:
         with plain_twins_of_k9_k10():
-            return _cold_start(C, profile, draws, plain)
-    return _cold_start(C, profile, draws, plain)
+            return _cold_start(C, profile, draws, plain, selector)
+    return _cold_start(C, profile, draws, plain, selector)
 
 
-def _cold_start(C, profile, draws, plain):
+@contextlib.contextmanager
+def recording_selector(sysm, frame):
+    """Record each selector call of sysm (the frame index frame["j"], the
+    candidate ids, the window's ids, the kept ids: device tensors, read
+    after the run; the K20 launches it made) and the last inputs of
+    select_features."""
+    from vplines_slam_tpu_torch.models import selector as sel_mod
+
+    calls, last = [], {}
+    impl, greedy = sysm._select_impl, sel_mod.select_features
+    k20 = lambda: sum(k.launches for k in selector_kernels())
+
+    def select(ids, rays, state, data, *a):
+        n0 = k20()
+        out = impl(ids, rays, state, data, *a)
+        calls.append((frame["j"], ids, data.pt_id, out, k20() - n0))
+        last["args"] = (ids, rays, state, data, *a)
+        return out
+
+    def greedy_rec(prior, feats, mask, budget, cfg):
+        last.update(prior=prior, feats=feats, mask=mask, cfg=cfg)
+        return greedy(prior, feats, mask, budget, cfg)
+
+    sysm._select_impl, sel_mod.select_features = select, greedy_rec
+    try:
+        yield calls, last, impl
+    finally:
+        sysm._select_impl, sel_mod.select_features = impl, greedy
+
+
+def selector_checks(calls, last, scfg, n_tracked, per, on_card):
+    """Phase 8's per-frame table and bars: every tracked frame ran the
+    selector, every tracked id was kept, kept <= max(max_features, tracked);
+    then select_features on the last frame's real inputs with budget =
+    max_features against its plain twin (the same picks, gains 1e-9)."""
     import torch
 
-    from vplines_slam_tpu_torch.kernels import all_kernels
-    from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
+    from vplines_slam_tpu_torch.models import selector as sel_mod
+
+    rows = []
+    for i, (j, ids, pt_id, out, n_k20) in enumerate(calls):
+        ids, pt_id, out = ids.cpu().numpy(), pt_id.cpu().numpy(), out.cpu().numpy()
+        valid = ids >= 0
+        tracked = valid & np.isin(ids, pt_id[pt_id >= 0])
+        budget = max(scfg.max_features - int(tracked.sum()), 0)
+        kept = int((out >= 0).sum())
+        ms = per[i].get("selector", float("nan")) if per and i < len(per) else float("nan")
+        rows.append((j, int(valid.sum()), int(tracked.sum()), budget, kept, ms, n_k20))
+        if not np.array_equal(out[tracked], ids[tracked]):
+            fail(f"selector: frame {j} dropped a tracked id")
+        if not kept <= max(scfg.max_features, int(tracked.sum())):
+            fail(f"selector: frame {j} kept {kept} > max(max_features, tracked)")
+    for j, n_c, n_t, b, kept, ms, n_k20 in rows:
+        log(f"  frame {j}: {n_c} candidates, {n_t} tracked, budget {b}, kept {kept} "
+            f"({kept - n_t} new), selector stage {ms:.3f} ms (CUDA events), K20 wrapper "
+            f"launches {n_k20} (selector_greedy's holds 2 x {scfg.max_features} + 1 kernels)")
+    if len(calls) != n_tracked:
+        fail(f"selector: {len(calls)} selector calls for {n_tracked} tracked frames")
+    if on_card and "feats" in last:
+        cfg = last["cfg"]
+        budget = torch.tensor(cfg.max_features, device=last["feats"].device)
+        sk, gk = sel_mod.select_features(last["prior"], last["feats"], last["mask"], budget, cfg)
+        sp, gp = sel_mod.select_features_plain(last["prior"], last["feats"], last["mask"],
+                                               budget, cfg)
+        err = float((gk - gp).abs().max())
+        log(f"  the last frame's real selector inputs ({int(last['mask'].sum())} new of "
+            f"{last['mask'].numel()}) with budget = max_features = {cfg.max_features}: K20 "
+            f"picks {int(sk.sum())}, its plain twin {int(sp.sum())}, identical: "
+            f"{bool(torch.equal(sk, sp))}; gains max |kernel - plain| = {err:.3e} (tol 1e-9)")
+        if not (torch.equal(sk, sp) and err <= 1e-9):
+            fail("selector_greedy disagrees with its plain twin on the frame's inputs")
+        from vplines_slam_tpu_torch.kernels import TWIN_CALLS
+
+        TWIN_CALLS.clear()
+    return rows
+
+
+def _cold_start(C, profile, draws, plain, selector=None):
+    import torch
+
     from vplines_slam_tpu_torch.native import available as native_available
-    from vplines_slam_tpu_torch.ops.image import CLAHE_APPLY, CLAHE_LUT
     from vplines_slam_tpu_torch.pipeline.system import SlamSystem
-    from vplines_slam_tpu_torch.utils.evaluation import ate_rmse, umeyama_alignment
-    from vplines_slam_tpu_torch.utils.stats import SPANS
 
     on_card = C["imgs"].is_cuda
     dev = C["imgs"].device
     sysm = SlamSystem(C["cam"], C["wcfg"], C["tcfg"], C["lcfg"], pg_cfg=euroc_pose_graph(),
                       imu_params=C["params"], q_ic=C["q_ic"], p_ic=C["p_ic"],
-                      use_loop_closure=True, dtype=torch.float32, device=dev)
+                      use_loop_closure=True, use_feature_selector=selector is not None,
+                      selector_cfg=selector, dtype=torch.float32, device=dev)
     if draws is not None:
         use_draws(sysm, *draws)
+    sel_note = ("" if selector is None else
+                f", the feature selector on ({dict(selector._asdict())})")
     log(f"cold start: SlamSystem on the EuRoC profile's values (loop closure on: "
         f"{sysm.pg_cfg.n_features} FAST + BRIEF per keyframe, skip_recent "
-        f"{sysm.pg_cfg.skip_recent}), native IMU synchronizer: {native_available()}, stamps "
-        f"from {C['frame_t'][0]:.6f} s")
-    n_total = C["imgs"].shape[0]
+        f"{sysm.pg_cfg.skip_recent}{sel_note}), native IMU synchronizer: "
+        f"{native_available()}, stamps from {C['frame_t'][0]:.6f} s")
     imu_t, accs, gyrs, frame_t = C["imu_t"], C["accs"], C["gyrs"], C["frame_t"]
-    state = dict(i=0)
+    state = dict(i=0, j=0)
 
     def feed(j):
+        state["j"] = j
         while state["i"] < len(imu_t) and imu_t[state["i"]] <= frame_t[j]:
             sysm.add_imu(imu_t[state["i"]], accs[state["i"]], gyrs[state["i"]])
             state["i"] += 1
         return sysm.add_image(frame_t[j], C["imgs"][j])
 
+    rec_sel = (recording_selector(sysm, state) if selector is not None
+               else contextlib.nullcontext((None, None, None)))
+    with rec_sel as (sel_calls, sel_last, sel_impl):
+        res = _cold_start_run(C, sysm, feed, on_card, profile, plain, selector, sel_calls,
+                              sel_last, sel_impl)
+    return res
+
+
+def _cold_start_run(C, sysm, feed, on_card, profile, plain, selector, sel_calls, sel_last,
+                    sel_impl):
+    import torch
+
+    from vplines_slam_tpu_torch.kernels import TWIN_CALLS as LOOP_TWIN_CALLS
+    from vplines_slam_tpu_torch.kernels import all_kernels
+    from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
+    from vplines_slam_tpu_torch.ops.image import CLAHE_APPLY, CLAHE_LUT
+    from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
+    from vplines_slam_tpu_torch.utils.evaluation import ate_rmse, umeyama_alignment
+    from vplines_slam_tpu_torch.utils.stats import SPANS
+
+    n_total = C["imgs"].shape[0]
+    frame_t = C["frame_t"]
+    where = "cold start" if selector is None else "selector cold start"
+
     def sync():
         if on_card:
             torch.cuda.synchronize()
-
-    from vplines_slam_tpu_torch.kernels import TWIN_CALLS as LOOP_TWIN_CALLS
-    from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
     for k in all_kernels():
         k.launches = 0
@@ -1815,9 +2149,10 @@ def _cold_start(C, profile, draws, plain):
         outs.append(last)
     sync()
     SPANS.stop()
+    n_sel_calls = len(sel_calls) if sel_calls is not None else 0
     if on_card:
-        estimator_check(False, "cold start")
-        loop_twin_check("cold start")
+        estimator_check(False, where)
+        loop_twin_check(where)
     if init_frame is None:
         fail("the stream ended before the VIO initialized")
     n_tracked = j - 1 - init_frame
@@ -1834,7 +2169,8 @@ def _cold_start(C, profile, draws, plain):
         spans = dict(frontend=("frontend",), line_frontend=("line_frontend",),
                      clahe=(CLAHE_LUT.name, CLAHE_APPLY.name), vio=("vio",),
                      preintegrate=(PREINTEGRATE.name,), loop_stage=("loop_stage",),
-                     lc_extract=("lc_extract",), lc_retrieve=("lc_retrieve",))
+                     lc_extract=("lc_extract",), lc_retrieve=("lc_retrieve",),
+                     selector=("selector",))
         split = {k: float(np.median([sum(d.get(n, 0.0) for n in names) for d in per]))
                  for k, names in spans.items()}
         lc_sum = {k: float(sum(d.get(k, 0.0) for d in per))
@@ -1846,8 +2182,18 @@ def _cold_start(C, profile, draws, plain):
             f"{split['preintegrate']:.3f} ms; loop stage median {split['loop_stage']:.3f} ms "
             f"(over these frames in all: loop stage {lc_sum['loop_stage']:.2f} ms, of which "
             f"extract + add {lc_sum['lc_extract']:.2f} ms, retrieve "
-            f"{lc_sum['lc_retrieve']:.2f} ms)")
+            f"{lc_sum['lc_retrieve']:.2f} ms)" + ("" if selector is None else
+                                                  f"; selector stage median "
+                                                  f"{split['selector']:.3f} ms"))
         split["lc_sum"] = lc_sum
+    if selector is not None:
+        k20 = {k.name: k.launches for k in selector_kernels()}
+        selector_checks(sel_calls[:n_sel_calls], sel_last, selector, n_tracked,
+                        SPANS.per_frame_ms() if on_card else None, on_card)
+        log(f"  K20 launches over the {n_tracked} tracked frames: {k20}")
+        if on_card and any(c != n_tracked for c in k20.values()):
+            fail(f"K20 did not launch on every tracked frame: {k20}")
+        probe_args = sel_last["args"]
     # every output is one frame's pose; the initializing frame's is the
     # second-newest window frame, the others the newest
     ts = np.array([o.t for o in outs])
@@ -1886,9 +2232,11 @@ def _cold_start(C, profile, draws, plain):
                 sysm.flush()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message).lower()]
+        syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
         res["syncs"] = len(syncs) / max(n_extra, 1)
-        log(f"  host syncs: {res['syncs']:.1f} per frame (over {n_extra} frames)")
+        sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+        log(f"  host syncs: {res['syncs']:.1f} per frame (over {n_extra} frames); call sites: "
+            f"{sites.most_common()}")
         j += n_extra
         if profile and j + N_SYNC <= n_total:
             j0 = j
@@ -1900,15 +2248,23 @@ def _cold_start(C, profile, draws, plain):
 
             res["profile"] = (run_profiled, N_SYNC,
                               split["frontend"] + split["line_frontend"] + split["vio"])
+        if selector is not None:
+            res["selector_probe"] = lambda: sel_impl(*probe_args)
     n_kf_db = sysm._db_count
     loop_l = {k.name: k.launches for k in loop_kernels()}
     lc_ms = sysm.stats.timers.mean("loop_stage")
     log(f"  loop closure: {n_kf_db} keyframes inserted, loop_stage timer mean {lc_ms:.3f} ms "
-        f"per drain; launches of K15-K17: {loop_l}")
+        f"per drain; launches of K15-K19 and K21: {loop_l}")
     res["n_kf_db"], res["loop_stage_ms"], res["loop_launches"] = n_kf_db, lc_ms, loop_l
     # no loop can close within skip_recent keyframes: verification, PnP and
     # the pose graph stay idle, and the corrected pose is the VIO pose
-    idle = {k.name for k in loop_kernels()[2:3] + loop_kernels()[4:]}
+    from vplines_slam_tpu_torch.models.pose_graph import PGO4
+    from vplines_slam_tpu_torch.ops.brief import HAMMING_MATCH
+    from vplines_slam_tpu_torch.ops.mvg import PNP_HYPOTHESES
+
+    idle = {HAMMING_MATCH.name, PNP_HYPOTHESES.name, PGO4.name}
+    if selector is None:
+        idle |= {k.name for k in selector_kernels()}
     if plain:
         idle |= {CLAHE_LUT.name, CLAHE_APPLY.name, PREINTEGRATE.name}
     if n_kf_db == 0:
@@ -2080,6 +2436,9 @@ def main(argv=None):
     rec = phase_kernels(S, SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 3, loop closure: K15-K19")
     phase_loop_kernels(rec, S)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 3, the selector and PnP refinement: "
+        f"K20-K21")
+    phase_selector_kernels(rec, S)
     t0 = time.perf_counter()
     windows = {"points": estimator_window(S, False), "lines": estimator_window(SL, True)}
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 3, estimator: K11-K14 on the windows "
@@ -2097,7 +2456,14 @@ def main(argv=None):
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
     launches, cs = phase_cold_start(C, profile=args.profile)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
-    loop_launches, lc = phase_loop_circuit(dev, profile=args.profile)
+    loop_launches, lc = phase_loop_circuit(dev)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
+    from vplines_slam_tpu_torch.utils.config import load_profile
+
+    sel_cfg = load_profile(str(ROOT / "configs" / "euroc.yaml"), dtype=torch.float32,
+                           device=dev).selector
+    launches8, s8 = phase_cold_start(C, selector=sel_cfg)
+    sel_launches = {k.name: launches8[k.name] for k in selector_kernels()}
     if args.cold_witness:
         log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
         phase_cold_witness(C)
@@ -2106,6 +2472,10 @@ def main(argv=None):
     # profiler sessions last: they slow every later launch of the process
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel device times (torch.profiler)")
     device_times(rec)
+    if lc["probe"] is not None:
+        count_launches(lc["probe"], 3, "phase 7, one loop verification", table=args.profile)
+    count_launches(s8["selector_probe"], 3, "phase 8, one selector call (_select_impl)",
+                   table=args.profile)
     if args.profile:
         log(f"[{time.perf_counter() - t_start:.0f} s] profile of the points slice:")
         phase_profile(*prof_points)
@@ -2119,15 +2489,17 @@ def main(argv=None):
 
     from vplines_slam_tpu_torch.kernels import all_kernels
 
-    # launches: K1-K14 from the cold-start run (phase 6), K15-K19 from the
-    # loop-closure circuit (phase 7), the path that drives all of them
+    # launches: K1-K14 from the cold-start run (phase 6), K15-K19 and K21 from
+    # the loop-closure circuit (phase 7), K20 from the selector cold start
+    # (phase 8): the paths that drive them
     kernels_json = []
     for k in all_kernels():
         short = k.name.removeprefix("vp_")
         r = rec[short]
         kernels_json.append(dict(
             name=short, route="cuda", source=k.source, replaces=k.replaces,
-            launches=loop_launches.get(k.name, launches[k.name]), max_abs_err=r["err"],
+            launches=sel_launches.get(k.name, loop_launches.get(k.name, launches[k.name])),
+            max_abs_err=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], device_ms=r["device_ms"],
             **({"solve_ms": r["solve_ms"]} if "solve_ms" in r else {})))
@@ -2155,6 +2527,12 @@ def main(argv=None):
         f"/keyframe, verify {ms7['verify'] / max(lc['n_verify'], 1):.3f}/verification, pgo "
         f"{ms7['pgo']:.2f}; last keyframe's error {lc['err_before']:.4f} -> "
         f"{lc['err_after']:.4f} m")
+    sp8 = s8["split"]
+    log(f"summary (selector cold start): initialized at frame {s8['init_frame']}, "
+        f"{s8['ms_frame']:.2f} ms/frame over {s8['n_tracked']} tracked frames, selector stage "
+        f"median {sp8['selector']:.3f} ms, VIO {sp8['vio']:.2f} ms; {s8['syncs']:.1f} host "
+        f"syncs/frame; ATE {s8['ate']:.4f} m (scale truth/estimate {s8['scale']:.4f}); K20 "
+        f"launches {sel_launches}")
     log(smi)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -452,8 +452,6 @@ def _unported():
         "vio.estimate_td": engine(estimate_td=True),
         "vio.mesh": engine(mesh=object()),
         "system.fusion": system(fusion_cfg=object()),
-        "system.selector": system(use_feature_selector=True),
-        "system.selector_config": system(selector_cfg=object()),
         "system.fetch_every": system(fetch_every=2),
         "system.introspection": system(introspect_every=5),
         "system.introspection_dir": system(introspect_dir="introspect"),

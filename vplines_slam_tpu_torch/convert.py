@@ -3,7 +3,8 @@
 ``to_torch`` takes any of the reference's state NamedTuples (``WindowState``,
 ``TrackData`` with its ``Preintegration`` and ``Prior``, ``TrackerState``,
 ``LineTrackerState``, ``ImuParams``, ``CameraModel``, loop closure's
-``KeyframeDB``, ``PoseGraphConfig`` and ``LoopResult``) or a plain tuple such
+``KeyframeDB``, ``PoseGraphConfig`` and ``LoopResult``, the selector's
+``SelectorConfig``) or a plain tuple such
 as the IMU batch ``(dts, accs, gyrs, mask, has_imu)``, with leaves given as
 numpy arrays (or anything ``np.asarray`` accepts), and returns the port's
 NamedTuple of the same name with tensors on ``device``.  Integer arrays
@@ -11,7 +12,8 @@ NamedTuple of the same name with tensors on ``device``.  Integer arrays
 database's uint32 descriptors (``desc``, ``wdesc``), which become int32 bit
 for bit; floats keep their dtype unless ``dtype`` is given (frame stamps
 become f64 and signatures stay f32 whatever ``dtype`` says).  A
-``PoseGraphConfig`` holds Python numbers and crosses as it is.
+``PoseGraphConfig`` or ``SelectorConfig`` holds Python numbers and crosses
+as it is.
 ``from_torch`` goes back: numpy leaves, int64 -> int32 and the descriptors
 -> uint32, as the reference stores them.  Nothing here imports JAX.
 """
@@ -27,13 +29,14 @@ from .models.feature_tracker import TrackerState
 from .models.imu import ImuParams, Preintegration
 from .models.line_tracker import LineTrackerState
 from .models.pose_graph import KeyframeDB, LoopResult, PoseGraphConfig
+from .models.selector import SelectorConfig
 from .solver.marginalization import Prior
 
 PORT_TYPES = {cls.__name__: cls for cls in (
     WindowState, TrackData, Preintegration, Prior, TrackerState, LineTrackerState, ImuParams,
-    CameraModel, KeyframeDB, LoopResult, PoseGraphConfig)}
+    CameraModel, KeyframeDB, LoopResult, PoseGraphConfig, SelectorConfig)}
 # NamedTuples of Python numbers, crossing as they are
-_CONFIG_TYPES = {"PoseGraphConfig"}
+_CONFIG_TYPES = {"PoseGraphConfig", "SelectorConfig"}
 # NamedTuple fields that are static Python ints, not arrays
 _STATIC_FIELDS = {"kind", "width", "height"}
 # frame stamps, f64 in the port whatever the engine dtype

@@ -64,3 +64,281 @@ __device__ __forceinline__ float ordered_to_float(int i) {
 }
 
 }  // namespace vp
+
+// ---------------------------------------------------------------------------
+// Forward-mode jets: Jet<T, N> is a value and N tangents (Ceres' Jet), with
+// the arithmetic, the math functions, and 3-vectors and quaternions of jets
+// that follow utils/geometry.  K11 (window_lin.cu) and K21 (pnp_refine.cu)
+// differentiate their residuals with them.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float m_sin(float x) { return sinf(x); }
+__device__ __forceinline__ double m_sin(double x) { return sin(x); }
+__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
+__device__ __forceinline__ double m_cos(double x) { return cos(x); }
+__device__ __forceinline__ float m_atan2(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ double m_atan2(double y, double x) { return atan2(y, x); }
+__device__ __forceinline__ float m_asin(float x) { return asinf(x); }
+__device__ __forceinline__ double m_asin(double x) { return asin(x); }
+__device__ __forceinline__ bool m_finite(float x) { return isfinite(x); }
+__device__ __forceinline__ bool m_finite(double x) { return isfinite(x); }
+
+// ---------------------------------------------------------------------------
+// Jet<T, N>: value a and tangents v[0..N)
+// ---------------------------------------------------------------------------
+
+template <typename T, int N>
+struct Jet {
+  T a;
+  T v[N > 0 ? N : 1];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> cst(T a) {
+  Jet<T, N> r;
+  r.a = a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = T(0);
+  return r;
+}
+
+// a with tangent 1 in direction k (a constant when k is out of range)
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> seed(T a, int k) {
+  Jet<T, N> r = cst<T, N>(a);
+  if (k >= 0 && k < N) r.v[k] = T(1);
+  return r;
+}
+
+#define JET_T template <typename T, int N>
+#define JN Jet<T, N>
+
+JET_T __device__ __forceinline__ JN operator+(const JN& x, const JN& y) {
+  JN r;
+  r.a = x.a + y.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = x.v[k] + y.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator-(const JN& x, const JN& y) {
+  JN r;
+  r.a = x.a - y.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = x.v[k] - y.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator-(const JN& x) {
+  JN r;
+  r.a = -x.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = -x.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator*(const JN& x, const JN& y) {
+  JN r;
+  r.a = x.a * y.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = x.v[k] * y.a + x.a * y.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator/(const JN& x, const JN& y) {
+  JN r;
+  r.a = x.a / y.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = (x.v[k] - r.a * y.v[k]) / y.a;
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator+(const JN& x, T s) {
+  JN r = x;
+  r.a = x.a + s;
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator+(T s, const JN& x) {
+  JN r = x;
+  r.a = s + x.a;
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator-(const JN& x, T s) {
+  JN r = x;
+  r.a = x.a - s;
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator-(T s, const JN& x) {
+  JN r;
+  r.a = s - x.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = -x.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator*(const JN& x, T s) {
+  JN r;
+  r.a = x.a * s;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = x.v[k] * s;
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator*(T s, const JN& x) { return x * s; }
+JET_T __device__ __forceinline__ JN operator/(const JN& x, T s) {
+  JN r;
+  r.a = x.a / s;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = x.v[k] / s;
+  return r;
+}
+JET_T __device__ __forceinline__ JN operator/(T s, const JN& x) {
+  JN r;
+  r.a = s / x.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = -r.a * x.v[k] / x.a;
+  return r;
+}
+JET_T __device__ __forceinline__ JN jsqrt(const JN& x) {
+  JN r;
+  r.a = m_sqrt(x.a);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = x.v[k] / (T(2) * r.a);
+  return r;
+}
+JET_T __device__ __forceinline__ JN jsin(const JN& x) {
+  JN r;
+  r.a = m_sin(x.a);
+  const T d = m_cos(x.a);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = d * x.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN jcos(const JN& x) {
+  JN r;
+  r.a = m_cos(x.a);
+  const T d = -m_sin(x.a);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = d * x.v[k];
+  return r;
+}
+JET_T __device__ __forceinline__ JN jatan2(const JN& y, const JN& x) {
+  JN r;
+  r.a = m_atan2(y.a, x.a);
+  const T n = x.a * x.a + y.a * y.a;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = (x.a * y.v[k] - y.a * x.v[k]) / n;
+  return r;
+}
+JET_T __device__ __forceinline__ JN jasin(const JN& x) {
+  JN r;
+  r.a = m_asin(x.a);
+  const T d = T(1) / m_sqrt(T(1) - x.a * x.a);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.v[k] = d * x.v[k];
+  return r;
+}
+// torch.clamp: the tangent passes where lo <= x <= hi
+JET_T __device__ __forceinline__ JN jclamp(const JN& x, T lo, T hi) {
+  JN r = x;
+  if (!(x.a >= lo && x.a <= hi)) {
+    r = cst<T, N>(x.a < lo ? lo : (x.a > hi ? hi : x.a));
+  }
+  return r;
+}
+// torch.clamp(min=lo): the tangent passes where x >= lo
+JET_T __device__ __forceinline__ JN jclamp_min(const JN& x, T lo) {
+  return x.a >= lo ? x : cst<T, N>(x.a < lo ? lo : x.a);
+}
+
+// ---------------------------------------------------------------------------
+// vectors and quaternions [w, x, y, z] (Hamilton) of jets, as utils/geometry
+// ---------------------------------------------------------------------------
+
+JET_T struct V3 {
+  JN x, y, z;
+};
+JET_T struct Q4 {
+  JN w, x, y, z;
+};
+#define V3N V3<T, N>
+#define Q4N Q4<T, N>
+
+JET_T __device__ __forceinline__ V3N vconst(const T* p) {
+  return {cst<T, N>(p[0]), cst<T, N>(p[1]), cst<T, N>(p[2])};
+}
+JET_T __device__ __forceinline__ Q4N qconst(const T* q) {
+  return {cst<T, N>(q[0]), cst<T, N>(q[1]), cst<T, N>(q[2]), cst<T, N>(q[3])};
+}
+JET_T __device__ __forceinline__ V3N vadd(const V3N& a, const V3N& b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+JET_T __device__ __forceinline__ V3N vsub(const V3N& a, const V3N& b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+JET_T __device__ __forceinline__ V3N vneg(const V3N& a) { return {-a.x, -a.y, -a.z}; }
+JET_T __device__ __forceinline__ V3N vmul(const JN& s, const V3N& a) {
+  return {s * a.x, s * a.y, s * a.z};
+}
+JET_T __device__ __forceinline__ V3N vdiv(const V3N& a, const JN& s) {
+  return {a.x / s, a.y / s, a.z / s};
+}
+// torch.linalg.cross
+JET_T __device__ __forceinline__ V3N vcross(const V3N& a, const V3N& b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+JET_T __device__ __forceinline__ JN vdot(const V3N& a, const V3N& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+JET_T __device__ __forceinline__ JN vnorm(const V3N& a) {
+  return jsqrt(a.x * a.x + a.y * a.y + a.z * a.z);
+}
+
+JET_T __device__ __forceinline__ Q4N qmul(const Q4N& q, const Q4N& p) {
+  return {q.w * p.w - q.x * p.x - q.y * p.y - q.z * p.z,
+          q.w * p.x + q.x * p.w + q.y * p.z - q.z * p.y,
+          q.w * p.y - q.x * p.z + q.y * p.w + q.z * p.x,
+          q.w * p.z + q.x * p.y - q.y * p.x + q.z * p.w};
+}
+JET_T __device__ __forceinline__ Q4N qconj(const Q4N& q) { return {q.w, -q.x, -q.y, -q.z}; }
+JET_T __device__ __forceinline__ Q4N qnormalize(const Q4N& q) {
+  const JN n = jsqrt(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z);
+  return {q.w / n, q.x / n, q.y / n, q.z / n};
+}
+// quat_rotate: v + 2 (w (u x v) + u x (u x v))
+JET_T __device__ __forceinline__ V3N qrot(const Q4N& q, const V3N& v) {
+  const V3N u = {q.x, q.y, q.z};
+  const V3N uv = vcross(u, v);
+  const V3N c = vcross(u, uv);
+  const T two = T(2);
+  return {v.x + two * (q.w * uv.x + c.x), v.y + two * (q.w * uv.y + c.y),
+          v.z + two * (q.w * uv.z + c.z)};
+}
+// quat_to_rot: R[r][c]
+JET_T __device__ __forceinline__ void qtorot(const Q4N& q, JN (&R)[3][3]) {
+  const T one = T(1), two = T(2);
+  const JN w = q.w, x = q.x, y = q.y, z = q.z;
+  R[0][0] = one - two * (y * y + z * z);
+  R[0][1] = two * (x * y - w * z);
+  R[0][2] = two * (x * z + w * y);
+  R[1][0] = two * (x * y + w * z);
+  R[1][1] = one - two * (x * x + z * z);
+  R[1][2] = two * (y * z - w * x);
+  R[2][0] = two * (x * z - w * y);
+  R[2][1] = two * (y * z + w * x);
+  R[2][2] = one - two * (x * x + y * y);
+}
+// so3_exp_quat, with its small-angle branch
+JET_T __device__ __forceinline__ Q4N so3_exp(const V3N& th) {
+  const JN asq = th.x * th.x + th.y * th.y + th.z * th.z;
+  JN k, w;
+  if (asq.a < T(1e-12)) {
+    k = T(0.5) - asq / T(48);
+    w = T(1) - asq / T(8);
+  } else {
+    const JN ang = jsqrt(asq);
+    const JN half = ang * T(0.5);
+    k = jsin(half) / ang;
+    w = jcos(half);
+  }
+  return {w, k * th.x, k * th.y, k * th.z};
+}
+
+}  // namespace

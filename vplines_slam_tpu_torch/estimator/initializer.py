@@ -160,8 +160,7 @@ def window_sfm(obs, mask, l, sample_idx, lm_iters=15):
     m_f = (pt_ok[:, None] & mask).T  # [F, N]
     obs_f = obs.transpose(0, 1)  # [F, N, 2]
     R0, t0, pnp_ok = mvg.pnp_dlt(X_l, obs_f, m_f)
-    R_cl, t_cl = torch.func.vmap(mvg.pnp_refine, in_dims=(0, 0, None, 0, 0))(
-        R0, t0, X_l, obs_f, m_f)
+    R_cl, t_cl = mvg.pnp_refine(R0, t0, X_l, obs_f, m_f)
 
     q_cl = rot_to_quat(R_cl)
     invd0 = 1.0 / torch.clamp(z_l, 0.05, 1e3)

@@ -219,6 +219,7 @@ class VioEngine:
         self._imu_times: list = []
         self._imu_acc: list = []
         self._imu_gyr: list = []
+        self.last_frame_time = None  # the stamp of the last frame taken
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------- draws
@@ -293,6 +294,13 @@ class VioEngine:
     def add_imu(self, t, acc, gyr):
         if self._sync is not None:
             self._sync.push_imu(float(t), np.asarray(acc, float), np.asarray(gyr, float))
+            # a host mirror of the last 64 samples serves the mean-IMU
+            # consumers (the selector's horizon)
+            self._imu_acc.append(np.asarray(acc, float))
+            self._imu_gyr.append(np.asarray(gyr, float))
+            if len(self._imu_acc) > 64:
+                self._imu_acc = self._imu_acc[-64:]
+                self._imu_gyr = self._imu_gyr[-64:]
             return
         self._imu_times.append(float(t))
         self._imu_acc.append(np.asarray(acc, float))
@@ -399,6 +407,7 @@ class VioEngine:
         nf = cfg.nf
         imu_batch, pt_ids, pt_rays, ln_args = self._frame_inputs(
             t, pt_ids, pt_rays, ln_ids, ln_obs, ln_vps, ln_vp_valid)
+        self.last_frame_time = float(t)
         if not self.initialized:
             self.fill_step(self.frame_count, pt_ids, pt_rays, ln_args, imu_batch, t)
             self.frame_count += 1
@@ -440,6 +449,7 @@ class VioEngine:
                                   ln_vps=ln_vps, ln_vp_valid=ln_vp_valid)
         imu_batch, pt_ids, pt_rays, ln_args = self._frame_inputs(
             t, pt_ids, pt_rays, ln_ids, ln_obs, ln_vps, ln_vp_valid)
+        self.last_frame_time = float(t)
         self.state, self.data, out = track_step(
             self.state, self.data, pt_ids, pt_rays, imu_batch, self.cfg, self.params,
             t=float(t), ln_args=ln_args, use_lines=self.use_lines)

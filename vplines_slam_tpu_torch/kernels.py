@@ -35,9 +35,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-# calls of the plain twins of K15-K19 on any device, by name ("fast", "nms",
-# "brief", "match", "signature", "pnp", "pgo4"); a run on the card reads 0 for
-# each (the twins of K11-K14 count in solver/lm.TWIN_CALLS)
+# calls of the plain twins of K15-K21 on any device, by name ("fast", "nms",
+# "brief", "match", "signature", "pnp", "pgo4", "selector_info",
+# "selector_greedy", "pnp_refine"); a run on the card reads 0 for each (the
+# twins of K11-K14 count in solver/lm.TWIN_CALLS)
 TWIN_CALLS = collections.Counter()
 
 P = ctypes.c_void_p
@@ -170,9 +171,11 @@ def all_kernels():
     preintegration (K10), the estimator's window linearization, block
     assembly, Schur solve and marginalization (K11-K14), then loop
     closure's FAST (K15), BRIEF (K16), Hamming match and SimHash signature
-    (K17), PnP hypotheses (K18) and 4-DoF pose graph (K19)."""
+    (K17), PnP hypotheses (K18) and 4-DoF pose graph (K19), then the feature
+    selector's information and greedy log-det (K20) and the PnP Gauss-Newton
+    refinement (K21)."""
     from .estimator import linearize
-    from .models import imu, pose_graph
+    from .models import imu, pose_graph, selector
     from .ops import brief, corners, image, klt, line_match, lines, mvg, vp
     from .solver import lm, marginalization
 
@@ -182,4 +185,5 @@ def all_kernels():
             vp.VP_SCORE, image.CLAHE_LUT, image.CLAHE_APPLY, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
             marginalization.MARG_WINDOW, brief.FAST, brief.BRIEF, brief.HAMMING_MATCH,
-            brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4]
+            brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4, selector.SELECTOR_INFO,
+            selector.SELECTOR_GREEDY, mvg.PNP_REFINE]

@@ -17,12 +17,15 @@ the tests feed the JAX draws and callers on the card draw with a seeded
 its draws the same way (``[n_hyp, 6]``); its hypotheses -- a six-point DLT
 pose each and its reprojection inliers -- are kernel K18
 (``csrc/pnp.cu``, f64 inside whatever the input type), the choice of the
-best, its Gauss-Newton refinement and the final score plain torch.
+best and the final score plain torch.  ``pnp_refine``'s Gauss-Newton steps
+are kernel K21 (``csrc/pnp_refine.cu``, f64 inside, a batch of problems in
+one launch: the initializer's window frames, a verification's one pose).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.func import jacfwd
@@ -42,6 +45,13 @@ PNP_HYPOTHESES = kernels.Kernel(
     "vplines_slam_tpu/ops/mvg.py:241",
     [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I,
      ctypes.c_double, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P],
+)
+
+PNP_REFINE = kernels.Kernel(
+    "vp_pnp_refine", "vplines_slam_tpu_torch/csrc/pnp_refine.cu",
+    "vplines_slam_tpu/ops/mvg.py:213",
+    [kernels.P, kernels.P, kernels.P, kernels.I, kernels.P, kernels.P, kernels.I, kernels.I,
+     kernels.I, kernels.I, kernels.P, kernels.P],
 )
 
 
@@ -226,8 +236,8 @@ def pnp_dlt(X_w, x, mask):
     return R, t, torch.sum(mask.to(torch.int64), dim=-1) >= 6
 
 
-def pnp_refine(R0, t0, X_w, x, mask, iters=5):
-    """Gauss-Newton refinement of a PnP pose on SE(3): the left rotation
+def _pnp_refine_one(R0, t0, X_w, x, mask, iters):
+    """Gauss-Newton refinement of one PnP pose on SE(3): the left rotation
     increment and the translation, ``iters`` fixed steps."""
     w = mask.to(x.dtype)[:, None]
 
@@ -245,6 +255,48 @@ def pnp_refine(R0, t0, X_w, x, mask, iters=5):
         # solve does, and neither raises nor syncs with the host
         params = params - torch.linalg.solve_ex(J.T @ J + 1e-8 * eye, J.T @ r)[0]
     return so3_exp_matrix(params[:3]) @ R0, params[3:]
+
+
+def pnp_refine_plain(R0, t0, X_w, x, mask, iters=5):
+    """K21's twin: ``_pnp_refine_one`` (``jacfwd`` Gauss-Newton) vmapped
+    over the batch.  R0 [B, 3, 3], t0 [B, 3], X_w [N, 3] (shared) or
+    [B, N, 3], x [B, N, 2], mask [B, N]."""
+    kernels.TWIN_CALLS["pnp_refine"] += 1
+    X_b = X_w.expand(R0.shape[0], *X_w.shape[-2:]) if X_w.dim() == 2 else X_w
+    return torch.func.vmap(functools.partial(_pnp_refine_one, iters=iters))(R0, t0, X_b, x,
+                                                                             mask)
+
+
+def pnp_refine(R0, t0, X_w, x, mask, iters=5):
+    """K21: Gauss-Newton refinement of PnP poses, x ~ project(R X_w + t),
+    ``iters`` steps on the left rotation increment w (R = exp(w) R0) and t.
+    Batched: R0 [B, 3, 3], t0 [B, 3], X_w [N, 3] or [B, N, 3], x [B, N, 2],
+    mask [B, N]; a single problem ([3, 3], [3], [N, 3], [N, 2], [N]) is a
+    batch of one.  CPU tensors: ``pnp_refine_plain``.  CUDA tensors: one
+    warp per problem, f64 inside, the pose returned in x's dtype."""
+    single = R0.dim() == 2
+    if single:
+        R0, t0, x, mask = R0[None], t0[None], x[None], mask[None]
+    if not x.is_cuda:
+        R, t = pnp_refine_plain(R0, t0, X_w, x, mask, iters)
+    else:
+        B, N = x.shape[0], x.shape[1]
+        dt = x.dtype
+        if dt not in (torch.float32, torch.float64):
+            raise ValueError(f"K21 takes float32 or float64, got {dt}")
+        R0, t0, X_w, x = (a.to(dt).contiguous() for a in (R0, t0, X_w, x))
+        m8 = mask.to(torch.uint8).contiguous()
+        R = torch.empty(B, 3, 3, dtype=dt, device=x.device)
+        t = torch.empty(B, 3, dtype=dt, device=x.device)
+        x_batched = X_w.dim() == 3
+        PNP_REFINE(kernels.check(R0, "R0", dt, shape=(B, 3, 3)),
+                   kernels.check(t0, "t0", dt, shape=(B, 3)),
+                   kernels.check(X_w, "X_w", dt, shape=(B, N, 3) if x_batched else (N, 3)),
+                   int(x_batched), kernels.check(x, "x", dt, shape=(B, N, 2)),
+                   kernels.check(m8, "mask", torch.uint8, shape=(B, N)), B, N, int(iters),
+                   int(dt == torch.float64), kernels.check(R, "R", dt),
+                   kernels.check(t, "t", dt))
+    return (R[0], t[0]) if single else (R, t)
 
 
 def triangulate_tracks(poses_R, poses_t, obs, mask):

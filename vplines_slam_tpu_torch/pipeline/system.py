@@ -6,11 +6,12 @@ Port of ``vplines_slam_tpu/pipeline/system.py`` (``SystemOutput`` and
 ``new_sequence``, ``load_map``, ``_finish_frame`` and the staged loop
 closure: ``_kf_throttle``, ``_lc_due_dev``, ``_advance_loop_stage``,
 ``_lc_stage_extract``, ``_lc_stage_cand``, ``_lc_dispatch_verify``,
-``_lc_stage_commit``, ``_run_pgo``, ``_window_points_impl``) without GNSS
-fusion, the feature selector, introspection and the K-frame batched fetch
-(``fetch_every > 1``): the constructor raises when asked for any of them, or
-given their configuration (``fusion_cfg``, ``selector_cfg``,
-``introspect_dir``).  Loop closure is on by default, as in the reference.
+``_lc_stage_commit``, ``_run_pgo``, ``_window_points_impl``, and the
+attention feature selector's dispatch and ``_select_impl``) without GNSS
+fusion, introspection and the K-frame batched fetch (``fetch_every > 1``):
+the constructor raises when asked for any of them, or given their
+configuration (``fusion_cfg``, ``introspect_dir``).  Loop closure is on by
+default, as in the reference; the selector is off by default.
 
   sys = SlamSystem(cam, window_cfg, tracker_cfg, line_cfg, pg_cfg=profile.pose_graph,
                    imu_params=..., q_ic=..., p_ic=...)
@@ -28,6 +29,13 @@ extract job keeps that frame's window state; the estimator builds new
 tensors every step and writes none in place, so the snapshot stays that
 frame's.  The verification's RANSAC draws come from the system's
 ``torch.Generator`` through ``pnp_draws``.
+
+The selector (``use_feature_selector=True``): once initialized, the new
+feature ids of a frame (those the window does not track) compete greedily
+for the budget ``max_features`` minus the tracked count, by the information
+they would add over an IMU-propagated horizon (``models/selector``, K20);
+the losers are masked to -1 before the VIO step.  It runs in f64 on the
+device, its budget a device scalar, with no host sync.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from ..estimator.window import WindowConfig
 from ..models import camera as cam_mod
 from ..models import imu as imu_mod
 from ..models import pose_graph as pg_mod
+from ..models import selector as sel_mod
 from ..models.feature_tracker import FeatureTrackerFrontend, TrackerConfig
 from ..models.line_tracker import LineTrackerConfig, LineTrackerFrontend
 from ..utils.geometry import quat_conj, quat_mul, quat_rotate, rot_to_quat
@@ -123,8 +132,6 @@ class SlamSystem:
                  dtype=torch.float32, device=torch.device("cuda")):
         unported = {
             "GNSS fusion (fusion_cfg)": fusion_cfg is not None,
-            "the feature selector (use_feature_selector=True)": use_feature_selector,
-            "the feature selector (selector_cfg)": selector_cfg is not None,
             "introspection (introspect_every > 0)": introspect_every,
             "introspection (introspect_dir)": introspect_dir is not None,
             "the K-frame batched fetch (fetch_every > 1)": fetch_every > 1,
@@ -142,6 +149,10 @@ class SlamSystem:
                              q_ic=q_ic, p_ic=p_ic, dtype=dtype, use_lines=line_cfg is not None,
                              estimate_extrinsic=estimate_extrinsic, estimate_td=estimate_td,
                              mesh=mesh, device=self.device)
+        # attention feature selector: tracked features always pass, new ones
+        # compete for the remaining information budget
+        self.use_selector = use_feature_selector
+        self.selector_cfg = selector_cfg or sel_mod.SelectorConfig()
         self.use_loop = use_loop_closure
         self.pg_cfg = pg_cfg
         self.db = pg_mod.empty_db(pg_cfg, dtype, self.device)
@@ -229,16 +240,23 @@ class SlamSystem:
                 lines = self.line_frontend.process(t, img)
             ln_kwargs = dict(ln_ids=lines.ids, ln_obs=lines.endpoints, ln_vps=lines.vp_dirs,
                              ln_vp_valid=lines.vp_valid)
+        ids = feats.ids
+        if self.use_selector and self.vio.initialized and len(self.vio._imu_acc) >= 2:
+            acc_mean = np.mean(np.stack(self.vio._imu_acc), axis=0)
+            gyr_mean = np.mean(np.stack(self.vio._imu_gyr), axis=0)
+            dt = t - (self.vio.last_frame_time or t - 0.1)
+            with SPANS.span("selector"):
+                ids = self._select_impl(ids, feats.rays, self.vio.state, self.vio.data,
+                                        acc_mean, gyr_mean, dt)
 
         if not self.vio.initialized:
-            out = self.vio.add_frame(t, feats.ids, feats.rays, **ln_kwargs)
+            out = self.vio.add_frame(t, ids, feats.rays, **ln_kwargs)
             if out is not None and self.vio.initialized:
                 results.append(self._finish_frame(t, img, out))
             return results[0] if results else None
 
         with tm.time("vio_dispatch"), SPANS.span("vio"):
-            out_dev = self.vio.add_frame_async(t, feats.ids, feats.rays, packed=True,
-                                               **ln_kwargs)
+            out_dev = self.vio.add_frame_async(t, ids, feats.rays, packed=True, **ln_kwargs)
         self._pending.append(dict(t=t, img=img, out=out_dev, state=self.vio.state,
                                   data=self.vio.data))
         return results[0] if results else None
@@ -503,6 +521,63 @@ class SlamSystem:
         with SPANS.span("lc_pgo"):
             self.db, _ = pg_mod.optimize_4dof(self.db, self.pg_cfg)
             self._drift_dev = pg_mod.drift_correction(self.db, self.pg_cfg)
+
+    def _select_impl(self, ids, rays, state, data, acc_mean, gyr_mean, dt):
+        """The attention feature selector over a frame's candidates, in f64
+        whatever the engine dtype: tracked ids pass, new ids compete
+        greedily for max(max_features - tracked, 0) picks by the information
+        they add over the propagated horizon (NN depth guesses from the
+        window's solved landmarks); at most init_threshold candidates all
+        pass.  Returns the ids [M] with the unselected new ones -1, on the
+        device.  acc_mean, gyr_mean: host [3]; dt: the frame interval (s)."""
+        cfg, scfg = self.vio.cfg, self.selector_cfg
+        f64, dev = torch.float64, self.device
+        k = cfg.nf - 2  # the newest solved frame after the slide
+        ids = torch.as_tensor(ids).to(device=dev, dtype=torch.int64)
+        rays = torch.as_tensor(rays).to(device=dev, dtype=f64)
+        # membership by a [M, max_points] comparison: torch.isin would sort
+        # through unique(), a host sync on the card
+        tracked = torch.any(ids[:, None] == torch.where(data.pt_id >= 0, data.pt_id,
+                                                        torch.full_like(data.pt_id, -2)), dim=1)
+        valid = ids >= 0
+        is_new = valid & ~tracked
+
+        # the future horizon from the constant-IMU model, and its prior
+        p, q, v = state.p.to(f64), state.q.to(f64), state.v.to(f64)
+        q_ic, p_ic = state.q_ic.to(f64), state.p_ic.to(f64)
+        imu = torch.from_numpy(np.concatenate([acc_mean, gyr_mean]).astype(np.float64))
+        if dev.type == "cuda":  # a pinned, asynchronous upload: no host sync
+            imu = imu.pin_memory()
+        imu = imu.to(device=dev, non_blocking=True)
+        ps, qs, _ = sel_mod.propagate_horizon(p[k], q[k], v[k], state.ba[k].to(f64),
+                                              state.bg[k].to(f64), imu[0:3], imu[3:6], dt,
+                                              self.vio.params.g.to(f64))
+        omega_prior = sel_mod.imu_prior_information(qs, dt, scfg.acc_var, scfg.acc_bias_var,
+                                                    scfg.n_imu_per_frame)
+
+        # the window's solved landmarks in camera k: depth guesses
+        slots = torch.arange(cfg.max_points, device=dev)
+        i = data.pt_start
+        z = 1.0 / torch.clamp(data.pt_inv_depth.to(f64), 1e-4, 1e4)
+        Xc_anchor = data.pt_obs[slots, i].to(f64) * z[:, None]
+        q_wc = quat_mul(q, q_ic.expand_as(q))
+        p_wc = p + quat_rotate(q, p_ic.expand_as(p))
+        Xw = quat_rotate(q_wc[i], Xc_anchor) + p_wc[i]
+        Xc = quat_rotate(quat_conj(q_wc[k]), Xw - p_wc[k])
+        k_ok = data.pt_solved & (data.pt_id >= 0) & (Xc[:, 2] > 0.1)
+        k_rays = Xc / torch.clamp(torch.linalg.norm(Xc, dim=-1, keepdim=True), min=1e-9)
+        unit = rays / torch.clamp(torch.linalg.norm(rays, dim=-1, keepdim=True), min=1e-9)
+        depths = sel_mod.nn_depth_guess(unit, k_rays, Xc[:, 2], k_ok)
+
+        omega_f = sel_mod.feature_information(unit, depths, is_new, ps, qs, q_ic, p_ic,
+                                              scfg.pix_sigma)
+        n_tracked = torch.sum(tracked.to(torch.int64))
+        budget = torch.clamp(scfg.max_features - n_tracked, min=0)
+        selected, _ = sel_mod.select_features(omega_prior, omega_f, is_new, budget, scfg)
+        # pass-through when few candidates (init_threshold)
+        n_cand = torch.sum(valid.to(torch.int64))
+        keep = torch.where(n_cand <= scfg.init_threshold, valid, tracked | selected)
+        return torch.where(keep, ids, torch.full_like(ids, -1))
 
     def _window_points(self, state, data):
         """World 3D points, pixel coords, validity and ids of the first

@@ -5,8 +5,9 @@ equidistant and MEI models are not ported and raise).  One yaml file
 describes the camera, IMU noise, extrinsics, front-end knobs and factor
 weights; ``load_profile`` returns the typed configs the modules take.  The
 pose-graph block gives ``pose_graph`` (a ``PoseGraphConfig``) and the
-loop-closure switch; of the selector and GNSS blocks, whose modules are not
-ported, only the switches are read (``SlamSystem`` raises when one is on).
+loop-closure switch, the selector block ``selector`` (a ``SelectorConfig``)
+and its switch; of the GNSS block, whose module is not ported, only the
+switch is read (``SlamSystem`` raises when it is on).
 PyYAML is imported when a profile is loaded, not with this module.
 """
 
@@ -25,6 +26,7 @@ from ..models import imu as imu_mod
 from ..models.feature_tracker import TrackerConfig
 from ..models.line_tracker import LineTrackerConfig
 from ..models.pose_graph import PoseGraphConfig
+from ..models.selector import SelectorConfig
 from ..ops.lines import LineDetectConfig
 from ..ops.vp import VPConfig
 from ..utils.geometry import rot_to_quat
@@ -45,6 +47,7 @@ class SystemProfile(NamedTuple):
     pose_graph: PoseGraphConfig = PoseGraphConfig()
     use_loop_closure: bool = True
     use_feature_selector: bool = False
+    selector: Optional[SelectorConfig] = None
     use_global_fusion: bool = False
     landmark_mesh_devices: int = 0
 
@@ -122,6 +125,12 @@ def load_profile(path, dtype=torch.float64, device=torch.device("cuda")) -> Syst
         loop_edge_weight=pg.get("loop_edge_weight", 1.0),
     )
 
+    s = y.get("selector", {})
+    sel_cfg = SelectorConfig(
+        max_features=s.get("max_features", 30),
+        init_threshold=s.get("init_threshold", 30),
+    )
+
     return SystemProfile(
         camera=cam, imu_params=imu_params, q_ic=q_ic, p_ic=p_ic, window=window,
         tracker=tracker, lines=lines, td=float(y.get("td", 0.0)),
@@ -130,7 +139,8 @@ def load_profile(path, dtype=torch.float64, device=torch.device("cuda")) -> Syst
         estimate_td=bool(y.get("estimate_td", False)),
         pose_graph=pg_cfg,
         use_loop_closure=bool(pg.get("loop_closure", True)),
-        use_feature_selector=bool(y.get("selector", {}).get("use_feature_selector", False)),
+        use_feature_selector=bool(s.get("use_feature_selector", False)),
+        selector=sel_cfg,
         use_global_fusion=bool(y.get("global_fusion", {}).get("enabled", False)),
         landmark_mesh_devices=int(y.get("parallel", {}).get("landmark_mesh_devices", 0)),
     )
