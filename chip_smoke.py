@@ -17,6 +17,11 @@ Phases (any failure exits nonzero; there is no CPU path):
      marginalization) on a points and a lines window (each slice's warm-up
      + N_EST_FRAMES frames on their plain twins), K11 at f32, K12-K14 at f64,
      f64 operations counted at the H100's 67 TFLOP/s FP64 tensor-core rate;
+     K13 at lambda 1e-4, 10 and 1e4 (1e-6 of the delta's largest entry),
+     its product launch's S tiles and rhs against torch's f64 (1e-12), an
+     indefinite S (all NaN from both) and two calls equal to the last bit,
+     with each of its three launches' device time.  A library call timed
+     beside a kernel is also timed on the device (torch.profiler);
   4. points slice: the points-only device loop at EuRoC width (752x480,
      pinhole + radtan from configs/euroc.yaml) on a rendered figure-8 blob
      world: truth-seeded warm-up, then 44 frames through
@@ -72,8 +77,9 @@ Phases (any failure exits nonzero; there is no CPU path):
   Phase 3 also holds loop closure's kernels against their plain twins at the
   profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
   K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
-  signature (codes exact, signature 1e-6, the projection matmul timed as its
-  library call), K18's 256 PnP hypotheses against the f64 twin (full-rank
+  signature at N = 0, 1, 37, 500 and 1,000 with and without xy (codes
+  exact, signature 1e-6, two calls equal to the bit; the projection matmul
+  timed as its library call), K18's 256 PnP hypotheses against the f64 twin (full-rank
   counts exact, R/t 1e-6), K19's residuals and normal equations at K = 256
   (1e-12 of each one's largest entry, the dense f64 solve timed beside it),
   and K20 and K21: selector_info on 150 candidates of a staged 752x480 frame
@@ -161,10 +167,17 @@ def time_ms(fn, n=20, warmup=3):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, kernel_fn_name, n=20):
-    """Device time per call of the CUDA kernel named kernel_fn_name (a
-    substring of its symbol) over n calls, from torch.profiler; None when the
-    profiler records no device time for it."""
+def bound(bytes_moved, flops):
+    """(bound_ms, bound_by): the larger of the HBM time and the compute time
+    (f32 or f64 operations, both 67 TFLOP/s on the H100)."""
+    t_b, t_f = bytes_moved / HBM_BYTES_PER_S, flops / FLOP_PER_S
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def device_kernels(fn, n=20):
+    """Device activity per call of fn over n calls (torch.profiler): {kernel
+    or copy name: ms per call}.  Times a library call, whose kernels are
+    not ours to name, and splits a wrapper into its launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -174,37 +187,69 @@ def device_ms(fn, kernel_fn_name, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if kernel_fn_name in e.key)
-    return us / 1e3 / n if us > 0 else None
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / n
+    return out
 
 
-def bound(bytes_moved, flops):
-    """(bound_ms, bound_by): the larger of the HBM time and the compute time
-    (f32 or f64 operations, both 67 TFLOP/s on the H100)."""
-    t_b, t_f = bytes_moved / HBM_BYTES_PER_S, flops / FLOP_PER_S
-    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+def device_split(fn, kernel_fn_name, tries=3):
+    """Device ms per call of each kernel of fn whose name contains
+    kernel_fn_name (a substring of its symbol), from one profiler session
+    (another one when a session records none of them); {} when none
+    records them."""
+    for _ in range(tries):
+        split = {k: v for k, v in device_kernels(fn).items() if kernel_fn_name in k}
+        if split:
+            return split
+    return {}
 
 
 def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, library_fn=None):
     """Time a kernel's wrapper against its plain twin (and a library call
     computing the same function, where there is one) and store the record;
-    the device time is taken by ``device_times`` after the slices, because a
-    profiler session slows every later launch of the process."""
+    the device times (each launch's, and the library call's) are taken by
+    ``device_times`` after the slices, because a profiler session slows
+    every later launch of the process."""
     b_ms, b_by = bound(bytes_moved, flops)
     rec[name] = dict(err=float(err), ms=time_ms(fn), plain_ms=time_ms(plain_fn),
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=time_ms(library_fn) if library_fn is not None else None,
-                     device_of=(fn, kernel_fn_name))
+                     device_of=(fn, kernel_fn_name), library_of=library_fn)
+
+
+# device time per call of the designs the current K13 and K17 signature
+# replaced (two launches, one-CTA Cholesky; one CTA over all descriptors), on
+# an NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
+PREVIOUS_DEVICE_MS = {"schur_solve": 1.0662, "simhash_signature": 0.1194}
 
 
 def device_times(rec):
-    """Fill each record's device time (torch.profiler) and log the table."""
+    """Fill each record's device time (torch.profiler), per kernel and in
+    all, and its library call's, and log the table."""
     for name, r in rec.items():
-        r["device_ms"] = device_ms(*r.pop("device_of"))
+        fn, kname = r.pop("device_of")
+        lib = r.pop("library_of")
+        r["device_split"] = device_split(fn, kname)
+        r["device_ms"] = sum(r["device_split"].values()) or None
+        r["library_device_ms"] = (sum(device_kernels(lib).values()) if lib is not None
+                                  else None)
         dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-        lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
+        lib_s = ("" if lib is None else f", library call {r['library_ms']:.4f} ms/call (device "
+                 f"{r['library_device_ms']:.4f} ms)")
         log(f"  {name}: kernel {r['ms']:.4f} ms/call (device {dms}), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib}")
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib_s}")
+        if len(r["device_split"]) > 1 or name in PREVIOUS_DEVICE_MS:
+            log(f"    its kernels' device ms: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["device_split"].items())
+                + (f" (the previous design: {PREVIOUS_DEVICE_MS[name]:.4f} ms in all)"
+                   if name in PREVIOUS_DEVICE_MS else ""))
+        if "solve_of" in r:
+            r["solve_device_ms"] = sum(device_kernels(r.pop("solve_of")).values())
+            log(f"    the dense solve beside it: {r['solve_ms']:.4f} ms/call, device "
+                f"{r['solve_device_ms']:.4f} ms, bound {r['solve_bound_ms']:.5f} ms "
+                f"({r['solve_bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -843,19 +888,39 @@ def phase_estimator_kernels(rec, windows):
             f"in another order)")
         if not err12 <= tol12:
             fail(f"K12 window_blocks disagrees with its plain version ({label} window)")
-        # K13 on the same normal equations, small and large damping
-        err13 = 0.0
-        for lam in (1e-4, 10.0):
+        # K13 on the same normal equations, small to large damping
+        err13 = errS = 0.0
+        for lam in (1e-4, 10.0, 1e4):
             lam_t = torch.tensor(lam, dtype=f64, device=state.p.device)
-            dk = lm._schur_cuda(*nep[:5], lam_t, 1e-8, *(nep[5:] or (None,) * 3), f64)
+            keep = {}
+            dk = lm._schur_cuda(*nep[:5], lam_t, 1e-8, *(nep[5:] or (None,) * 3), f64, keep)
+            dk2 = lm._schur_cuda(*nep[:5], lam_t, 1e-8, *(nep[5:] or (None,) * 3), f64)
             dp = lm.schur_solve_blocks_plain(*nep[:5], lam, 1e-8, *nep[5:], out_dtype=f64)
             err13 = max(err13, _rel_err(dk, dp))
-        tol13 = 1e-6
+            if not torch.equal(dk, dk2):
+                fail(f"K13 schur_solve does not repeat to the last bit ({label}, lambda {lam})")
+            # launch 2's tiles (the f64 MMA) against torch's f64 S
+            S_p, rhs_p, _ = lm.schur_system(*nep[:5], lam_t, 1e-8, *nep[5:])
+            S_k = schur_untile(keep["S"], layout.nd)
+            errS = max(errS, _rel_err(torch.tril(S_k), torch.tril(S_p)),
+                       _rel_err(keep["rhs"][:layout.nd], rhs_p))
+        tol13, tolS = 1e-6, 1e-12
         log(f"K13 schur_solve ({label}): max |kernel - plain| / max |plain| of the delta "
-            f"{err13:.2e} at lambda 1e-4 and 10 (tol {tol13}: f64; a 177x177 Cholesky in "
-            f"another order, condition up to ~1e6 after the Jacobi scaling)")
-        if not err13 <= tol13:
+            f"{err13:.2e} at lambda 1e-4, 10 and 1e4 (tol {tol13}: f64; a 177x177 Cholesky in "
+            f"another order, condition up to ~1e6 after the Jacobi scaling); S's tiles and the "
+            f"rhs of its product launch against torch's f64 {errS:.2e} (tol {tolS}: f64 sums of "
+            f"the same products in another order); two calls equal to the last bit")
+        if not (err13 <= tol13 and errS <= tolS):
             fail(f"K13 schur_solve disagrees with its plain version ({label} window)")
+        # an indefinite S (a negative diagonal entry of H_dd): all NaN, as the twin
+        bad = [t.clone() for t in nep]
+        bad[0][3, 3] = -1.0
+        nk = lm._schur_cuda(*bad[:5], 1e-4, 1e-8, *(bad[5:] or (None,) * 3), f64)
+        npl = lm.schur_solve_blocks_plain(*bad[:5], 1e-4, 1e-8, *bad[5:], out_dtype=f64)
+        log(f"K13 schur_solve ({label}), indefinite S: kernel all NaN {bool(nk.isnan().all())}, "
+            f"plain all NaN {bool(npl.isnan().all())}")
+        if not (bool(nk.isnan().all()) and bool(npl.isnan().all())):
+            fail(f"K13 schur_solve: an indefinite S must give an all-NaN delta ({label})")
         # K14 on the marginalization stack's normal equations
         cfg_m = cfg._replace(marg_lines=True) if lines else cfg
         data_r = slide.marginalization_stack(data, cfg_m)
@@ -905,6 +970,21 @@ def phase_estimator_kernels(rec, windows):
         record(rec, "marg_window", err14, lambda: marg._marg_stage1_cuda(*m_args),
                lambda: marg.marg_stage1_plain(*m_args), "marg_",
                _nbytes(*ne_m) + 8 * (cfg.nd * cfg.nd + 2 * cfg.nd), marg_ops(ne_m, cfg))
+
+
+def schur_untile(tiles, nd):
+    """K13's lower 16x16 tiles [n, 16, 16] as the [nd, nd] matrix they tile
+    (the upper tiles zero)."""
+    import torch
+
+    nb = int(round(((8 * tiles.shape[0] + 1) ** 0.5 - 1) / 2))
+    M = torch.zeros(16 * nb, 16 * nb, dtype=tiles.dtype, device=tiles.device)
+    k = 0
+    for i in range(nb):
+        for j in range(i + 1):
+            M[16 * i:16 * i + 16, 16 * j:16 * j + 16] = tiles[k]
+            k += 1
+    return M[:nd, :nd]
 
 
 def live_landmarks(ne):
@@ -1107,16 +1187,38 @@ def phase_loop_kernels(rec, S):
            lambda: brief.match_descriptors_plain(w_k, wv, d_k, v_k, 80, 16, True),
            "hamming_match", (Wp + F_) * 33 + Wp * 8, 2 * Wp * F_ * 8 * 3)
 
-    # K17 (b) the signature of the 500 corners: codes exact, signature 1e-6
-    codes = torch.empty(F_, 256, dtype=torch.int8, device=dev)
-    sig_k = brief.global_signature(d_k, v_k, xy=xy_k, img_hw=(H, W), codes_out=codes)
-    sig_p = brief.global_signature_plain(d_k, v_k, xy=xy_k, img_hw=(H, W))
-    codes_p = brief.simhash_codes_plain(d_k, v_k)
-    codes_same = bool(torch.equal(codes.to(torch.float32), codes_p))
-    err17 = float((sig_k - sig_p).abs().max())
-    log(f"K17 simhash_signature: codes equal: {codes_same} (tol: exact), signature max |kernel "
-        f"- plain| = {err17:.3e} (tol 1e-6)")
-    if not (codes_same and err17 <= 1e-6):
+    # K17 (b) the signature at N = 0, 1, 37, 500 (the 500 corners) and 1,000
+    # (the corners and 500 random descriptors, one at distance exactly 128
+    # from vocabulary word 0: code 0), with and without xy: codes exact,
+    # signature 1e-6, two calls equal to the last bit
+    g17 = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rnd = torch.randint(-2 ** 31, 2 ** 31, (F_, 8), generator=g17, device=dev, dtype=torch.int64)
+    rnd[0] = brief._vocab_words(256, dev)[0].to(torch.int64) ^ torch.tensor(
+        [0x0000FFFF] * 8, device=dev)  # 16 bits of each word differ: 128 in all
+    d_all = torch.cat([d_k, rnd.to(torch.int32)])
+    v_all = torch.cat([v_k, torch.rand(F_, generator=g17, device=dev) < 0.9])
+    v_all[F_] = True
+    xy_all = torch.cat([xy_k, torch.rand(F_, 2, generator=g17, device=dev)
+                        * torch.tensor([W, H], device=dev)])
+    err17, ok17, seen17 = 0.0, True, []
+    for n in (0, 1, 37, F_, 2 * F_):
+        for with_xy in (False, True):
+            kw = dict(xy=xy_all[:n], img_hw=(H, W)) if with_xy else {}
+            codes = torch.empty(n, 256, dtype=torch.int8, device=dev)
+            sig_k = brief.global_signature(d_all[:n], v_all[:n], codes_out=codes, **kw)
+            sig_k2 = brief.global_signature(d_all[:n], v_all[:n], **kw)
+            sig_p = brief.global_signature_plain(d_all[:n], v_all[:n], **kw)
+            codes_p = brief.simhash_codes_plain(d_all[:n], v_all[:n])
+            same = bool(torch.equal(codes.to(torch.float32), codes_p))
+            e = float((sig_k - sig_p).abs().max())
+            rep = bool(torch.equal(sig_k, sig_k2))
+            err17, ok17 = max(err17, e), ok17 and same and rep and e <= 1e-6
+            seen17.append(f"N {n}{' xy' if with_xy else ''}: {same}/{e:.1e}/{rep}")
+    zero_code = int(brief.simhash_codes_plain(d_all[F_:F_ + 1], v_all[F_:F_ + 1])[0, 0])
+    log(f"K17 simhash_signature (codes equal / signature max |kernel - plain| / repeats): "
+        f"{'; '.join(seen17)} (tol: codes exact, signature 1e-6, repeats to the bit); the "
+        f"crafted descriptor's code on word 0: {zero_code} (distance 128)")
+    if not (ok17 and zero_code == 0):
         fail("K17 simhash_signature disagrees with its plain version")
     bits = brief._unpack_bits(d_k) - 0.5
     Wv = torch.from_numpy(brief._random_vocab(256, 256)).to(device=dev, dtype=torch.float32)
@@ -1184,14 +1286,20 @@ def phase_loop_kernels(rec, S):
         fail("K19 pgo4 disagrees with its plain version")
     spec = lm.SchurSpec(dense_dim=4 * K)
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
-    solve_ms = time_ms(lambda: lm.schur_solve(Hk, gk, spec, lam))
+    solve = lambda: lm.schur_solve(Hk, gk, spec, lam)
+    solve_ms = time_ms(solve)
     log(f"  the dense {4 * K} x {4 * K} f64 solve beside it (solver/lm.schur_solve, "
         f"torch.linalg Cholesky): {solve_ms:.4f} ms/call")
     n_e = K * (cfg.seq_edges + 2)
     record(rec, "pgo4", err19, lambda: pg_mod.pgo_normal(xk, db, ypr, cfg),
            lambda: pg_mod.pgo_normal_plain(xk, db, ypr, cfg), "pgo4_",
            K * 8 * 20 + K * 4 * 3 + 8 * (16 * K * K + 4 * K + 4 * n_e), n_e * (150 + 4 * 2 * 64))
-    rec["pgo4"]["solve_ms"] = solve_ms
+    # the solve's bound: H and g read, the delta written; a Cholesky (n^3 / 3)
+    # and two triangular solves
+    n4 = 4 * K
+    s_ms, s_by = bound(8 * (n4 * n4 + 2 * n4), n4 ** 3 / 3 + 2 * n4 * n4)
+    rec["pgo4"].update(solve_ms=solve_ms, solve_of=solve, solve_bound_ms=s_ms,
+                       solve_bound_by=s_by)
     TWIN_CALLS.clear()
     return rec
 
@@ -2502,7 +2610,9 @@ def main(argv=None):
             max_abs_err=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], device_ms=r["device_ms"],
-            **({"solve_ms": r["solve_ms"]} if "solve_ms" in r else {})))
+            library_device_ms=r["library_device_ms"],
+            device_split=r["device_split"],
+            **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms") if k in r}))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")

@@ -154,6 +154,52 @@ def test_signature_bit_order():
         assert tb[0, i] == 1 and tb.sum() == 1
 
 
+def test_signature_code_is_128_minus_popcount():
+    """The identity K17's signature kernel relies on: with w_j, column j of
+    the reference's vocabulary (``_random_vocab``) packed as the port's
+    ``_vocab_words``, (bits - 0.5) @ W = 128 - popcount(desc ^ w_j) exactly,
+    so the code is that integer's sign.  Descriptors at distance exactly 128
+    from a word (code 0, as jnp.sign gives), 127 and 129 are crafted in.  The
+    bit order of the packing is test_signature_bit_order's and not repeated."""
+    rng = np.random.default_rng(6)
+    words = u32(tbrief._vocab_words(256, CPU))  # [256, 8]
+    crafted = []
+    for j, flips in ((0, 128), (5, 128), (255, 128), (7, 127), (7, 129)):
+        mask = np.zeros(256, np.uint8)
+        mask[rng.permutation(256)[:flips]] = 1
+        crafted.append(words[j] ^ np.packbits(mask, bitorder="little").view(np.uint32))
+    d = np.concatenate([rand_desc(rng, 40), np.stack(crafted)])
+    bits = np.asarray(jnp.unpackbits(jnp.asarray(d).view(jnp.uint8), axis=-1, count=256,
+                                     bitorder="little"), np.float64)
+    proj = (bits - 0.5) @ np.asarray(jbrief._random_vocab(256, 256, jnp.float64))
+    dist = np.unpackbits((d[:, None, :] ^ words[None]).view(np.uint8), axis=-1).sum(
+        -1, dtype=np.int64)
+    np.testing.assert_array_equal(proj, 128 - dist)
+    codes = tbrief.simhash_codes_plain(t_desc(d), torch.ones(len(d), dtype=torch.bool))
+    np.testing.assert_array_equal(codes.numpy(), np.sign(128 - dist))
+    assert codes[40, 0] == codes[41, 5] == codes[42, 255] == 0
+    assert (codes[43, 7], codes[44, 7]) == (1, -1)
+
+
+@pytest.mark.parametrize("with_xy", [False, True])
+def test_signature_of_no_descriptors_is_zero(with_xy):
+    """N = 0: the port's signature is the zero vector (no codes to sum, the
+    norm floored at 1e-9), as the reference's is when every descriptor is
+    invalid.  The reference itself cannot take N = 0: its jnp.unpackbits
+    divides by zero on the empty array (ROADMAP C)."""
+    xy = lambda n: np.full((n, 2), 10.0, np.float32)
+    tkw = dict(xy=torch.from_numpy(xy(0)), img_hw=(H, W)) if with_xy else {}
+    jkw = lambda n: dict(xy=jnp.asarray(xy(n)), img_hw=(H, W)) if with_xy else {}
+    tsig = tbrief.global_signature(torch.zeros(0, 8, dtype=torch.int32),
+                                   torch.zeros(0, dtype=torch.bool), **tkw)
+    assert tsig.shape == (tbrief.SIG_DIM,) and not tsig.any()
+    jsig = np.asarray(jbrief.global_signature(jnp.asarray(rand_desc(np.random.default_rng(7), 1)),
+                                              jnp.zeros(1, bool), **jkw(1)))
+    np.testing.assert_array_equal(jsig, tsig.numpy())
+    with pytest.raises(ZeroDivisionError):
+        jbrief.global_signature(jnp.zeros((0, 8), jnp.uint32), jnp.zeros(0, bool), **jkw(0))
+
+
 @pytest.mark.parametrize("with_xy", [False, True])
 def test_global_signature_matches_jax(with_xy):
     img = frame()

@@ -57,7 +57,7 @@ SIMHASH = kernels.Kernel(
     "vp_simhash_signature", "vplines_slam_tpu_torch/csrc/hamming.cu",
     "vplines_slam_tpu/ops/brief.py:185",
     [kernels.P, kernels.P, kernels.P, kernels.I, kernels.F, kernels.F, kernels.P, kernels.I,
-     kernels.P, kernels.P],
+     kernels.P, kernels.P, kernels.P],
 )
 
 # 16-point Bresenham circle of radius 3 (FAST), (dx, dy)
@@ -353,6 +353,7 @@ def _vocab_words(n_words, device):
 
 SIG_CELLS = 4  # 2x2 spatial pyramid
 SIG_DIM = SIG_CELLS * 256
+SIG_CHUNK = 16  # descriptors a CTA of K17's signature mode (csrc/hamming.cu kSigChunk)
 
 
 def _unpack_bits(desc, dim=256):
@@ -360,7 +361,7 @@ def _unpack_bits(desc, dim=256):
     (the reference's little-endian uint8 view + little bit order)."""
     shifts = torch.arange(32, device=desc.device, dtype=torch.int64)
     bits = (desc.to(torch.int64)[..., None] >> shifts) & 1
-    return bits.reshape(*desc.shape[:-1], -1)[..., :dim].to(torch.float32)
+    return bits.reshape(*desc.shape[:-1], 32 * desc.shape[-1])[..., :dim].to(torch.float32)
 
 
 def simhash_codes_plain(desc, valid, n_words=256):
@@ -399,9 +400,10 @@ def global_signature_plain(desc, valid, dim=256, n_words=256, xy=None, img_hw=No
 def global_signature(desc, valid, dim=256, n_words=256, xy=None, img_hw=None,
                      codes_out=None):
     """K17's signature mode.  CPU tensors: ``global_signature_plain``.  CUDA
-    tensors: sign(128 - popcount(desc ^ w_j)) per descriptor and word, pooled
-    per cell in integers, then normalized.  codes_out ([N, n_words] int8,
-    CUDA only) receives the codes."""
+    tensors: a CTA per SIG_CHUNK descriptors codes sign(128 - popcount(desc ^
+    w_j)) and sums the codes per cell in integers into its slice of a
+    scratch, then one CTA adds the slices and normalizes.  codes_out ([N,
+    n_words] int8, CUDA only) receives the codes."""
     if not desc.is_cuda:
         return global_signature_plain(desc, valid, dim, n_words, xy, img_hw)
     if dim != 256:
@@ -409,7 +411,9 @@ def global_signature(desc, valid, dim=256, n_words=256, xy=None, img_hw=None,
     N = desc.shape[0]
     dev = desc.device
     desc = desc.to(torch.int32).contiguous()
-    v8 = valid.to(torch.uint8).contiguous()
+    # a bool mask is read as its bytes (no conversion launch)
+    v8 = (valid.contiguous().view(torch.uint8) if valid.dtype == torch.bool
+          else valid.to(torch.uint8).contiguous())
     sy = sx = 0.0
     xy_p = None
     if xy is not None:
@@ -419,10 +423,12 @@ def global_signature(desc, valid, dim=256, n_words=256, xy=None, img_hw=None,
         sy, sx = 2.0 / img_hw[0], 2.0 / img_hw[1]
     words = _vocab_words(n_words, dev)
     sig = torch.empty(SIG_CELLS * n_words, dtype=torch.float32, device=dev)
+    partial = torch.empty(max(-(-N // SIG_CHUNK), 1), SIG_CELLS, n_words, dtype=torch.int32,
+                          device=dev)
     SIMHASH(kernels.check(desc, "desc", torch.int32, shape=(N, 8)),
             kernels.check(v8, "valid", torch.uint8, shape=(N,)), xy_p, N, sy, sx,
             kernels.check(words, "words", torch.int32, shape=(n_words, 8)), n_words,
-            kernels.check(sig, "sig"),
+            partial.data_ptr(), kernels.check(sig, "sig"),
             None if codes_out is None else kernels.check(codes_out, "codes", torch.int8,
                                                          shape=(N, n_words)))
     return sig

@@ -507,19 +507,45 @@ def schur_system(H_dd, g_d, H_dp, h_p, g_p, lam, diag_floor=1e-8, H_dl=None, Hll
     return S, rhs, (c_d, points, lines)
 
 
-def _schur_cuda(H_dd, g_d, H_dp, h_p, g_p, lam, diag_floor, H_dl, Hll_b, g_l, out_dtype):
-    """K13: the Schur complement over tiles, then one CTA's Cholesky and
-    substitutions; f64 inside, the delta in out_dtype (f32 or f64)."""
+SCHUR_SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on the H100 (227 KB)
+SchurPlan = collections.namedtuple("SchurPlan", "ndp tiles Kp smem aux")
+
+
+def schur_plan(nd, P, L):
+    """K13's sizes (``csrc/schur.cu``'s ``plan``): nd padded to 16, the
+    16x16 lower tiles of S, K = P + 4L padded to 4, the factorization CTA's
+    shared memory (the tiles, rhs, pivots' reciprocals, landmark t, a flag)
+    and the doubles of the aux scratch.  Raises ValueError when the tiles do
+    not fit in one CTA's shared memory."""
+    ndp = -(-nd // 16) * 16
+    tiles = (ndp // 16) * (ndp // 16 + 1) // 2
+    Kp = -(-(P + 4 * L) // 4) * 4
+    smem = 8 * (tiles * 256 + 2 * ndp + Kp + 1)
+    if smem > SCHUR_SMEM_LIMIT:
+        raise ValueError(
+            f"schur_solve_blocks: nd {nd} (K {P + 4 * L}) needs {smem} bytes of shared memory "
+            f"for K13's one-CTA factorization; the limit is {SCHUR_SMEM_LIMIT} bytes")
+    return SchurPlan(ndp, tiles, Kp, smem, ndp + Kp + 2 * P + 20 * L + 2 * Kp * ndp)
+
+
+def _schur_cuda(H_dd, g_d, H_dp, h_p, g_p, lam, diag_floor, H_dl, Hll_b, g_l, out_dtype,
+                keep=None):
+    """K13: the landmark terms and U, V once (launch 1), S's lower tiles and
+    the rhs on the f64 MMA (launch 2), then one CTA's blocked Cholesky,
+    substitutions and landmark back-substitution (launch 3); f64 inside,
+    the delta in out_dtype (f32 or f64).  keep (a dict, for checks)
+    receives launch 2's S tiles [tiles, 16, 16] and rhs [ndp]."""
     f64, dev = torch.float64, H_dd.device
     nd, P = H_dd.shape[0], h_p.shape[0]
     L = 0 if Hll_b is None else Hll_b.shape[0]
+    plan = schur_plan(nd, P, L)
     if out_dtype not in (torch.float32, f64):
         raise ValueError(f"schur_solve_blocks: out_dtype {out_dtype} is not f32 or f64")
     ins = [t.to(f64).contiguous() for t in (H_dd, g_d, H_dp, h_p, g_p)]
     lins = [t.to(f64).contiguous() for t in (H_dl, Hll_b, g_l)] if L else [None] * 3
     lam_t = torch.as_tensor(lam, dtype=f64, device=dev).reshape(1)
     e = lambda n: torch.empty(n, dtype=f64, device=dev)
-    S, rhs, aux = e(nd * nd), e(nd), e(3 * P + 24 * L + nd)
+    S, rhs, aux = e(plan.tiles * 256), e(plan.ndp), e(plan.aux)
     out = torch.empty(nd + P + 4 * L, dtype=out_dtype, device=dev)
     ck = lambda t, n, *shape: kernels.check(t, n, f64, shape=shape)
     args = _SCHUR_ARGS(
@@ -530,6 +556,8 @@ def _schur_cuda(H_dd, g_d, H_dp, h_p, g_p, lam, diag_floor, H_dl, Hll_b, g_l, ou
         ck(lam_t, "lam", 1), S.data_ptr(), rhs.data_ptr(), aux.data_ptr(), out.data_ptr(),
         nd, P, L, int(out_dtype == f64), float(diag_floor))
     SCHUR_SOLVE(ctypes.byref(args))
+    if keep is not None:
+        keep.update(S=S.view(plan.tiles, 16, 16), rhs=rhs)
     return out
 
 
