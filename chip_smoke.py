@@ -17,6 +17,11 @@ Phases (any failure exits nonzero; there is no CPU path):
      marginalization) on a points and a lines window (each slice's warm-up
      + N_EST_FRAMES frames on their plain twins), K11 at f32, K12-K14 at f64,
      f64 operations counted at the H100's 67 TFLOP/s FP64 tensor-core rate;
+     K11 and K12 each called twice and equal to the last bit, K11's
+     residual-only mode (the LM's cost pass) timed on its own, K12 also on
+     the marginalization stack's layout and with every point anchored at
+     frame 0 (1e-12), its yardstick the dense f64 J_d^T J_d (H_dd alone) on
+     the same blocks scattered to dense;
      K13 at lambda 1e-4, 10 and 1e4 (1e-6 of the delta's largest entry),
      its product launch's S tiles and rhs against torch's f64 (1e-12), an
      indefinite S (all NaN from both) and two calls equal to the last bit,
@@ -206,9 +211,11 @@ def device_split(fn, kernel_fn_name, tries=3):
     return {}
 
 
-def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, library_fn=None):
+def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, library_fn=None,
+           library_label=None):
     """Time a kernel's wrapper against its plain twin (and a library call
-    computing the same function, where there is one) and store the record;
+    computing the same function, or the part of it library_label names,
+    where there is one) and store the record;
     the device times (each launch's, and the library call's) are taken by
     ``device_times`` after the slices, because a profiler session slows
     every later launch of the process."""
@@ -216,13 +223,17 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
     rec[name] = dict(err=float(err), ms=time_ms(fn), plain_ms=time_ms(plain_fn),
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=time_ms(library_fn) if library_fn is not None else None,
-                     device_of=(fn, kernel_fn_name), library_of=library_fn)
+                     device_of=(fn, kernel_fn_name), library_of=library_fn,
+                     library_label=library_label)
 
 
-# device time per call of the designs the current K13 and K17 signature
-# replaced (two launches, one-CTA Cholesky; one CTA over all descriptors), on
-# an NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
-PREVIOUS_DEVICE_MS = {"schur_solve": 1.0662, "simhash_signature": 0.1194}
+# device time per call of the designs the current K11, K12, K13 and K17
+# signature replaced (five launches, a thread per observation carrying all
+# its tangents; a CTA per node-pair tile scanning every row; two launches,
+# one-CTA Cholesky; one CTA over all descriptors), on the lines window, on an
+# NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
+PREVIOUS_DEVICE_MS = {"window_lin": 0.1340, "window_blocks": 0.6102, "schur_solve": 1.0662,
+                      "simhash_signature": 0.1194}
 
 
 def device_times(rec):
@@ -236,8 +247,9 @@ def device_times(rec):
         r["library_device_ms"] = (sum(device_kernels(lib).values()) if lib is not None
                                   else None)
         dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-        lib_s = ("" if lib is None else f", library call {r['library_ms']:.4f} ms/call (device "
-                 f"{r['library_device_ms']:.4f} ms)")
+        label = r.pop("library_label")
+        lib_s = ("" if lib is None else f", library call{f' ({label})' if label else ''} "
+                 f"{r['library_ms']:.4f} ms/call (device {r['library_device_ms']:.4f} ms)")
         log(f"  {name}: kernel {r['ms']:.4f} ms/call (device {dms}), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib_s}")
         if len(r["device_split"]) > 1 or name in PREVIOUS_DEVICE_MS:
@@ -878,16 +890,40 @@ def phase_estimator_kernels(rec, windows):
             f"against f64: within {tol11} or twice the plain version's error)")
         if not (rows_ok and max(v for k, v in errs.items() if k.startswith("J_")) <= tol11):
             fail(f"K11 window_lin disagrees with its plain version ({label} window)")
-        # K12 on K11's own blocks
-        nek = lm._assemble_blocks_cuda(bk, layout)
-        nep = lm.assemble_blocks_plain(bk, layout)
-        err12 = max(_rel_err(a, b) for a, b in zip(nek, nep))
-        tol12 = 1e-12
+        bk2 = linearize._window_lin_cuda(x_lo, data_lo, cfg, params, True, True, True)
+        rk2 = linearize._window_lin_cuda(x_lo, data_lo, cfg, params, True, True, False)
+        if not (all(torch.equal(a, b) for a, b in zip(bk, bk2) if a is not None)
+                and torch.equal(rk, rk2)):
+            fail(f"K11 window_lin does not repeat to the last bit ({label} window)")
+        log(f"K11 window_lin ({label}): two calls of each mode equal to the last bit")
+        # K12 on K11's own blocks, then with every point anchored at frame 0
+        # (one frame's tiles carry every observation; its own observation's
+        # two pose columns merge, as the twin's scatter merges them) and on
+        # the marginalization stack's blocks and layout
+        cfg_m = cfg._replace(marg_lines=True) if lines else cfg
+        data_r = slide.marginalization_stack(data, cfg_m)
+        lay_m = win.layout_for(cfg, lines, use_relo=False, use_vps=False)
+        blocks_m = linearize._window_lin_cuda(x, data_r, cfg_m, params, False, False, True)
+        tol12, err12 = 1e-12, {}
+        for case, (b12, lay12) in {
+                "window": (bk, layout),
+                "anchors at frame 0": (bk._replace(pt_start=torch.zeros_like(bk.pt_start)),
+                                       layout),
+                "marginalization": (blocks_m, lay_m)}.items():
+            nek = lm._assemble_blocks_cuda(b12, lay12)
+            nep = lm.assemble_blocks_plain(b12, lay12)
+            err12[case] = max(_rel_err(a, b) for a, b in zip(nek, nep))
+            if not all(torch.equal(a, b) for a, b in zip(nek, lm._assemble_blocks_cuda(b12,
+                                                                                       lay12))):
+                fail(f"K12 window_blocks does not repeat to the last bit ({label}, {case})")
         log(f"K12 window_blocks ({label}): max |kernel - plain| / max |plain| over the "
-            f"{len(nek)} blocks {err12:.2e} (tol {tol12}: f64 sums of the same f32 products "
-            f"in another order)")
+            f"blocks " + ", ".join(f"{k} {v:.2e}" for k, v in err12.items())
+            + f" (tol {tol12}: f64 sums of the same f32 products in another order); two "
+            f"calls equal to the last bit in each case")
+        err12 = max(err12.values())
         if not err12 <= tol12:
             fail(f"K12 window_blocks disagrees with its plain version ({label} window)")
+        nep = lm.assemble_blocks_plain(bk, layout)
         # K13 on the same normal equations, small to large damping
         err13 = errS = 0.0
         for lam in (1e-4, 10.0, 1e4):
@@ -922,11 +958,7 @@ def phase_estimator_kernels(rec, windows):
         if not (bool(nk.isnan().all()) and bool(npl.isnan().all())):
             fail(f"K13 schur_solve: an indefinite S must give an all-NaN delta ({label})")
         # K14 on the marginalization stack's normal equations
-        cfg_m = cfg._replace(marg_lines=True) if lines else cfg
-        data_r = slide.marginalization_stack(data, cfg_m)
-        lay_m = win.layout_for(cfg, lines, use_relo=False, use_vps=False)
-        ne_m = lm._assemble_blocks_cuda(linearize._window_lin_cuda(
-            x, data_r, cfg_m, params, False, False, True), lay_m)
+        ne_m = lm._assemble_blocks_cuda(blocks_m, lay_m)
         m_args = (*ne_m[:5], *(ne_m[5:] or (None,) * 3), 1e-12)
         mk = marg._marg_stage1_cuda(*m_args)
         mp = marg.marg_stage1_plain(*m_args)
@@ -952,9 +984,17 @@ def phase_estimator_kernels(rec, windows):
                lambda: linearize._window_lin_cuda(x, data, cfg, params, True, True, True),
                lambda: linearize.window_blocks_plain(x, data, cfg, params), "wlin_",
                _nbytes(*ins11, *outs11), window_lin_ops(n_act, cfg))
+        record(rec, "window_lin_cost", err11,
+               lambda: linearize._window_lin_cuda(x, data, cfg, params, True, True, False),
+               lambda: win.window_residuals(x, data, cfg, params), "wlin_",
+               _nbytes(*ins11, blocks.r), window_lin_ops(n_act, cfg, tangents=False))
+        J_dense = lm.blocks_to_dense(blocks, layout)[1].double()
         record(rec, "window_blocks", err12, lambda: lm._assemble_blocks_cuda(blocks, layout),
                lambda: lm.assemble_blocks_plain(blocks, layout), "wblk_",
-               _nbytes(*outs11, *ne), window_blocks_ops(n_act, cfg))
+               _nbytes(*outs11, *ne), window_blocks_ops(n_act, cfg),
+               library_fn=lambda: J_dense.T @ J_dense,
+               library_label="J_d^T J_d in f64 on the dense scatter: H_dd alone, a part of "
+                             "the output")
         S_, rhs_, _ = lm.schur_system(*ne[:5], lam_t, 1e-8, *ne[5:])
 
         def library_k13():  # the dense solve alone, on the same S
@@ -1011,11 +1051,14 @@ K11_ROW_OPS = dict(J_pt=125 * 20, J_relo=125 * 20, J_ln=260 * 17, J_vp=250 * 17,
                    J_imu=45 * 31)
 
 
-def window_lin_ops(n, cfg):
-    """K11's operations on the live rows: the jets, and per prior row its
-    dot product with dx and its 3x3 block products."""
-    prior = n["J_prior"] * (2 * cfg.nd + 18 * (cfg.nf + 2))
-    return prior + sum(n[f] * K11_ROW_OPS[f] for f in K11_ROW_OPS)
+def window_lin_ops(n, cfg, tangents=True):
+    """K11's operations on the live rows: the jets (the values alone in the
+    residual-only mode), and per prior row its dot product with dx and its
+    3x3 block products."""
+    widths = dict(J_pt=20, J_relo=20, J_ln=17, J_vp=17, J_imu=31)
+    prior = n["J_prior"] * (2 * cfg.nd + (18 * (cfg.nf + 2) if tangents else 0))
+    return prior + sum(n[f] * (K11_ROW_OPS[f] if tangents else K11_ROW_OPS[f] // widths[f])
+                       for f in K11_ROW_OPS)
 
 
 def window_blocks_ops(n, cfg):

@@ -16,6 +16,27 @@
   extern __shared__ __align__(16) unsigned char vp_dyn_smem_[];   \
   type* name = reinterpret_cast<type*>(vp_dyn_smem_)
 #endif
+// Warp shuffles and votes (K11, K12, K13, K21), and the f64 tensor-core
+// product (K12, K13):
+// D (8x8, two per lane) += A (8x4, one per lane) B (4x8, one per lane); lane
+// l holds A[l / 4][l % 4], B[l % 4][l / 4], D[l / 4][2 (l % 4) + {0, 1}].
+// A host stand-in of the CUDA runtime defines them first.
+#ifndef VP_SHFL_IDX
+#define VP_SHFL_IDX(v, l) __shfl_sync(0xffffffffu, (v), (l))
+#endif
+#ifndef VP_SHFL_XOR
+#define VP_SHFL_XOR(v, o) __shfl_xor_sync(0xffffffffu, (v), (o))
+#endif
+#ifndef VP_BALLOT
+#define VP_BALLOT(p) __ballot_sync(0xffffffffu, (p))
+#endif
+#ifndef VP_MMA_F64
+#define VP_MMA_F64(d0, d1, a, b)                                                     \
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, " \
+               "{%0, %1};"                                                           \
+               : "+d"(d0), "+d"(d1)                                                  \
+               : "d"(a), "d"(b))
+#endif
 
 namespace vp {
 
@@ -106,11 +127,15 @@ __device__ __forceinline__ Jet<T, N> cst(T a) {
   return r;
 }
 
-// a with tangent 1 in direction k (a constant when k is out of range)
+// a with tangent 1 in direction k (a constant when k is out of range); k may
+// be a run-time value (a lane's slice of the tangents), so the tangents are
+// set by compile-time index and stay in registers
 template <typename T, int N>
 __device__ __forceinline__ Jet<T, N> seed(T a, int k) {
-  Jet<T, N> r = cst<T, N>(a);
-  if (k >= 0 && k < N) r.v[k] = T(1);
+  Jet<T, N> r;
+  r.a = a;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.v[i] = i == k ? T(1) : T(0);
   return r;
 }
 

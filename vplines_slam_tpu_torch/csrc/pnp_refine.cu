@@ -28,13 +28,6 @@
 
 #include "common.cuh"
 
-#ifndef VP_SHFL_XOR
-#define VP_SHFL_XOR(v, o) __shfl_xor_sync(0xffffffffu, (v), (o))
-#endif
-#ifndef VP_SHFL_IDX
-#define VP_SHFL_IDX(v, l) __shfl_sync(0xffffffffu, (v), (l))
-#endif
-
 namespace {
 
 constexpr int kThreads = 32;

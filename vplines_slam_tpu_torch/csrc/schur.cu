@@ -40,22 +40,6 @@
 
 #include "common.cuh"
 
-// D (8x8, two per lane) += A (8x4, one per lane) B (4x8, one per lane); lane
-// l holds A[l / 4][l % 4], B[l % 4][l / 4], D[l / 4][2 (l % 4) + {0, 1}]
-#ifndef VP_MMA_F64
-#define VP_MMA_F64(d0, d1, a, b)                                                     \
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, " \
-               "{%0, %1};"                                                           \
-               : "+d"(d0), "+d"(d1)                                                  \
-               : "d"(a), "d"(b))
-#endif
-#ifndef VP_SHFL_IDX
-#define VP_SHFL_IDX(v, l) __shfl_sync(0xffffffffu, (v), (l))
-#endif
-#ifndef VP_SHFL_XOR
-#define VP_SHFL_XOR(v, o) __shfl_xor_sync(0xffffffffu, (v), (o))
-#endif
-
 struct VpSchurArgs {
   const double *H_dd, *g_d, *H_dp, *h_p, *g_p, *H_dl, *Hll, *g_l, *lam;
   // scratch, sized by solver/lm.schur_plan (the Plan below):

@@ -4,9 +4,10 @@ plain twin.
 
 K11 replaces the reference's ``window_residuals`` differentiated by
 ``_structured_linearize`` (``vplines_slam_tpu/estimator/window.py:438``,
-``vplines_slam_tpu/solver/lm.py:209``): one thread per observation evaluates
-its residual on forward-mode jets seeded through the retraction and writes
-the whitened row and its compact block.  ``window_blocks`` gives the blocks
+``vplines_slam_tpu/solver/lm.py:209``): one launch whose lanes each evaluate
+an observation's residual on forward-mode jets seeded through the
+retraction, with their own slice of its tangents, and write the whitened row
+and their part of its compact block.  ``window_blocks`` gives the blocks
 (the LM's linearization, the marginalization stack), ``window_cost_residuals``
 the rows alone (the LM's cost pass).  On CUDA tensors both launch K11; on CPU
 tensors the twin gathers the blocks from ``_structured_linearize`` (vmap of
@@ -31,7 +32,7 @@ _POINTERS = [
     "imu_valid", "g",
     "pt_id", "pt_obs", "pt_mask", "pt_start", "pt_solved", "relo_obs", "relo_mask", "relo_valid",
     "ln_id", "ln_obs", "ln_vp", "ln_mask", "ln_vp_mask", "ln_solved",
-    "r", "J_prior", "dx", "Dq", "J_imu", "J_pt", "J_relo", "J_ln", "J_vp",
+    "r", "J_prior", "J_imu", "J_pt", "J_relo", "J_ln", "J_vp",
 ]
 _INTS = ["nf", "P", "L", "use_relo", "use_lines", "use_vps", "with_j", "line_min_obs",
          "off_imu", "off_pt", "off_ln", "off_vp", "off_relo", "is_double"]
@@ -72,9 +73,9 @@ def window_blocks_plain(x, data, cfg, params, use_relo=True, use_vps=True):
 
 
 def _window_lin_cuda(x, data, cfg, params, use_relo, use_vps, with_j):
-    """K11: five launches (prior nodes, prior rows, IMU, points + relo,
-    lines + VPs) on the current stream.  Returns the blocks, or with_j=False
-    the residual stack alone."""
+    """K11: one launch (block ranges for the prior rows, the IMU intervals,
+    points + relo, lines + VPs) on the current stream.  Returns the blocks,
+    or with_j=False the residual stack alone."""
     state, inv_depth = x[0], x[1]
     orth = x[2] if len(x) == 3 else None
     use_lines = orth is not None
@@ -94,7 +95,7 @@ def _window_lin_cuda(x, data, cfg, params, use_relo, use_vps, with_j):
     b8, i64 = torch.bool, torch.int64
     e = lambda *shape: torch.empty(*shape, dtype=dt, device=dev)
     r = e(sl["_total"])
-    outs = dict(r=r, dx=e(nd), Dq=e(nf + 2, 3, 3))
+    outs = dict(r=r)
     if with_j:
         outs.update(J_prior=e(nd, nd), J_imu=e(nf - 1, 15, 30), J_pt=e(P, nf, 2, 19),
                     J_relo=e(P, 2, 19) if use_relo else None,
@@ -128,7 +129,7 @@ def _window_lin_cuda(x, data, cfg, params, use_relo, use_vps, with_j):
         f(data.ln_id, "ln_id", (L,), i64), f(data.ln_obs, "ln_obs", (L, nf, 4)),
         f(data.ln_vp, "ln_vp", (L, nf, 3)), f(data.ln_mask, "ln_mask", (L, nf), b8),
         f(data.ln_vp_mask, "ln_vp_mask", (L, nf), b8), f(data.ln_solved, "ln_solved", (L,), b8),
-        ptr("r"), ptr("J_prior"), ptr("dx"), ptr("Dq"), ptr("J_imu"), ptr("J_pt"), ptr("J_relo"),
+        ptr("r"), ptr("J_prior"), ptr("J_imu"), ptr("J_pt"), ptr("J_relo"),
         ptr("J_ln"), ptr("J_vp"),
         nf, P, L, int(use_relo), int(use_lines), int(use_lines and use_vps), int(with_j),
         cfg.line_min_obs, sl["imu"].start, sl["points"].start,

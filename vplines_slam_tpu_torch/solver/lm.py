@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -356,7 +357,7 @@ def _assemble_blocks(r0, J_d, col_p, layout: WindowLayout, cols_l=None):
 _BLK_ARGS = kernels.args_struct(
     "VpBlkArgs",
     ["r", "J_prior", "J_imu", "J_pt", "J_relo", "J_ln", "J_vp", "pt_start",
-     "H_dd", "g_d", "H_dp", "h_p", "g_p", "H_dl", "Hll", "g_l"],
+     "H_dd", "g_d", "H_dp", "h_p", "g_p", "H_dl", "Hll", "g_l", "scratch"],
     ["nf", "P", "L", "has_relo", "has_lines", "has_vps", "off_imu", "off_pt", "off_ln",
      "off_vp", "off_relo", "is_double"])
 WINDOW_BLOCKS = kernels.Kernel(
@@ -390,16 +391,38 @@ def assemble_blocks_plain(b: WindowBlocks, layout: WindowLayout):
     return _assemble_blocks(*dense[:3], layout, *dense[3:])
 
 
+# frames of the largest window K12 takes: a slot chunk's nf + 3 column blocks
+# in a 32-bit mask (csrc/window_blocks.cu)
+WINDOW_BLOCKS_MAX_NF = 29
+
+
+@functools.lru_cache(maxsize=None)
+def window_blocks_scratch(nf, P, L, lines):
+    """Doubles of scratch K12 passes from its first launch to its second
+    (the prior and IMU terms of the observations' entries, the chunks'
+    partials), from the kernel library's own plan."""
+    fn = kernels.build().cdll.vp_window_blocks_scratch
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(nf, P, L, int(lines)))
+
+
 def _assemble_blocks_cuda(b: WindowBlocks, layout: WindowLayout):
-    """K12: one CTA per node-pair tile of H_dd, per point slot, per line slot."""
+    """K12: two launches (the prior's band blocks with the IMU terms and the
+    slot chunks' Grams; then the observations' entries of H_dd and g_d from
+    the chunks' partials)."""
     dt, dev = b.r.dtype, b.r.device
     nd, nf, P, L = layout.nd, layout.nf, layout.P, layout.L
+    if nf > WINDOW_BLOCKS_MAX_NF:
+        raise ValueError(f"K12 takes windows of up to {WINDOW_BLOCKS_MAX_NF} frames (a slot "
+                         f"chunk's column blocks in a 32-bit mask), got {nf}")
     sl = layout.slices()
     lines = layout.has_lines and L > 0
     e = lambda *shape: torch.empty(*shape, dtype=torch.float64, device=dev)
     outs = [e(nd, nd), e(nd), e(nd, P), e(P), e(P)]
     if lines:
         outs += [e(nd, L, 4), e(L, 4, 4), e(L, 4)]
+    scratch = e(window_blocks_scratch(nf, P, L, lines))
     keep = []  # contiguous inputs stay referenced until the launch
 
     def ck(t, n, *shape, dtype=dt):
@@ -416,7 +439,7 @@ def _assemble_blocks_cuda(b: WindowBlocks, layout: WindowLayout):
         ck(b.J_ln if lines else None, "J_ln", L, nf, 2, 16),
         ck(b.J_vp if lines and layout.has_vps else None, "J_vp", L, nf, 2, 16),
         ck(b.pt_start, "pt_start", P, dtype=torch.int64),
-        *[t.data_ptr() for t in outs], *([None] * (8 - len(outs))),
+        *[t.data_ptr() for t in outs], *([None] * (8 - len(outs))), scratch.data_ptr(),
         nf, P, L, int(layout.has_relo), int(lines), int(lines and layout.has_vps),
         start("imu"), start("points"), start("lines"), start("vps"), start("relo"),
         int(dt == torch.float64))
