@@ -25,8 +25,11 @@ Phases (any failure exits nonzero; there is no CPU path):
      K13 at lambda 1e-4, 10 and 1e4 (1e-6 of the delta's largest entry),
      its product launch's S tiles and rhs against torch's f64 (1e-12), an
      indefinite S (all NaN from both) and two calls equal to the last bit,
-     with each of its three launches' device time.  A library call timed
-     beside a kernel is also timed on the device (torch.profiler);
+     with each of its three launches' device time; K14 on both windows and
+     with no points, no lines and neither (1e-9, two calls equal to the
+     last bit, H1 symmetric to the last bit), its yardstick the elimination
+     product alone (one f64 addmm on prebuilt columns).  A library call
+     timed beside a kernel is also timed on the device (torch.profiler);
   4. points slice: the points-only device loop at EuRoC width (752x480,
      pinhole + radtan from configs/euroc.yaml) on a rendered figure-8 blob
      world: truth-seeded warm-up, then 44 frames through
@@ -76,9 +79,11 @@ Phases (any failure exits nonzero; there is no CPU path):
      load_profile; prints per tracked frame the candidates, tracked ids,
      budget, kept ids and the selector stage's CUDA-event ms; asserts phase
      6's bars, every tracked id kept, kept <= max(max_features, tracked), K20
-     launched on every tracked frame, and K20's greedy pass against its twin
-     on the last frame's real inputs with budget = max_features.  Its launch
-     counts of K20 go to the kernels JSON.
+     launched on every tracked frame, each frame's greedy pass as it ran
+     against its twin on that frame's inputs, and K20's greedy pass against
+     its twin on the last frame's real inputs with budget = max_features
+     (twice, equal to the last bit).  Its launch counts of K20 go to the
+     kernels JSON.
   Phase 3 also holds loop closure's kernels against their plain twins at the
   profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
   K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
@@ -89,10 +94,13 @@ Phases (any failure exits nonzero; there is no CPU path):
   (1e-12 of each one's largest entry, the dense f64 solve timed beside it),
   and K20 and K21: selector_info on 150 candidates of a staged 752x480 frame
   with the horizon from the truth (1e-12 of each candidate's largest entry),
-  selector_greedy at budgets 0, 7, 30 and max_features 30, 60 (sets
-  identical, gains 1e-9; one round's batched slogdet timed as its library
-  call), pnp_refine on the initializer's 11 x 128 and a verification's
-  1 x 64 batches (f64 twin 1e-9, f32 twin 1e-5).
+  selector_greedy at supports 12 (the main path's), 15 and 45, budgets 0,
+  7, 30 and max_features 30, 60 (sets identical, gains 1e-9, two calls
+  equal to the last bit; 30 rounds of batched slogdet on the 12x12 Schur
+  form timed as its library call; one 45x45 slogdet round and the pass at
+  supports 15 and 45 timed on the device beside it), pnp_refine on the
+  initializer's 11 x 128 and a verification's 1 x 64 batches (f64 twin
+  1e-9, f32 twin 1e-5).
   Phases 6-8 assert that no plain twin of K15-K21 ran.
   Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
@@ -227,13 +235,16 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
                      library_label=library_label)
 
 
-# device time per call of the designs the current K11, K12, K13 and K17
-# signature replaced (five launches, a thread per observation carrying all
-# its tangents; a CTA per node-pair tile scanning every row; two launches,
-# one-CTA Cholesky; one CTA over all descriptors), on the lines window, on an
-# NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
+# device time per call of the designs the current K11, K12, K13, K14, K17
+# signature and K20 greedy pass replaced (five launches, a thread per
+# observation carrying all its tangents; a CTA per node-pair tile scanning
+# every row; two launches, one-CTA Cholesky; a thread per entry of H1 over
+# every slot; one CTA over all descriptors; 2 x 30 + 1 launches of 45x45
+# LUs), on the lines window and phase 3's selector frame, on an NVIDIA H100
+# 80GB HBM3 at 700 W, for the log beside the new ones
 PREVIOUS_DEVICE_MS = {"window_lin": 0.1340, "window_blocks": 0.6102, "schur_solve": 1.0662,
-                      "simhash_signature": 0.1194}
+                      "marg_window": 0.2403, "simhash_signature": 0.1194,
+                      "selector_greedy": 4.8784}
 
 
 def device_times(rec):
@@ -257,6 +268,10 @@ def device_times(rec):
                 f"{k} {v:.4f}" for k, v in r["device_split"].items())
                 + (f" (the previous design: {PREVIOUS_DEVICE_MS[name]:.4f} ms in all)"
                    if name in PREVIOUS_DEVICE_MS else ""))
+        for label, fn2 in r.pop("extra_device_of", {}).items():
+            ms = sum(device_kernels(fn2).values())
+            r.setdefault("extra_device_ms", {})[label] = ms
+            log(f"    {label}: device {ms:.4f} ms")
         if "solve_of" in r:
             r["solve_device_ms"] = sum(device_kernels(r.pop("solve_of")).values())
             log(f"    the dense solve beside it: {r['solve_ms']:.4f} ms/call, device "
@@ -957,16 +972,33 @@ def phase_estimator_kernels(rec, windows):
             f"plain all NaN {bool(npl.isnan().all())}")
         if not (bool(nk.isnan().all()) and bool(npl.isnan().all())):
             fail(f"K13 schur_solve: an indefinite S must give an all-NaN delta ({label})")
-        # K14 on the marginalization stack's normal equations
+        # K14 on the marginalization stack's normal equations (the main
+        # path's input), with no points, no lines and neither, and on the
+        # whole window's (every landmark column live)
         ne_m = lm._assemble_blocks_cuda(blocks_m, lay_m)
         m_args = (*ne_m[:5], *(ne_m[5:] or (None,) * 3), 1e-12)
-        mk = marg._marg_stage1_cuda(*m_args)
-        mp = marg.marg_stage1_plain(*m_args)
-        err14 = max(_rel_err(a, b) for a, b in zip(mk, mp))
+        nones = (None,) * 3
+        err14 = {}
+        for case, a14 in {"stack": m_args, "P = 0": (*m_args[:2], *nones, *m_args[5:]),
+                          "L = 0": (*m_args[:5], *nones, m_args[8]),
+                          "P = L = 0": (*m_args[:2], *nones, *nones, m_args[8]),
+                          "the window's": (*nep[:5], *(nep[5:] or nones), 1e-12)}.items():
+            mk = marg._marg_stage1_cuda(*a14)
+            mk2 = marg._marg_stage1_cuda(*a14)
+            mp = marg.marg_stage1_plain(*a14)
+            err14[case] = max(_rel_err(a, b) for a, b in zip(mk, mp))
+            if not all(torch.equal(a, b) for a, b in zip(mk, mk2)):
+                fail(f"K14 marg_window does not repeat to the last bit ({label}, {case})")
+            if not torch.equal(mk[0], mk[0].T):
+                fail(f"K14 marg_window: H1 is not symmetric to the last bit ({label}, {case})")
         tol14 = 1e-9
-        log(f"K14 marg_window ({label}, marg_lines {lines}): max |kernel - plain| / max "
-            f"|plain| of H1, b1, c {err14:.2e} (tol {tol14}: f64; per-line Jacobi against "
-            f"LAPACK eigh for the clipped inverses)")
+        log(f"K14 marg_window ({label}, marg_lines {lines}; the stack's live points and lines "
+            f"{live_landmarks(ne_m)}, the window's {live_landmarks(nep)}): max |kernel - plain| "
+            f"/ max |plain| of H1, b1, c " + ", ".join(f"{k} {v:.2e}" for k, v in err14.items())
+            + f" (tol {tol14}: f64; the f64-MMA product in another order, per-line Jacobi "
+            f"against LAPACK eigh for the clipped inverses); two calls equal to the last bit, "
+            f"H1 symmetric to the last bit")
+        err14 = max(err14.values())
         if not err14 <= tol14:
             fail(f"K14 marg_window disagrees with its plain version ({label} window)")
         if not lines:
@@ -1007,9 +1039,13 @@ def phase_estimator_kernels(rec, windows):
                                                    out_dtype=torch.float32),
                "schur_", _nbytes(*ne, lam_t) + 4 * (cfg.nd + cfg.max_points + 4 * cfg.max_lines),
                schur_ops(n_act, cfg), library_fn=library_k13)
+        Hs, Y, Cm = marg_columns(*m_args)
         record(rec, "marg_window", err14, lambda: marg._marg_stage1_cuda(*m_args),
                lambda: marg.marg_stage1_plain(*m_args), "marg_",
-               _nbytes(*ne_m) + 8 * (cfg.nd * cfg.nd + 2 * cfg.nd), marg_ops(ne_m, cfg))
+               _nbytes(*ne_m) + 8 * (cfg.nd * cfg.nd + 2 * cfg.nd), marg_ops(ne_m, cfg),
+               library_fn=lambda: torch.addmm(Hs, Y, Cm.T, alpha=-1),
+               library_label="the elimination product alone: addmm(H_dd / (c c^T), Y, C^T, "
+                             "alpha=-1) in f64 on prebuilt columns")
 
 
 def schur_untile(tiles, nd):
@@ -1083,6 +1119,32 @@ def marg_ops(ne, cfg):
     per-line 4x4 eigen-decompositions (~6 Jacobi sweeps of 6 rotations)."""
     pts, lns = live_landmarks(ne)
     return cfg.nd * cfg.nd * (3 * pts + 32 * lns) + lns * 6 * 6 * 60
+
+
+def marg_columns(H_dd, g_d, H_dp, h_p, g_p, H_dl, Hll_b, g_l, eps):
+    """The operands of K14's elimination product, from the twin's plain ops:
+    H_dd / (c c^T), the weighted columns Y = [Cp diag(dpi) | Cl blockdiag(D_l)]
+    and the scaled columns C = [Cp | Cl] [nd, P + 4 L], f64."""
+    import torch
+
+    from vplines_slam_tpu_torch.solver import lm, marginalization as marg
+
+    c = lm._jacobi(torch.diagonal(H_dd))
+    c_p = lm._jacobi(h_p)
+    Cp = H_dp / (c[:, None] * c_p[None, :])
+    dp = h_p / (c_p * c_p)
+    dpi = torch.where(marg._clip_gate(dp[None, :], eps)[0], 1.0 / torch.clamp(dp, min=1e-30),
+                      torch.zeros_like(dp))
+    c_l = lm._jacobi(torch.diagonal(Hll_b, dim1=1, dim2=2))
+    Cl = H_dl / (c[:, None, None] * c_l[None])
+    wl, Vl = torch.linalg.eigh(Hll_b / (c_l[:, :, None] * c_l[:, None, :]))
+    wli = torch.where(marg._clip_gate(wl, eps), 1.0 / torch.clamp(wl, min=1e-30),
+                      torch.zeros_like(wl))
+    D = torch.einsum("lab,lb,lcb->lac", Vl, wli, Vl)
+    Yl = torch.einsum("nla,lab->nlb", Cl, D)
+    nd = H_dd.shape[0]
+    return (H_dd / (c[:, None] * c[None, :]), torch.cat([Cp * dpi[None], Yl.reshape(nd, -1)], 1),
+            torch.cat([Cp, Cl.reshape(nd, -1)], 1))
 
 
 # ---------------------------------------------------------------------------
@@ -1395,6 +1457,13 @@ def lu_flops(n):
     return sum((n - k - 1) + 2 * (n - k - 1) ** 2 for k in range(n)) + n
 
 
+def schur_flops(dim, ns):
+    """f64 operations of the greedy pass's one elimination of the dim - ns
+    columns off the support (Sigma): per pivot step the multipliers and the
+    trailing update of the whole remaining block."""
+    return sum((dim - k - 1) + 2 * (dim - k - 1) ** 2 for k in range(dim - ns))
+
+
 def greedy_work(selected, new, rounds):
     """(rounds run, matrices factored) by K20's greedy pass on this data: a
     round that selects nothing ends the pass (the later rounds return at
@@ -1464,40 +1533,75 @@ def phase_selector_kernels(rec, S):
            N * (3 + 1) * 8 + N + 5 * 7 * 8 + 7 * 8 + N * dim * dim * 8,
            N * (5 * 420 + 60 + 5 * 45 + 25 * 9 * 6))
 
-    # greedy: budgets 0, 7, 30 at max_features 30 and 60 on the same matrices
+    # greedy: budgets 0, 7, 30 at max_features 30 and 60 on the same matrices,
+    # on the position support of the states a candidate is seen from (the
+    # main path's Schur form, 12 indices), of all 5 states (15) and on all
+    # 45 indices (the dense case), each kernel call twice
     errs, picks = {}, {}
-    for rounds in (30, 60):
-        cfg = sel.SelectorConfig(max_features=rounds)
-        for b in (0, 7, 30):
-            budget = torch.tensor(b, device=dev)
-            sk, gk = sel.select_features(I["prior"], Fk, I["new"], budget, cfg)
-            sp, gp = sel.select_features_plain(I["prior"], Fk, I["new"], budget, cfg)
-            if not torch.equal(sk, sp):
-                fail(f"K20 selector_greedy (max_features {rounds}, budget {b}) selected "
-                     f"{torch.nonzero(sk).flatten().tolist()}, its plain version "
-                     f"{torch.nonzero(sp).flatten().tolist()}")
-            errs[(rounds, b)] = float((gk - gp).abs().max())
-            picks[(rounds, b)] = int(sk.sum())
+    for obs in (1, 0, None):  # supports 12, 15 and 45
+        for rounds in (30, 60):
+            cfg = sel.SelectorConfig(max_features=rounds)
+            for b in (0, 7, 30):
+                budget = torch.tensor(b, device=dev)
+                sk, gk = sel.select_features(I["prior"], Fk, I["new"], budget, cfg, obs_frame=obs)
+                sk2, gk2 = sel.select_features(I["prior"], Fk, I["new"], budget, cfg,
+                                               obs_frame=obs)
+                sp, gp = sel.select_features_plain(I["prior"], Fk, I["new"], budget, cfg,
+                                                   obs_frame=obs)
+                key = (len(sel.greedy_support(dim, obs)), rounds, b)
+                if not torch.equal(sk, sp):
+                    fail(f"K20 selector_greedy (support {key[0]}, max_features {rounds}, budget "
+                         f"{b}) selected {torch.nonzero(sk).flatten().tolist()}, its plain "
+                         f"version {torch.nonzero(sp).flatten().tolist()}")
+                if not (torch.equal(sk, sk2) and torch.equal(gk, gk2)):
+                    fail(f"K20 selector_greedy does not repeat to the last bit {key}")
+                errs[key] = float((gk - gp).abs().max())
+                picks[key] = int(sk.sum())
     err_g = max(errs.values())
-    log(f"K20 selector_greedy: (max_features, budget) -> picks {picks}, selected sets "
-        f"identical; first-round gains max |kernel - plain| = {err_g:.3e} (tol 1e-9 absolute)")
+    log(f"K20 selector_greedy: (support, max_features, budget) -> picks {picks}, selected sets "
+        f"identical, two calls equal to the last bit; first-round gains max |kernel - plain| = "
+        f"{err_g:.3e} (tol 1e-9 absolute)")
     if not err_g <= 1e-9:
         fail("K20 selector_greedy's gains disagree with its plain version")
     cfg30 = sel.SelectorConfig(max_features=30)
     b30 = torch.tensor(30, device=dev)
-    sk, _ = sel.select_features(I["prior"], Fk, I["new"], b30, cfg30)
+    sk, _ = sel.select_features(I["prior"], Fk, I["new"], b30, cfg30, obs_frame=1)
     rounds_run, n_lu = greedy_work(sk, I["new"], 30)
-    batch = torch.cat([I["prior"][None], I["prior"] + Fk]) + 1e-9 * torch.eye(
+    sup12 = sel.greedy_support(dim, 1)
+    ns = len(sup12)
+    idx = torch.tensor(sup12, device=dev)
+    sigma = sel.schur_base_plain(I["prior"], sup12)
+    batch12 = torch.cat([sigma[None], sigma + Fk[:, idx[:, None], idx[None, :]]])
+    batch45 = torch.cat([I["prior"][None], I["prior"] + Fk]) + 1e-9 * torch.eye(
         dim, dtype=f64, device=dev)
+
+    def library_k20():  # the pass's log-determinants alone: 30 rounds of slogdet
+        for _ in range(30):
+            torch.linalg.slogdet(batch12)
+
     record(rec, "selector_greedy", err_g,
-           lambda: sel.select_features(I["prior"], Fk, I["new"], b30, cfg30),
-           lambda: sel.select_features_plain(I["prior"], Fk, I["new"], b30, cfg30),
-           "greedy_", (N + 1) * dim * dim * 8 + N + 8 + N * 9,
-           n_lu * lu_flops(dim) + rounds_run * (N * 4 + dim * dim),
-           library_fn=lambda: torch.linalg.slogdet(batch))
-    log(f"  max_features 30, budget 30: {rounds_run} rounds run, {n_lu} LU factorizations "
-        f"(the bound's work); the library call is one round's batched slogdet of "
-        f"{N + 1} 45x45 f64 matrices")
+           lambda: sel.select_features(I["prior"], Fk, I["new"], b30, cfg30, obs_frame=1),
+           lambda: sel.select_features_plain(I["prior"], Fk, I["new"], b30, cfg30,
+                                             obs_frame=1),
+           "greedy_", (N * ns * ns + dim * dim) * 8 + N + 8 + N * 9,
+           schur_flops(dim, ns) + n_lu * lu_flops(ns) + rounds_run * (N * 4 + ns * ns),
+           library_fn=library_k20,
+           library_label=f"30 rounds of torch.linalg.slogdet on the [{N + 1}, {ns}, {ns}] "
+                         f"Schur-form batch")
+    rec["selector_greedy"]["bound_45_ms"] = bound(
+        (N + 1) * dim * dim * 8 + N + 8 + N * 9,
+        n_lu * lu_flops(dim) + rounds_run * (N * 4 + dim * dim))[0]
+    rec["selector_greedy"]["extra_device_of"] = {
+        "one round of slogdet on the [151, 45, 45] batch (the previous design's yardstick)":
+            lambda: torch.linalg.slogdet(batch45),
+        "support 15 (every state's position block)":
+            lambda: sel.select_features(I["prior"], Fk, I["new"], b30, cfg30, obs_frame=0),
+        "the dense case (support 45)":
+            lambda: sel.select_features(I["prior"], Fk, I["new"], b30, cfg30)}
+    log(f"  max_features 30, budget 30: {rounds_run} rounds run, {n_lu} {ns}x{ns} LU "
+        f"factorizations after one elimination of the {dim - ns} columns off the support (the "
+        f"bound's work; on the 45x45 LUs of the previous design the bound is "
+        f"{rec['selector_greedy']['bound_45_ms']:.5f} ms)")
 
     # K21 at the initializer's and a verification's batches, f64 and f32
     out = {}
@@ -2149,9 +2253,11 @@ def recording_selector(sysm, frame):
         last["args"] = (ids, rays, state, data, *a)
         return out
 
-    def greedy_rec(prior, feats, mask, budget, cfg):
-        last.update(prior=prior, feats=feats, mask=mask, cfg=cfg)
-        return greedy(prior, feats, mask, budget, cfg)
+    def greedy_rec(prior, feats, mask, budget, cfg, obs_frame=None):
+        last.update(prior=prior, feats=feats, mask=mask, cfg=cfg, obs_frame=obs_frame)
+        out = greedy(prior, feats, mask, budget, cfg, obs_frame=obs_frame)
+        last.setdefault("frames", []).append((prior, feats, mask, budget, out))
+        return out
 
     sysm._select_impl, sel_mod.select_features = select, greedy_rec
     try:
@@ -2185,15 +2291,33 @@ def selector_checks(calls, last, scfg, n_tracked, per, on_card):
     for j, n_c, n_t, b, kept, ms, n_k20 in rows:
         log(f"  frame {j}: {n_c} candidates, {n_t} tracked, budget {b}, kept {kept} "
             f"({kept - n_t} new), selector stage {ms:.3f} ms (CUDA events), K20 wrapper "
-            f"launches {n_k20} (selector_greedy's holds 2 x {scfg.max_features} + 1 kernels)")
+            f"launches {n_k20} (selector_greedy's is one kernel)")
     if len(calls) != n_tracked:
         fail(f"selector: {len(calls)} selector calls for {n_tracked} tracked frames")
     if on_card and "feats" in last:
         cfg = last["cfg"]
+        # every frame's greedy pass as it ran, against the twin on its inputs
+        err_f, n_same = 0.0, 0
+        for prior, feats, mask, budget, (sk, gk) in last["frames"]:
+            sp, gp = sel_mod.select_features_plain(prior, feats, mask, budget, cfg,
+                                                   obs_frame=last["obs_frame"])
+            n_same += bool(torch.equal(sk, sp))
+            err_f = max(err_f, float((gk - gp).abs().max()))
+        log(f"  the greedy pass of each of the {len(last['frames'])} frames as it ran: selected "
+            f"sets identical to the twin's on {n_same}; gains max |kernel - plain| = "
+            f"{err_f:.3e} (tol 1e-9)")
+        if not (n_same == len(last["frames"]) and err_f <= 1e-9):
+            fail("selector_greedy disagrees with its plain twin on a phase 8 frame")
         budget = torch.tensor(cfg.max_features, device=last["feats"].device)
-        sk, gk = sel_mod.select_features(last["prior"], last["feats"], last["mask"], budget, cfg)
+        obs = last["obs_frame"]
+        sk, gk = sel_mod.select_features(last["prior"], last["feats"], last["mask"], budget, cfg,
+                                         obs_frame=obs)
+        sk2, gk2 = sel_mod.select_features(last["prior"], last["feats"], last["mask"], budget,
+                                           cfg, obs_frame=obs)
         sp, gp = sel_mod.select_features_plain(last["prior"], last["feats"], last["mask"],
-                                               budget, cfg)
+                                               budget, cfg, obs_frame=obs)
+        if not (torch.equal(sk, sk2) and torch.equal(gk, gk2)):
+            fail("selector_greedy does not repeat to the last bit on the frame's inputs")
         err = float((gk - gp).abs().max())
         log(f"  the last frame's real selector inputs ({int(last['mask'].sum())} new of "
             f"{last['mask'].numel()}) with budget = max_features = {cfg.max_features}: K20 "
@@ -2655,7 +2779,8 @@ def main(argv=None):
             library_ms=r["library_ms"], device_ms=r["device_ms"],
             library_device_ms=r["library_device_ms"],
             device_split=r["device_split"],
-            **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms") if k in r}))
+            **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms", "bound_45_ms",
+                                 "extra_device_ms") if k in r}))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")

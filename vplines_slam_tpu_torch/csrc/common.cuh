@@ -38,6 +38,32 @@
                : "d"(a), "d"(b))
 #endif
 
+// Thread-block clusters (K20): the cluster's barrier, this CTA's rank in it,
+// a pointer into another CTA's shared memory (distributed shared memory),
+// and a launch of `grid` CTAs in clusters of `cl`.
+#ifndef VP_CLUSTER_SYNC
+#include <cooperative_groups.h>
+#define VP_CLUSTER_SYNC() cooperative_groups::this_cluster().sync()
+#define VP_CLUSTER_RANK() ((int)cooperative_groups::this_cluster().block_rank())
+#define VP_DSMEM(p, rank) cooperative_groups::this_cluster().map_shared_rank((p), (rank))
+#define VP_LAUNCH_CLUSTER(kern, cl, grid, block, smem, stream, ...)  \
+  [&]() {                                                             \
+    cudaLaunchConfig_t cfg_ = {};                                     \
+    cfg_.gridDim = dim3(grid);                                        \
+    cfg_.blockDim = dim3(block);                                      \
+    cfg_.dynamicSmemBytes = (smem);                                   \
+    cfg_.stream = (stream);                                           \
+    cudaLaunchAttribute at_[1];                                       \
+    at_[0].id = cudaLaunchAttributeClusterDimension;                  \
+    at_[0].val.clusterDim.x = (cl);                                   \
+    at_[0].val.clusterDim.y = 1;                                      \
+    at_[0].val.clusterDim.z = 1;                                      \
+    cfg_.attrs = at_;                                                 \
+    cfg_.numAttrs = 1;                                                \
+    return cudaLaunchKernelEx(&cfg_, kern, __VA_ARGS__);              \
+  }()
+#endif
+
 namespace vp {
 
 __device__ __forceinline__ float warp_sum(float v) {

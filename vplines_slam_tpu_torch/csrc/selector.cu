@@ -6,12 +6,13 @@
 //   einsum and 25 block writes into a dense [45, 45] per candidate) and
 //   :210 select_features (a lax.scan of max_features rounds, each a batched
 //   45x45 slogdet of every candidate's Omega + Omega_f[i] + 1e-9 I, a masked
-//   argmax and the update).
+//   argmax and the update; here the same gains in the 12-dim Schur form).
 // Bound on the H100: selector_info by bytes, its [N, 45, 45] f64 output
-//   (2.4 MB at N = 150); selector_greedy by operations, ~n^3 / 3 f64 FLOP
-//   per LU (30 kFLOP at n = 45) for N + 1 matrices a round, but each LU is
-//   a chain of 45 dependent pivot steps, so the latency of one block's
-//   elimination sets a round's time.
+//   (2.4 MB at N = 150); selector_greedy by operations: one elimination of
+//   the 33 columns off the support (~60 kFLOP) and ~n^3 / 3 f64 FLOP per
+//   12x12 LU (~1.3 kFLOP) for the base and every live candidate a round,
+//   but each round is a chain of 12 dependent pivot steps and the rounds
+//   are sequential through the argmax, so latency sets the time.
 // Design:
 //   - selector_info: one block per candidate.  A thread per horizon state
 //     builds its bearing factor C_k = B^T B (B = [u]x R_cw) and visibility,
@@ -21,21 +22,36 @@
 //     and for a candidate seen by fewer than 2 states.  Each product and
 //     sum is rounded on its own (__dmul_rn / __dadd_rn) in the order of the
 //     plain twin, feature_information_plain.
-//   - selector_greedy: one C entry runs every round on the stream, no host
-//     sync: per round one block per candidate and one for the base factor a
-//     matrix in shared memory (45^2 f64 = 16 KB) by the twin's LU (unblocked,
-//     partial pivoting with the first largest |pivot|, multipliers times the
-//     pivot's reciprocal), then one block takes the masked argmax (the first
-//     on ties), and when the gain is positive and the round is inside the
-//     device-scalar budget adds Omega_f[best] and marks it.  A round that
-//     selects nothing leaves every later round identical, so it clears a
-//     device flag and the later rounds' blocks return at once; candidates
-//     off the mask or selected already are not factored (their gains are
-//     -inf whatever their log-det).  That is 2 max_features + 1 launches.
+//   - selector_greedy: one launch of a cluster of 16 CTAs for the whole
+//     pass, no host sync.  Every F_i is zero off the support S (the
+//     position rows and columns of the states that can see a candidate: 12
+//     of the 45), so with Omega' = Omega + 1e-9 I and N the other indices,
+//     det(Omega' + F_i) = det(Omega'_NN) det(Sigma + F_i,SS), Sigma =
+//     Omega'_SS - Omega'_SN Omega'_NN^-1 Omega'_NS.  Each CTA forms Sigma
+//     once in shared memory (the twin's LU on [N, S]-ordered Omega' over
+//     the N columns, pivots from the N rows); then per round it factors the
+//     base Sigma and its share of the live candidates' Sigma + F_SS[i]
+//     (candidate i on CTA i % 16) by the twin's LU, 16 lanes a matrix with
+//     a row in each lane's registers: partial pivoting with the first
+//     largest |pivot| (an integer max over |x|'s bits, ties to the smaller
+//     position, each lane tracking its row's position so a swap moves no
+//     data), the pivot row by shuffles, multipliers times the pivot's
+//     reciprocal (computed as soon as the entry is final, off the search),
+//     each product and difference rounded on its own, the logs summed in
+//     pivot order.  Each CTA takes its best gain, and after one cluster
+//     barrier every CTA reads the 16 bests through distributed shared
+//     memory and takes the same first best, so each adds F_SS[best] to its
+//     own Sigma with no second exchange.  A round that selects nothing ends
+//     the pass (every later round would be identical); candidates off the
+//     mask or selected are not factored.  The support is the caller's: with
+//     all 45 indices the same kernel runs the dense case (a warp a 45x45
+//     matrix in shared memory).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -43,8 +59,8 @@ namespace {
 
 constexpr int kMaxStates = 8;
 constexpr int kInfoThreads = 64;
-constexpr int kLuThreads = 128;
-constexpr int kUpdThreads = 256;
+constexpr size_t kSmemLimit = 232448;  // a CTA's shared memory on the H100
+constexpr int kMaxThreads = 512;       // selector_greedy's CTA (its launch bounds)
 
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
@@ -179,137 +195,383 @@ selector_info_kernel(const double* __restrict__ rays, const double* __restrict__
   }
 }
 
-__global__ void greedy_init_kernel(const double* __restrict__ prior, double* __restrict__ omega,
-                                   uint8_t* __restrict__ selected, int* __restrict__ active,
-                                   int N, int dim) {
-  for (int e = threadIdx.x; e < dim * dim; e += blockDim.x) omega[e] = prior[e];
-  for (int i = threadIdx.x; i < N; i += blockDim.x) selected[i] = 0;
-  if (threadIdx.x == 0) *active = 1;
+// ---- selector_greedy ----
+
+// the order-preserving key of a gain: larger gain, larger key; every NaN
+// the largest (torch.argmax's NaN first), -0 as +0; 0 is below every key
+__device__ __forceinline__ unsigned long long gain_key(double g) {
+  if (isnan(g)) return ~0ull;
+  const unsigned long long b = (unsigned long long)__double_as_longlong(g == 0.0 ? 0.0 : g);
+  return b >> 63 ? ~b : b | (1ull << 63);
+}
+__device__ __forceinline__ double key_gain(unsigned long long k) {
+  return __longlong_as_double((long long)(k >> 63 ? k ^ (1ull << 63) : ~k));
 }
 
-// log|det| of Omega (+ Omega_f[i]) + 1e-9 I by selector.logdet_plain's LU:
-// block 0 the base, block 1 + i candidate i
-__global__ void __launch_bounds__(kLuThreads)
-greedy_logdet_kernel(const double* __restrict__ omega, const double* __restrict__ feats,
-                     const uint8_t* __restrict__ mask, const uint8_t* __restrict__ selected,
-                     const int* __restrict__ active, int round, int dim,
-                     double* __restrict__ logdets) {
-  VP_DYN_SMEM(double, A);
-  __shared__ double s_pv[32];
-  __shared__ int s_pi[32], s_p;
-  __shared__ double s_ld, s_rcp;
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  if (round > 0 && !*active) return;
-  if (b > 0 && (!mask[b - 1] || selected[b - 1])) return;
-  const double* F = b > 0 ? feats + (size_t)(b - 1) * dim * dim : nullptr;
-  for (int e = tid; e < dim * dim; e += nt) {
-    double m = omega[e];
-    if (F) m = add(m, F[e]);
-    if (e / dim == e % dim) m = add(m, 1e-9);
-    A[e] = m;
+// A pivot search's entry: key, the bits of |x| (their unsigned order is the
+// order of |x|, every NaN above infinity); code, position * 32 + lane (the
+// first largest |x| is the largest key, then the smallest position).  An
+// empty entry is {0, kNone}.
+constexpr int kNone = 0x7fffffff;
+struct Piv {
+  unsigned long long key;
+  int code;
+};
+__device__ __forceinline__ unsigned long long abs_key(double x) {
+  return (unsigned long long)__double_as_longlong(fabs(x));
+}
+__device__ __forceinline__ void piv_take(Piv& a, double x, int code) {
+  const unsigned long long k = abs_key(x);
+  if (a.code == kNone || k > a.key || (k == a.key && code < a.code)) a = Piv{k, code};
+}
+// the best entry over the xor-butterfly of `width` lanes: the largest key,
+// then the smallest code (an empty entry's key 0 never beats a live one:
+// its code is the largest); as a pivot search, NaNs of other payloads may
+// tie otherwise than torch.argmax, where the log-det is NaN either way
+__device__ __forceinline__ Piv piv_reduce(Piv a, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) {
+    const unsigned long long bk = VP_SHFL_XOR(a.key, o);
+    const int bc = VP_SHFL_XOR(a.code, o);
+    if (bk > a.key || (bk == a.key && bc < a.code)) a = Piv{bk, bc};
   }
-  if (tid == 0) s_ld = 0.0;
-  __syncthreads();
-  const int np = nt < 32 ? nt : 32;  // threads of the pivot search
-  for (int k = 0; k < dim; ++k) {
-    // the first largest |A[i][k]|, i >= k (a NaN counts as the largest)
-    if (tid < np) {
-      double best = -1.0;
-      int bi = -1;
-      for (int i = k + tid; i < dim; i += np) {
-        const double v = fabs(A[i * dim + k]);
-        if (bi < 0 || (isnan(v) && !isnan(best)) || v > best) best = v, bi = i;
+  return a;
+}
+
+// log|det| of an n x n matrix (n <= 16) by selector.logdet_plain's LU on a
+// group of 16 lanes of one warp, lane gl holding row gl in r (destroyed).
+// Rows keep their lanes: each lane tracks its row's position, so the row
+// swap moves no data and the pivot search breaks ties by position, as the
+// twin's; the pivot row comes by shuffles.  buf: the group's 16 doubles of
+// shared memory (the logs by position).  Every lane of the warp calls
+// it; all of the group's lanes get the result.
+__device__ double group_logdet16(double (&r)[16], int n, int gl, int lane, double* buf) {
+  int pos = gl;
+  double piv_mine = 1.0;  // the pivot of the step that retires this row
+  // each live row's reciprocal of its entry in the next pivot column, in
+  // flight from the update that finalizes it (no division by 0: the
+  // special-case path would hold the warp)
+  double my_rcp = gl < n && r[0] != 0.0 ? 1.0 / r[0] : INFINITY;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if (k >= n) break;
+    const bool live = pos >= k && gl < n;
+    Piv a = {0ull, kNone};
+    if (live) a = Piv{abs_key(r[k]), pos * 32 + lane};
+    const int code = piv_reduce(a, 16).code;
+    const int pl = code & 31;
+    const double piv = VP_SHFL_IDX(r[k], pl), rcp = VP_SHFL_IDX(my_rcp, pl);
+    double pr[16];  // the pivot row, from its lane
+#pragma unroll
+    for (int j = k + 1; j < 16; ++j)
+      if (j < n) pr[j] = VP_SHFL_IDX(r[j], pl);
+    if (pos == k) pos = code >> 5;  // the row at position k takes the pivot's
+    if (lane == pl) {
+      pos = k;
+      piv_mine = piv;
+    } else if (live) {
+      const double l = piv != 0.0 ? mul(r[k], rcp) : r[k];
+      if (k + 1 < 16 && k + 1 < n) {
+        r[k + 1] = sub(r[k + 1], mul(l, pr[k + 1]));
+        my_rcp = r[k + 1] != 0.0 ? 1.0 / r[k + 1] : INFINITY;  // unused for a 0 pivot
       }
-      s_pv[tid] = best;
-      s_pi[tid] = bi;
+#pragma unroll
+      for (int j = k + 2; j < 16; ++j)
+        if (j < n) r[j] = sub(r[j], mul(l, pr[j]));
     }
-    __syncthreads();
-    if (tid == 0) {
-      double best = s_pv[0];
-      int bi = s_pi[0];
-      for (int l = 1; l < np; ++l) {
-        const int i = s_pi[l];
-        if (i < 0) continue;
-        const double v = s_pv[l];
-        const bool better = (isnan(v) && !isnan(best)) || v > best ||
-                            ((v == best || (isnan(v) && isnan(best))) && i < bi);
-        if (bi < 0 || better) best = v, bi = i;
-      }
-      s_p = bi;
-    }
-    __syncthreads();
-    const int p = s_p;
+    if (lane == pl || !live) my_rcp = INFINITY;
+  }
+  // the logs in parallel, summed in pivot order
+  if (gl < n) buf[pos] = log(fabs(piv_mine));
+  __syncwarp();
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < n) s = add(s, buf[k]);
+  __syncwarp();
+  return s;
+}
+
+// log|det| of the n x n matrix M (row a at M + a ld, destroyed) by
+// selector.logdet_plain's LU (rows swapped in place), on a group of G lanes
+// of one warp (lane gl owns rows gl and gl + G; n <= 2 G): the dense case,
+// n > 16.  Every lane of the warp calls it; all of the group's lanes get
+// the result.
+__device__ double group_logdet(double* M, int n, int ld, int G, int gl, int lane) {
+  double piv0 = 1.0, piv1 = 1.0;
+  for (int k = 0; k < n; ++k) {
+    Piv a = {0ull, kNone};
+    for (int i = gl; i < n; i += G)
+      if (i >= k) piv_take(a, M[i * ld + k], i * 32 + lane);
+    const int p = piv_reduce(a, G).code >> 5;
+    const double piv = M[p * ld + k];
+    __syncwarp();
     if (p != k)
-      for (int j = k + tid; j < dim; j += nt) {
-        const double t = A[k * dim + j];
-        A[k * dim + j] = A[p * dim + j];
-        A[p * dim + j] = t;
+      for (int j = k + gl; j < n; j += G) {
+        const double t = M[k * ld + j];
+        M[k * ld + j] = M[p * ld + j];
+        M[p * ld + j] = t;
       }
-    __syncthreads();
-    const double piv = A[k * dim + k];
-    if (tid == 0) {
-      s_ld = add(s_ld, log(fabs(piv)));
-      s_rcp = 1.0 / piv;
+    __syncwarp();
+    if (k == gl) piv0 = piv;
+    if (k == gl + G) piv1 = piv;
+    const double rcp = 1.0 / piv;
+    for (int i = gl; i < n; i += G) {
+      if (i <= k) continue;
+      const double l = piv != 0.0 ? mul(M[i * ld + k], rcp) : M[i * ld + k];
+      for (int j = k + 1; j < n; ++j) M[i * ld + j] = sub(M[i * ld + j], mul(l, M[k * ld + j]));
     }
-    __syncthreads();
-    for (int i = k + 1 + tid; i < dim; i += nt)
-      if (piv != 0.0) A[i * dim + k] = mul(A[i * dim + k], s_rcp);
-    __syncthreads();
-    const int m = dim - k - 1;
-    for (int e = tid; e < m * m; e += nt) {
-      const int i = k + 1 + e / m, j = k + 1 + e % m;
-      A[i * dim + j] = sub(A[i * dim + j], mul(A[i * dim + k], A[k * dim + j]));
-    }
-    __syncthreads();
+    __syncwarp();
   }
-  if (tid == 0) logdets[b] = s_ld;
+  const double l0 = log(fabs(piv0)), l1 = log(fabs(piv1));
+  const int base = lane - gl;
+  double s = 0.0;
+  for (int k = 0; k < n; ++k) s = add(s, VP_SHFL_IDX(k < G ? l0 : l1, base + k % G));
+  return s;
 }
 
-// one round's masked argmax and update; round 0 also writes the gains
-__global__ void __launch_bounds__(kUpdThreads)
-greedy_update_kernel(const double* __restrict__ logdets, const uint8_t* __restrict__ mask,
-                     uint8_t* __restrict__ selected, const int64_t* __restrict__ budget,
-                     int round, int rounds, const double* __restrict__ feats,
-                     double* __restrict__ omega, double* __restrict__ gains,
-                     int* __restrict__ active, int N, int dim) {
-  __shared__ double s_v[kUpdThreads];
-  __shared__ int s_i[kUpdThreads];
-  __shared__ int s_best, s_improved;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (round > 0 && !*active) return;
-  const double base = logdets[0];
-  double best = 0.0;
-  int bi = -1;
+// Shared memory of one CTA (doubles, then ints, then bytes): Sigma [ns x ld];
+// the work area: the permuted Omega' [dim x ldd] while Sigma is formed, then
+// a group's buffers [groups][16] (ns <= 16: the rows live in registers) or
+// matrix [groups][ns x ld]; the log-dets of this CTA's matrices [N + 1];
+// the best gain of this CTA by round parity [2]; then the ints: best,
+// improved, the best's index by round parity [2]; the permutation [dim];
+// the rows of the positions while Sigma is formed [dim]; then the mask and
+// the selected flags [N] each.
+struct GreedySmem {
+  double *sig, *work, *lds, *slot;
+  int *ints, *perm, *rowp;
+  uint8_t *mask, *sel;
+};
+__host__ __device__ inline size_t greedy_smem(int N, int dim, int ns, int groups,
+                                              GreedySmem* out, void* base) {
+  const int ld = ns | 1, ldd = dim | 1;
+  const size_t per_group = ns <= 16 ? 16 : (size_t)ns * ld;
+  const size_t work = (size_t)groups * per_group > (size_t)dim * ldd ? (size_t)groups * per_group
+                                                                     : (size_t)dim * ldd;
+  const size_t n_dbl = (size_t)ns * ld + work + (size_t)(N + 1) + 2;
+  const size_t n_int = 4 + 2 * (size_t)dim;
+  if (out) {
+    double* d = (double*)base;
+    out->sig = d, out->work = d + ns * ld, out->lds = out->work + work;
+    out->slot = out->lds + N + 1;
+    out->ints = (int*)(d + n_dbl), out->perm = out->ints + 4, out->rowp = out->perm + dim;
+    out->mask = (uint8_t*)(out->ints + n_int), out->sel = out->mask + N;
+  }
+  return n_dbl * sizeof(double) + n_int * sizeof(int) + 2 * (size_t)N;
+}
+
+}  // namespace
+
+constexpr int kMaxDim = 64;
+
+// prior [dim, dim], feats [N, dim, dim] f64, mask [N], budget [1] int64 (a
+// device scalar); out selected [N] (0/1), gains [N] f64 (the first round's,
+// 0 off the mask).  perm: the indices off the support, then the support's
+// ns (every feats[i] is zero outside support x support: the kernel reads
+// only that block).
+struct VpGreedyArgs {
+  const double* prior;
+  const double* feats;
+  const uint8_t* mask;
+  const int64_t* budget;
+  uint8_t* selected;
+  double* gains;
+  int N, dim, ns, rounds;
+  int perm[kMaxDim];
+};
+
+namespace {
+
+constexpr int kCluster = 16;  // CTAs of selector_greedy's cluster (a non-portable size)
+
+__global__ void __launch_bounds__(kMaxThreads) greedy_kernel(VpGreedyArgs A, int G, int groups) {
+  VP_DYN_SMEM(unsigned char, smem_base);
+  GreedySmem S;
+  const int N = A.N, dim = A.dim, ns = A.ns, nn = dim - ns;
+  greedy_smem(N, dim, ns, groups, &S, smem_base);
+  const int ld = ns | 1, ldd = dim | 1;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = VP_CLUSTER_RANK();
+  for (int a = tid; a < dim; a += nt) S.perm[a] = A.perm[a], S.rowp[a] = a;
   for (int i = tid; i < N; i += nt) {
-    const bool cand = mask[i] && !selected[i];
-    if (round == 0) gains[i] = mask[i] ? sub(logdets[1 + i], base) : 0.0;
-    const double g = cand ? sub(logdets[1 + i], base) : -INFINITY;
-    if (bi < 0 || (isnan(g) && !isnan(best)) || g > best) best = g, bi = i;
+    S.mask[i] = A.mask[i];
+    S.sel[i] = 0;
+    if (rank == 0) A.selected[i] = 0;
   }
-  s_v[tid] = best;
-  s_i[tid] = bi;
   __syncthreads();
-  if (tid == 0) {
-    best = s_v[0];
-    bi = s_i[0];
-    for (int l = 1; l < nt && l < N; ++l) {
-      const double v = s_v[l];
-      const int i = s_i[l];
-      const bool better = (isnan(v) && !isnan(best)) || v > best ||
-                          ((v == best || (isnan(v) && isnan(best))) && i < bi);
-      if (better) best = v, bi = i;
+  // Omega' = prior + 1e-9 I in the order (off the support, support)
+  double* W = S.work;
+  for (int e = tid; e < dim * dim; e += nt) {
+    const int pa = S.perm[e / dim], pb = S.perm[e % dim];
+    const double m = A.prior[pa * dim + pb];
+    W[(e / dim) * ldd + e % dim] = pa == pb ? add(m, 1e-9) : m;
+  }
+  __syncthreads();
+  // Sigma: eliminate the nn columns off the support, pivots from their rows;
+  // position i's row is rowp[i], so a swap exchanges two indices
+  for (int k = 0; k < nn; ++k) {
+    if (warp == 0) {  // the pivot, its reciprocal in flight during the search
+      Piv a = {0ull, kNone};
+      double v = 0.0;
+      for (int i = k + lane; i < nn; i += 32) {
+        const double x = W[S.rowp[i] * ldd + k];
+        const int c = a.code;
+        piv_take(a, x, i * 32 + lane);
+        if (a.code != c) v = x;
+      }
+      const double my_rcp = v != 0.0 ? 1.0 / v : INFINITY;  // unused for a 0 pivot
+      const int code = piv_reduce(a, 32).code, pl = code & 31, p = code >> 5;
+      const double piv = VP_SHFL_IDX(v, pl), rcp = VP_SHFL_IDX(my_rcp, pl);
+      if (lane == 0) {
+        const int t = S.rowp[k];
+        S.rowp[k] = S.rowp[p];
+        S.rowp[p] = t;
+        S.slot[0] = piv, S.slot[1] = rcp;
+      }
     }
-    const int improved = round < rounds && best > 0.0 && (int64_t)round < *budget;
-    s_best = bi;
-    s_improved = improved;
-    if (improved) selected[bi] = 1;
-    else *active = 0;
+    __syncthreads();
+    const double* Wk = W + S.rowp[k] * ldd;
+    const double piv = S.slot[0], rcp = S.slot[1];
+    // the trailing block: a warp 4 rows at a time, a lane 2 columns
+    const int j0 = k + 1 + lane, j1 = j0 + 32, nw = nt >> 5;
+    const double u0 = j0 < dim ? Wk[j0] : 0.0, u1 = j1 < dim ? Wk[j1] : 0.0;
+    for (int i0 = k + 1 + 4 * warp; i0 < dim; i0 += 4 * nw) {
+      double* Wi[4];
+      double lk[4], w0[4], w1[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        Wi[t] = i0 + t < dim ? W + S.rowp[i0 + t] * ldd : nullptr;
+        lk[t] = Wi[t] ? Wi[t][k] : 0.0;
+        w0[t] = Wi[t] && j0 < dim ? Wi[t][j0] : 0.0;
+        w1[t] = Wi[t] && j1 < dim ? Wi[t][j1] : 0.0;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (!Wi[t]) continue;
+        const double l = piv != 0.0 ? mul(lk[t], rcp) : lk[t];
+        if (j0 < dim) Wi[t][j0] = sub(w0[t], mul(l, u0));
+        if (j1 < dim) Wi[t][j1] = sub(w1[t], mul(l, u1));
+      }
+    }
+    __syncthreads();
   }
+  for (int e = tid; e < ns * ns; e += nt)  // positions >= nn never moved
+    S.sig[(e / ns) * ld + e % ns] = W[(nn + e / ns) * ldd + nn + e % ns];
   __syncthreads();
-  if (s_improved) {
-    const double* F = feats + (size_t)s_best * dim * dim;
-    for (int e = tid; e < dim * dim; e += nt) omega[e] = add(omega[e], F[e]);
+
+  // the rounds: every CTA factors the base Sigma (q = 0) and its candidates
+  // i = rank + kCluster (q - 1) (q >= 1), group q % groups in pass q / groups (a
+  // warp with no live matrix skips the pass); takes the best of them, and
+  // after the cluster barrier the best of the CTAs' bests
+  const int64_t budget = A.budget[0];
+  const int n_rounds = A.rounds > 0 ? A.rounds : 1;
+  const int n_mine = 1 + (N > rank ? (N - 1 - rank) / kCluster + 1 : 0);
+  const int n_pass = (n_mine + groups - 1) / groups;
+  const int grp = tid / G, gl = tid % G;
+  const bool regs = ns <= 16;  // then G = 16 and lane gl holds row gl
+  double* M = S.work + (size_t)grp * (regs ? 16 : ns * ld);
+  const int* sup = S.perm + nn;
+  double f[16];  // the group's candidate's row of F_SS, kept while it has one
+  int f_of = -1;
+  for (int r = 0; r < n_rounds; ++r) {
+    for (int pass = 0; pass < n_pass; ++pass) {
+      const int q = pass * groups + grp, i = rank + kCluster * (q - 1);
+      const bool live = q < n_mine && (q == 0 || (S.mask[i] && !S.sel[i]));
+      if (!VP_BALLOT(live)) continue;
+      double v;
+      if (regs) {
+        if (live && q > 0 && i != f_of && gl < ns) {
+          const double* Fa = A.feats + (size_t)i * dim * dim + (size_t)sup[gl] * dim;
+#pragma unroll
+          for (int b = 0; b < 16; ++b) f[b] = b < ns ? Fa[sup[b]] : 0.0;
+          f_of = i;
+        }
+        double row[16];
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          const double sg = b < ns && gl < ns ? S.sig[gl * ld + b] : 0.0;
+          row[b] = q > 0 ? add(sg, f[b]) : sg;
+        }
+        v = group_logdet16(row, ns, gl, lane, M);
+      } else {
+        if (live) {
+          const double* F = q > 0 ? A.feats + (size_t)i * dim * dim : nullptr;
+          for (int a = gl; a < ns; a += G) {
+            const double* Fa = F ? F + (size_t)sup[a] * dim : nullptr;
+            for (int b = 0; b < ns; ++b)
+              M[a * ld + b] = Fa ? add(S.sig[a * ld + b], Fa[sup[b]]) : S.sig[a * ld + b];
+          }
+        }
+        __syncwarp();
+        v = group_logdet(M, ns, ld, G, gl, lane);
+      }
+      if (live && gl == 0) S.lds[q] = v;
+    }
+    __syncthreads();
+    // this CTA's masked argmax of the gains (round 0 also writes its
+    // gains): the largest key, then the smallest index
+    if (warp == 0) {
+      const double base = S.lds[0];
+      Piv a = {0ull, kNone};
+      for (int q = 1 + lane; q < n_mine; q += 32) {
+        const int i = rank + kCluster * (q - 1);
+        const bool cand = S.mask[i] && !S.sel[i];
+        const double g = cand ? sub(S.lds[q], base) : 0.0;
+        if (r == 0) A.gains[i] = g;
+        const unsigned long long key = gain_key(cand ? g : -INFINITY);
+        if (a.code == kNone || key > a.key) a = Piv{key, i};  // i rises with q
+      }
+      a = piv_reduce(a, 32);
+      if (lane == 0) S.slot[r & 1] = __longlong_as_double((long long)a.key),
+                     S.ints[2 + (r & 1)] = a.code;
+    }
+    VP_CLUSTER_SYNC();
+    // the best of the CTAs' bests, in every CTA alike
+    if (warp == 0) {
+      Piv a = {0ull, kNone};
+      if (lane < kCluster) {
+        const double* key = VP_DSMEM(S.slot + (r & 1), lane);
+        const int* idx = VP_DSMEM(S.ints + 2 + (r & 1), lane);
+        a = Piv{(unsigned long long)__double_as_longlong(*key), *idx};
+      }
+      a = piv_reduce(a, 32);
+      if (lane == 0) {
+        S.ints[0] = a.code;
+        S.ints[1] = r < A.rounds && key_gain(a.key) > 0.0 && (int64_t)r < budget;
+      }
+    }
+    __syncthreads();
+    if (!S.ints[1]) break;
+    // Sigma += F_SS[best]
+    const int best = S.ints[0];
+    const double* F = A.feats + (size_t)best * dim * dim;
+    for (int e = tid; e < ns * ns; e += nt) {
+      const int a = e / ns, b = e % ns;
+      S.sig[a * ld + b] = add(S.sig[a * ld + b], F[(size_t)sup[a] * dim + sup[b]]);
+    }
+    if (tid == 0) {
+      S.sel[best] = 1;
+      if (rank == 0) A.selected[best] = 1;
+    }
+    __syncthreads();
   }
+  // no CTA leaves while another may still read its shared memory
+  VP_CLUSTER_SYNC();
+}
+
+// greedy_kernel's attributes (all of a CTA's shared memory, the cluster of
+// 16), set on the first launch on each device and not again
+cudaError_t greedy_attributes() {
+  static std::atomic<unsigned> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (done.load() >> dev & 1u)) return e;
+  e = cudaFuncSetAttribute(greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kSmemLimit);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(greedy_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) done.fetch_or(1u << dev);
+  return e;
 }
 
 }  // namespace
@@ -326,25 +588,22 @@ extern "C" int vp_selector_info(const double* rays, const double* depths, const 
   return (int)cudaGetLastError();
 }
 
-// prior [dim, dim], feats [N, dim, dim] f64, mask [N], budget [1] int64 (a
-// device scalar); out selected [N] (0/1), gains [N] f64 (the first round's,
-// 0 off the mask); scratch omega [dim, dim], logdets [N + 1], active [1].
-extern "C" int vp_selector_greedy(const double* prior, const double* feats, const uint8_t* mask,
-                                  const int64_t* budget, int N, int dim, int rounds,
-                                  uint8_t* selected, double* gains, double* omega,
-                                  double* logdets, int* active, cudaStream_t stream) {
-  const size_t smem = (size_t)dim * dim * sizeof(double);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  VP_LAUNCH(greedy_init_kernel, 1, kUpdThreads, 0, stream, prior, omega, selected, active, N,
-            dim);
-  int err = (int)cudaGetLastError();
-  const int n_rounds = rounds > 0 ? rounds : 1;  // round 0 gives the gains
-  for (int r = 0; r < n_rounds && err == 0; ++r) {
-    VP_LAUNCH(greedy_logdet_kernel, N + 1, kLuThreads, smem, stream, omega, feats, mask,
-              selected, active, r, dim, logdets);
-    VP_LAUNCH(greedy_update_kernel, 1, kUpdThreads, 0, stream, logdets, mask, selected, budget,
-              r, rounds, feats, omega, gains, active, N, dim);
-    err = (int)cudaGetLastError();
-  }
-  return err;
+extern "C" int vp_selector_greedy(const VpGreedyArgs* A, cudaStream_t stream) {
+  const int N = A->N, dim = A->dim, ns = A->ns;
+  if (dim > kMaxDim || ns > dim) return (int)cudaErrorInvalidValue;
+  // 16 lanes a matrix up to 16 rows, else a warp; as many groups as a CTA's
+  // matrices (the base and ceil(N / kCluster) candidates), within
+  // kMaxThreads threads and the shared memory
+  const int G = ns <= 16 ? 16 : 32, per_cta = 1 + (N + kCluster - 1) / kCluster;
+  int groups = per_cta < kMaxThreads / G ? per_cta : kMaxThreads / G;
+  groups = (groups * G + 31) / 32 * 32 / G;
+  while (groups > 32 / G && greedy_smem(N, dim, ns, groups, nullptr, nullptr) > kSmemLimit)
+    groups -= 32 / G;
+  const size_t smem = greedy_smem(N, dim, ns, groups, nullptr, nullptr);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t e = greedy_attributes();
+  if (e == cudaSuccess)
+    e = VP_LAUNCH_CLUSTER(greedy_kernel, kCluster, kCluster, groups * G, smem, stream, *A, G,
+                          groups);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -13,6 +13,10 @@ The whole selector runs in f64 whatever the engine dtype: the gain of a
 round is the difference of two 45x45 log-determinants of about 1e2 whose
 prior spans eigenvalues 0.15 to 1.1e7, below f32's resolution (at f32 the
 gains come out as noise and the pass picks one feature where f64 picks 30).
+``select_features(..., obs_frame=k)``, given the ``obs_frame`` that
+``feature_information`` was called with, takes them in the Schur form of the
+support the candidates' information lives on (``position_support``): the
+same gains in exact arithmetic from 12x12 determinants.
 
 ``feature_information`` and ``select_features`` are kernel K20
 (``csrc/selector.cu``: ``selector_info`` and ``selector_greedy``) on CUDA
@@ -42,9 +46,9 @@ SELECTOR_INFO = kernels.Kernel(
 )
 SELECTOR_GREEDY = kernels.Kernel(
     "vp_selector_greedy", "vplines_slam_tpu_torch/csrc/selector.cu",
-    "vplines_slam_tpu/models/selector.py:210",
-    [kernels.P] * 4 + [kernels.I, kernels.I, kernels.I] + [kernels.P] * 5,
+    "vplines_slam_tpu/models/selector.py:210", [kernels.P],
 )
+MAX_DIM = 64  # selector_greedy's largest information (csrc/selector.cu)
 
 
 class SelectorConfig(NamedTuple):
@@ -264,17 +268,28 @@ def nn_depth_guess(rays, known_rays, known_depths, known_valid, default=5.0):
     return torch.where(has, d, torch.full_like(d, default))
 
 
-def logdet_plain(M):
-    """log|det| of a batch [B, n, n] by the kernel's LU: unblocked, right-
-    looking, partial pivoting (the first largest |pivot|, as LAPACK's
-    idamax), multipliers scaled by the pivot's reciprocal, each product and
-    difference rounded on its own, the logs summed in pivot order."""
-    A = M.clone()
+def position_support(obs_frame=1, horizon=HORIZON):
+    """The rows and columns of the position blocks of the states a candidate
+    can be seen from, 9 k + {0, 1, 2} for k = obs_frame..horizon: the only
+    entries ``feature_information(..., obs_frame=obs_frame)`` writes (its
+    visibility needs k >= obs_frame), so the greedy pass's support (12 of
+    the 45 at the defaults, 15 at obs_frame 0)."""
+    return tuple(STATE_SIZE * k + a for k in range(obs_frame, horizon + 1) for a in range(3))
+
+
+def _lu_steps(A, steps, pivot_rows):
+    """The first ``steps`` pivot steps of the kernel's LU on a batch [B, n, n]
+    (a copy): unblocked, right-looking, partial pivoting over rows
+    k..pivot_rows-1 (the first largest |pivot|, as LAPACK's idamax), the
+    multipliers scaled by the pivot's reciprocal, each product and
+    difference rounded on its own, the logs of |pivot| summed in pivot
+    order.  Returns (A after the steps, the sum of the logs [B])."""
+    A = A.clone()
     B, n = A.shape[0], A.shape[-1]
     rows = torch.arange(B, device=A.device)
     out = torch.zeros(B, dtype=A.dtype, device=A.device)
-    for k in range(n):
-        p = k + torch.argmax(torch.abs(A[:, k:, k]), dim=1)
+    for k in range(steps):
+        p = k + torch.argmax(torch.abs(A[:, k:pivot_rows, k]), dim=1)
         row_k, row_p = A[rows, k].clone(), A[rows, p].clone()
         A[rows, p] = row_k
         A[rows, k] = row_p
@@ -284,30 +299,76 @@ def logdet_plain(M):
             col = A[:, k + 1:, k]
             lmul = torch.where((piv != 0)[:, None], col * (1.0 / piv)[:, None], col)
             A[:, k + 1:, k + 1:] = A[:, k + 1:, k + 1:] - lmul[:, :, None] * row_p[:, None, k + 1:]
-    return out
+    return A, out
 
 
-def _logdet(M):
-    dim = M.shape[-1]
-    Mb = M.reshape(-1, dim, dim) + 1e-9 * torch.eye(dim, dtype=M.dtype, device=M.device)
-    return logdet_plain(Mb).reshape(M.shape[:-2])
+def logdet_plain(M):
+    """log|det| of a batch [B, n, n] by the kernel's LU (``_lu_steps`` over
+    all n columns)."""
+    n = M.shape[-1]
+    return _lu_steps(M, n, n)[1]
+
+
+def greedy_support(dim, obs_frame=None):
+    """The indices the greedy pass factors for an information of size dim:
+    ``position_support(obs_frame)`` over the dim / STATE_SIZE states when
+    obs_frame is the one ``feature_information`` was called with, all dim
+    of them (the dense case) when it is None."""
+    if obs_frame is None:
+        return tuple(range(dim))
+    n_states = dim // STATE_SIZE
+    if dim % STATE_SIZE or not 0 <= obs_frame < n_states:
+        raise ValueError(f"obs_frame must name one of the {n_states} states of a "
+                         f"[{dim}, {dim}] information, got {obs_frame}")
+    return position_support(obs_frame, n_states - 1)
+
+
+def _support_perm(dim, support):
+    """(the indices off the support in order, then the support's): the
+    order the greedy pass eliminates Omega in."""
+    sup = tuple(range(dim)) if support is None else tuple(int(i) for i in support)
+    return tuple(i for i in range(dim) if i not in sup) + sup, len(sup)
+
+
+def schur_base_plain(omega_prior, support=None):
+    """Sigma = Omega'_SS - Omega'_SN Omega'_NN^-1 Omega'_NS for Omega' =
+    Omega + 1e-9 I, S the support and N the rest: the trailing block after
+    the kernel's LU eliminates the N columns of [N, S]-ordered Omega' with
+    pivots from the N rows.  det(Omega' + F) = det(Omega'_NN) det(Sigma +
+    F_SS) for any F that is zero off S x S."""
+    dim = omega_prior.shape[0]
+    perm, ns = _support_perm(dim, support)
+    nn = dim - ns
+    idx = torch.tensor(perm, device=omega_prior.device)
+    Om = omega_prior + 1e-9 * torch.eye(dim, dtype=omega_prior.dtype, device=omega_prior.device)
+    A = Om[idx[:, None], idx[None, :]]
+    return _lu_steps(A[None], nn, nn)[0][0, nn:, nn:]
 
 
 def select_features_plain(omega_prior, omega_feats, candidate_mask, budget,
-                          cfg: SelectorConfig):
+                          cfg: SelectorConfig, obs_frame=None):
     """K20 ``selector_greedy``'s twin: ``cfg.max_features`` greedy rounds
-    (budget, a device int, masks off the rounds past it), each the log|det|
-    of Omega + Omega_f[i] + 1e-9 I for every candidate by ``logdet_plain``,
-    the first best of the positive gains taken.  Returns (selected [N] bool,
-    the first round's gains [N], 0 off candidate_mask)."""
+    (budget, a device int, masks off the rounds past it) on the support's
+    Schur form: each round the log|det| of Sigma and of Sigma + F_SS[i] for
+    every candidate by ``logdet_plain`` (``schur_base_plain``: the gain
+    log|det(Omega + F_i + 1e-9 I)| - log|det(Omega + 1e-9 I)| in exact
+    arithmetic), the first best of the positive gains taken and its F_SS
+    added to Sigma.  obs_frame: the one omega_feats came from
+    ``feature_information`` with, so the support is ``greedy_support(dim,
+    obs_frame)`` (default None: all the indices, the dense case).  Returns
+    (selected [N] bool, the first round's gains [N], 0 off candidate_mask)."""
     kernels.TWIN_CALLS["selector_greedy"] += 1
-    N = omega_feats.shape[0]
-    omega = omega_prior
+    N, dim = omega_feats.shape[0], omega_prior.shape[0]
+    support = greedy_support(dim, obs_frame)
+    perm, ns = _support_perm(dim, support)
+    sup = torch.tensor(perm[dim - ns:], device=omega_prior.device)
+    sigma = schur_base_plain(omega_prior, support)
+    F = omega_feats[:, sup[:, None], sup[None, :]]
     selected = torch.zeros(N, dtype=torch.bool, device=omega_prior.device)
     neg_inf = torch.full((N,), -torch.inf, dtype=omega_prior.dtype, device=omega_prior.device)
     g0 = None
     for r in range(max(cfg.max_features, 1)):
-        ld = _logdet(torch.cat([omega[None], omega + omega_feats]))
+        ld = logdet_plain(torch.cat([sigma[None], sigma + F]))
         if r == 0:
             g0 = ld[1:] - ld[0]
         if r == cfg.max_features:
@@ -315,36 +376,54 @@ def select_features_plain(omega_prior, omega_feats, candidate_mask, budget,
         gain = torch.where(candidate_mask & ~selected, ld[1:] - ld[0], neg_inf)
         best = torch.argmax(gain)
         improved = (gain[best] > 0.0) & (r < budget)
-        omega = torch.where(improved, omega + omega_feats[best], omega)
+        sigma = torch.where(improved, sigma + F[best], sigma)
         selected = selected.clone()
         selected[best] = selected[best] | improved
     return selected, torch.where(candidate_mask, g0, torch.zeros_like(g0))
 
 
-def select_features(omega_prior, omega_feats, candidate_mask, budget, cfg: SelectorConfig):
+class _GreedyArgs(ctypes.Structure):
+    """VpGreedyArgs (csrc/selector.cu)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("prior", "feats", "mask", "budget", "selected",
+                                                 "gains")]
+                + [(n, ctypes.c_int) for n in ("N", "dim", "ns", "rounds")]
+                + [("perm", ctypes.c_int * MAX_DIM)])
+
+
+def select_features(omega_prior, omega_feats, candidate_mask, budget, cfg: SelectorConfig,
+                    obs_frame=None):
     """K20 ``selector_greedy``.  CPU tensors: ``select_features_plain``.
-    CUDA tensors: every round's log-determinants (one block per candidate
-    and one for the base, an LU with partial pivoting in shared memory, f64)
-    and its argmax and update, all rounds on the device with no host sync;
-    budget is a device int."""
+    CUDA tensors: the whole pass in one launch of a cluster of 16 CTAs, no
+    host sync (budget is a device int): Sigma once, then per round every
+    candidate's LU on the support (16 lanes each, the rows in registers,
+    f64) and the argmax and update, the CTAs' bests exchanged through
+    distributed shared memory.  obs_frame: the one omega_feats came from
+    ``feature_information`` with; the kernel reads only F_SS of the support
+    it gives (``greedy_support``).  Default None: every index, the dense
+    case, for an information from elsewhere."""
     if not omega_feats.is_cuda:
-        return select_features_plain(omega_prior, omega_feats, candidate_mask, budget, cfg)
+        return select_features_plain(omega_prior, omega_feats, candidate_mask, budget, cfg,
+                                     obs_frame)
     N, dim = omega_feats.shape[0], omega_prior.shape[0]
     f64, dev = torch.float64, omega_feats.device
+    perm, ns = _support_perm(dim, greedy_support(dim, obs_frame))
+    if dim > MAX_DIM:
+        raise ValueError(f"selector_greedy takes dim <= {MAX_DIM}, got {dim}")
     prior, feats = omega_prior.contiguous(), omega_feats.contiguous()
     mask = candidate_mask.to(torch.uint8).contiguous()
     budget = torch.as_tensor(budget, device=dev).to(torch.int64).reshape(1)
     selected = torch.empty(N, dtype=torch.uint8, device=dev)
     gains = torch.empty(N, dtype=f64, device=dev)
-    omega = torch.empty(dim, dim, dtype=f64, device=dev)
-    logdets = torch.empty(N + 1, dtype=f64, device=dev)
-    active = torch.empty(1, dtype=torch.int32, device=dev)
-    SELECTOR_GREEDY(kernels.check(prior, "omega_prior", f64, shape=(dim, dim)),
-                    kernels.check(feats, "omega_feats", f64, shape=(N, dim, dim)),
-                    kernels.check(mask, "candidate_mask", torch.uint8, shape=(N,)),
-                    kernels.check(budget, "budget", torch.int64, shape=(1,)), N, dim,
-                    int(cfg.max_features), kernels.check(selected, "selected", torch.uint8),
-                    kernels.check(gains, "gains", f64), kernels.check(omega, "omega", f64),
-                    kernels.check(logdets, "logdets", f64),
-                    kernels.check(active, "active", torch.int32))
+    if N == 0:
+        return selected.bool(), gains
+    args = _GreedyArgs(
+        kernels.check(prior, "omega_prior", f64, shape=(dim, dim)),
+        kernels.check(feats, "omega_feats", f64, shape=(N, dim, dim)),
+        kernels.check(mask, "candidate_mask", torch.uint8, shape=(N,)),
+        kernels.check(budget, "budget", torch.int64, shape=(1,)),
+        kernels.check(selected, "selected", torch.uint8),
+        kernels.check(gains, "gains", f64), N, dim, ns, int(cfg.max_features),
+        (ctypes.c_int * MAX_DIM)(*perm))
+    SELECTOR_GREEDY(ctypes.byref(args))
     return selected.bool(), gains

@@ -569,11 +569,13 @@ class SlamSystem:
         unit = rays / torch.clamp(torch.linalg.norm(rays, dim=-1, keepdim=True), min=1e-9)
         depths = sel_mod.nn_depth_guess(unit, k_rays, Xc[:, 2], k_ok)
 
+        obs = 1  # the new image is horizon state 1: the information's support follows
         omega_f = sel_mod.feature_information(unit, depths, is_new, ps, qs, q_ic, p_ic,
-                                              scfg.pix_sigma)
+                                              scfg.pix_sigma, obs_frame=obs)
         n_tracked = torch.sum(tracked.to(torch.int64))
         budget = torch.clamp(scfg.max_features - n_tracked, min=0)
-        selected, _ = sel_mod.select_features(omega_prior, omega_f, is_new, budget, scfg)
+        selected, _ = sel_mod.select_features(omega_prior, omega_f, is_new, budget, scfg,
+                                              obs_frame=obs)
         # pass-through when few candidates (init_threshold)
         n_cand = torch.sum(valid.to(torch.int64))
         keep = torch.where(n_cand <= scfg.init_threshold, valid, tracked | selected)

@@ -199,9 +199,18 @@ def marg_stage1_plain(H_dd, g_d, H_dp, h_p, g_p, H_dl, Hll_b, g_l, eps):
     return H1, b1, c_d
 
 
+def marg_scratch(nd, P, L):
+    """Doubles of K14's scratch (csrc/marg.cu's Plan and Aux): bv [Kp] |
+    Cᵀ [Kp, ndp] | Yᵀ [Kp, ndp], ndp = nd rounded up to 16, Kp = P + 4 L
+    rounded up to 4."""
+    ndp, Kp = -(-nd // 16) * 16, -(-(P + 4 * L) // 4) * 4
+    return Kp + 2 * Kp * ndp
+
+
 def _marg_stage1_cuda(H_dd, g_d, H_dp, h_p, g_p, H_dl, Hll_b, g_l, eps):
-    """K14: one CTA for the scales, gates and line inverses, then a grid over
-    16x16 tiles of H1."""
+    """K14: a prep grid writes the scaled landmark columns C and their
+    weighted partners Y once, then a CTA per 16x16 tile of H1's lower
+    triangle forms H_dd / (c cᵀ) - Y Cᵀ (and b1) on the f64 tensor cores."""
     f64, dev = torch.float64, H_dd.device
     nd = H_dd.shape[0]
     P = 0 if h_p is None else h_p.shape[0]
@@ -215,7 +224,7 @@ def _marg_stage1_cuda(H_dd, g_d, H_dp, h_p, g_p, H_dl, Hll_b, g_l, eps):
     ptrs = [None if t is None else kernels.check(t, n, f64, shape=sh)
             for t, n, sh in zip(ins, names, shapes)]
     e = lambda *shape: torch.empty(*shape, dtype=f64, device=dev)
-    H1, b1, c_d, aux = e(nd, nd), e(nd), e(nd), e(3 * P + 24 * L + 1)
+    H1, b1, c_d, aux = e(nd, nd), e(nd), e(nd), e(max(marg_scratch(nd, P, L), 1))
     args = _MARG_ARGS(*ptrs, H1.data_ptr(), b1.data_ptr(), c_d.data_ptr(), aux.data_ptr(),
                       nd, P, L, float(eps))
     MARG_WINDOW(ctypes.byref(args))
