@@ -3,6 +3,7 @@
 
 Run from the root of a checkout:
   python3 chip_smoke.py [--kernels-only] [--profile] [--cold-witness] [--estimator-witness]
+                        [--imu-witness] [--vp-grid-against TREE]
 
 Phases (any failure exits nonzero; there is no CPU path):
   1. toolchain: torch/CUDA versions, nvcc, triton, the card's name and power limit;
@@ -84,6 +85,16 @@ Phases (any failure exits nonzero; there is no CPU path):
      its twin on the last frame's real inputs with budget = max_features
      (twice, equal to the last bit).  Its launch counts of K20 go to the
      kernels JSON.
+  Phase 3 also holds K10 on the interval layouts of
+  utils/synthetic.imu_interval_cases (a frame's 20 live steps of 64, merged
+  intervals within and past the capacity, no live step, masked steps
+  between live ones, nine biased intervals) against its twin at f32 (1e-5)
+  and f64 (1e-12), two calls equal to the bit, J = I and P = 0 exactly with
+  no live step; and K8's vp_grid on the line sets of
+  utils/synthetic.vp_line_cases (hundreds of votes in one cell, both wraps,
+  no and one valid line, pairs on the gate): the twin's mass and two calls
+  equal to the bit.  Every vp_grid call of phases 5 and 6 is kept (by
+  reference) and run again afterwards: equal to the bit.
   Phase 3 also holds loop closure's kernels against their plain twins at the
   profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
   K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
@@ -105,6 +116,13 @@ Phases (any failure exits nonzero; there is no CPU path):
   Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
   marginalization) was called.
+  --imu-witness runs phases 4-5 again with K10's plain twin (f32, on the
+  card) and prints their ATE beside the kernel's.
+  --vp-grid-against TREE builds TREE's csrc/vp.cu (another checkout, e.g.
+  the parent commit unpacked with git archive) and holds its vp_grid
+  against this tree's, to the bit, on phase 3's inputs and on every lines
+  frame of phases 5 and 6 (with vp_score's labels on its grid), and times
+  it on the same inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -235,16 +253,17 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
                      library_label=library_label)
 
 
-# device time per call of the designs the current K11, K12, K13, K14, K17
-# signature and K20 greedy pass replaced (five launches, a thread per
-# observation carrying all its tangents; a CTA per node-pair tile scanning
-# every row; two launches, one-CTA Cholesky; a thread per entry of H1 over
-# every slot; one CTA over all descriptors; 2 x 30 + 1 launches of 45x45
-# LUs), on the lines window and phase 3's selector frame, on an NVIDIA H100
+# device time per call of the designs the current K8 vp_grid, K10, K11,
+# K12, K13, K14, K17 signature and K20 greedy pass replaced (one CTA holding
+# the whole grid; a CTA of 256 threads per interval over every step; five
+# launches, a thread per observation carrying all its tangents; a CTA per
+# node-pair tile scanning every row; two launches, one-CTA Cholesky; a
+# thread per entry of H1 over every slot; one CTA over all descriptors;
+# 2 x 30 + 1 launches of 45x45 LUs), on phase 3's inputs, on an NVIDIA H100
 # 80GB HBM3 at 700 W, for the log beside the new ones
-PREVIOUS_DEVICE_MS = {"window_lin": 0.1340, "window_blocks": 0.6102, "schur_solve": 1.0662,
-                      "marg_window": 0.2403, "simhash_signature": 0.1194,
-                      "selector_greedy": 4.8784}
+PREVIOUS_DEVICE_MS = {"vp_grid": 0.1962, "preintegrate": 0.1431, "window_lin": 0.1340,
+                      "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
+                      "simhash_signature": 0.1194, "selector_greedy": 4.8784}
 
 
 def device_times(rec):
@@ -269,7 +288,8 @@ def device_times(rec):
                 + (f" (the previous design: {PREVIOUS_DEVICE_MS[name]:.4f} ms in all)"
                    if name in PREVIOUS_DEVICE_MS else ""))
         for label, fn2 in r.pop("extra_device_of", {}).items():
-            ms = sum(device_kernels(fn2).values())
+            fn2, calls = fn2 if isinstance(fn2, tuple) else (fn2, 1)  # (fn, calls it makes)
+            ms = sum(device_kernels(fn2).values()) / calls
             r.setdefault("extra_device_ms", {})[label] = ms
             log(f"    {label}: device {ms:.4f} ms")
         if "solve_of" in r:
@@ -277,6 +297,111 @@ def device_times(rec):
             log(f"    the dense solve beside it: {r['solve_ms']:.4f} ms/call, device "
                 f"{r['solve_device_ms']:.4f} ms, bound {r['solve_bound_ms']:.5f} ms "
                 f"({r['solve_bound_by']})")
+
+
+# --vp-grid-against: another tree's vp_grid kernel, a function of vp_grid's
+# arguments (other_vp_grid)
+VP_GRID_AGAINST = None
+
+
+def other_vp_grid(tree):
+    """Build ``csrc/vp.cu`` of another checkout (the parent commit's, say,
+    unpacked with ``git archive``) into a library of its own beside this
+    tree's build, and return its vp_grid as a function of ``ops/vp.vp_grid``'s
+    arguments: the C entry is the same, so the two kernels can be held
+    against each other on the same inputs in one process."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from vplines_slam_tpu_torch import kernels as kmod
+    from vplines_slam_tpu_torch.ops import vp
+
+    src = Path(tree).resolve() / "vplines_slam_tpu_torch" / "csrc" / "vp.cu"
+    so = kmod.BUILD_DIR / f"libother_vp_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    if not so.exists():
+        kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = subprocess.run([kmod._nvcc(), *kmod.NVCC_FLAGS, "-shared", "-o", str(so),
+                              str(src)], capture_output=True, text=True)
+        if out.returncode != 0:
+            fail(f"nvcc failed on {src}:\n{out.stdout}{out.stderr}")
+    fn = ctypes.CDLL(str(so)).vp_vp_grid
+    fn.argtypes = list(vp.VP_GRID.argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(line, length, angle, valid, cfg):
+        line, length, angle = line.contiguous(), length.contiguous(), angle.contiguous()
+        valid8 = valid.to(torch.uint8).contiguous()
+        grid = torch.empty(cfg.grid_la, cfg.grid_lo, dtype=line.dtype, device=line.device)
+        err = fn(line.data_ptr(), length.data_ptr(), angle.data_ptr(), valid8.data_ptr(),
+                 line.shape[0], cfg.grid_la, cfg.grid_lo, float(cfg.pair_angle_gate),
+                 grid.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the other tree's vp_grid failed to launch: error {err}")
+        return grid
+
+    log(f"vp_grid against {src}")
+    return run
+
+
+@contextlib.contextmanager
+def recording_vp(store):
+    """Keep every vp_grid and vp_score call of the block in store, as
+    references to their inputs and outputs (no copy, no launch, no sync),
+    for ``vp_frames_check``."""
+    from vplines_slam_tpu_torch.ops import vp
+
+    grid_fn, score_fn = vp.vp_grid, vp.vp_score
+
+    def grid_rec(*a):
+        g = grid_fn(*a)
+        store.append(dict(grid_args=a, grid=g))
+        return g
+
+    def score_rec(*a):
+        out = score_fn(*a)
+        store[-1].update(score_args=a, score=out)
+        return out
+
+    vp.vp_grid, vp.vp_score = grid_rec, score_rec
+    try:
+        yield store
+    finally:
+        vp.vp_grid, vp.vp_score = grid_fn, score_fn
+
+
+def vp_frames_check(rec, store, where):
+    """Every recorded lines frame: vp_grid again on its inputs, equal to the
+    bit; with --vp-grid-against the other tree's grid equal to the bit and
+    vp_score's labels on it equal to the frame's.  Adds the kernels' device
+    time per call over these frames to vp_grid's record."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import vp
+
+    if not store:
+        fail(f"{where}: no vp_grid call recorded")
+    again = all(torch.equal(vp.vp_grid(*r["grid_args"]), r["grid"]) for r in store)
+    ok, other = again, ""
+    if VP_GRID_AGAINST is not None:
+        grids = [VP_GRID_AGAINST(*r["grid_args"]) for r in store]
+        same_grid = all(torch.equal(g, r["grid"]) for g, r in zip(grids, store))
+        same_ids = all(torch.equal(vp.vp_score(g, *r["score_args"][1:])[1], r["score"][1])
+                       for g, r in zip(grids, store))
+        other = (f"; the other tree's kernel: grids equal to the bit {same_grid}, VP labels "
+                 f"equal {same_ids}")
+        ok = ok and same_grid and same_ids
+    log(f"K8 vp_grid on {where}'s {len(store)} lines frames: again on each frame's inputs, "
+        f"equal to the bit: {again}{other}")
+    if not ok:
+        fail(f"K8 vp_grid on {where}'s frames")
+    extra = rec["vp_grid"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} lines frames, per call"] = (
+        lambda: [vp.vp_grid(*r["grid_args"]) for r in store], len(store))
+    if VP_GRID_AGAINST is not None:
+        extra[f"the other tree's vp_grid on {where}'s frames, per call"] = (
+            lambda: [VP_GRID_AGAINST(*r["grid_args"]) for r in store], len(store))
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +769,39 @@ def phase_kernels(S, SL):
     record(rec, "vp_grid", err8, lambda: vp.vp_grid(line, length, angle, v0, vcfg),
            lambda: vp.vp_grid_plain(line, length, angle, v0, vcfg), "vp_grid_kernel",
            Lg * 21 + 4 * vcfg.grid_la * vcfg.grid_lo, 70 * Lg * (Lg - 1) // 2)
+    # the same frame and the synthetic line sets of utils/synthetic.vp_line_cases
+    # (hundreds of votes in one cell; votes on both wraps; no and one valid
+    # line; pairs on the gate): the twin's mass, two calls equal to the last
+    # bit, and with --vp-grid-against the other tree's kernel equal to the bit
+    from vplines_slam_tpu_torch.utils import synthetic
+
+    fx8, cx8, cy8 = synthetic.VP_CAMERA[:3]
+    k8_sets = {"phase 3's frame": (line, length, angle, v0)}
+    for label, (segs, val, angs) in synthetic.vp_line_cases(seed=SEED,
+                                                            dtype=np.float32).items():
+        ls, les, ans = vp._line_params(torch.as_tensor(segs, dtype=torch.float32,
+                                                       device=line.device), fx8, cx8, cy8)
+        if angs is not None:
+            ans = torch.as_tensor(angs, device=line.device)
+        k8_sets[label] = (ls, les, ans, torch.as_tensor(val, device=line.device))
+    for label, args8 in k8_sets.items():
+        gk = vp.vp_grid(*args8, vcfg)
+        gp = vp.vp_grid_plain(*args8, vcfg)
+        mass = abs(float(gk.sum()) - float(gp.sum())) / max(float(gp.sum()), 1e-30)
+        same = torch.equal(gk, vp.vp_grid(*args8, vcfg))
+        other = ("" if VP_GRID_AGAINST is None else
+                 f"; equal to the other tree's kernel to the bit: "
+                 f"{torch.equal(gk, VP_GRID_AGAINST(*args8, vcfg))}")
+        log(f"K8 vp_grid, {label}: {int(args8[3].sum())} valid lines, total mass "
+            f"{float(gk.sum()):.4f}, rel diff to the plain version {mass:.3e} (tol 1e-5); two "
+            f"calls equal to the last bit: {same}{other}")
+        if not (mass <= 1e-5 and same and (VP_GRID_AGAINST is None
+                                            or torch.equal(gk, VP_GRID_AGAINST(*args8, vcfg)))):
+            fail(f"K8 vp_grid on {label}")
+    if VP_GRID_AGAINST is not None:
+        rec["vp_grid"]["extra_device_of"] = {
+            "the other tree's vp_grid on phase 3's frame":
+                lambda: VP_GRID_AGAINST(line, length, angle, v0, vcfg)}
     u8 = SL["vp_u"][0]
     probs = v0.to(line.dtype) + 1e-6
     pidx = vp.choice_from_uniform(probs / probs.sum(), u8)
@@ -716,6 +874,7 @@ def phase_kernels(S, SL):
     # K10 preintegrate: one interval of 64 steps (every frame), the merged
     # interval of 128 (non-keyframes) and the 9 intervals of the initializer
     from vplines_slam_tpu_torch.models import imu
+    from vplines_slam_tpu_torch.utils import synthetic
 
     dts_b, acc_b, gyr_b, m_b, _ = S["batches"]
     params = S["params"]
@@ -728,6 +887,7 @@ def phase_kernels(S, SL):
                       torch.cat([m_b[0], m_b[1]])[None]),
         f"B={nb} N=64": (dts_b[:nb], acc_b[:nb], gyr_b[:nb], m_b[:nb]),
     }
+    live = lambda d, m: int(((d * m.to(d.dtype)) != 0).sum())
     gen = torch.Generator(device=img0.device).manual_seed(SEED + 1)
     err10 = 0.0
     for label, (d, a, g, m) in cases.items():
@@ -740,18 +900,52 @@ def phase_kernels(S, SL):
                 for f, x, y in zip(pk._fields, pk, pp)}
         worst = max(errs, key=errs.get)
         err10 = max(err10, errs[worst])
-        log(f"K10 preintegrate {label}: max |kernel - plain| / max |plain| per field "
-            f"{errs[worst]:.3e} ({worst}; tol 1e-5: f32 sums in another order)")
+        log(f"K10 preintegrate {label} ({live(d, m)} live steps): max |kernel - plain| / max "
+            f"|plain| per field {errs[worst]:.3e} ({worst}; tol 1e-5: f32 sums in another "
+            f"order)")
+    # the layouts of utils/synthetic.imu_interval_cases, at f32 and f64: each
+    # field within tol of the twin's largest entry, two calls equal to the
+    # last bit; with no live step J = I and P = 0 exactly
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        worst_case, repeat, exact = (0.0, None), True, True
+        for label, arrs in synthetic.imu_interval_cases(seed=SEED).items():
+            d, a, g, m, ba, bg = (torch.as_tensor(x, device=img0.device) for x in arrs)
+            d, a, g, ba, bg = (x.to(dtype) for x in (d, a, g, ba, bg))
+            pk = imu.preintegrate(d, a, g, m, ba, bg, params)
+            pk2 = imu.preintegrate(d, a, g, m, ba, bg, params)
+            pp = imu.preintegrate_plain(d, a, g, m, ba, bg, params)
+            e = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                    for x, y in zip(pk, pp))
+            worst_case = max(worst_case, (e, label), key=lambda t: t[0])
+            repeat &= all(torch.equal(x, y) for x, y in zip(pk, pk2))
+            if label == "no live step":
+                exact = (torch.equal(pk.jacobian[0], torch.eye(15, dtype=dtype, device=d.device))
+                         and not bool(pk.covariance.any()))
+        log(f"K10 preintegrate, {len(synthetic.imu_interval_cases())} synthetic layouts at "
+            f"{str(dtype).removeprefix('torch.')}: max |kernel - plain| / max |plain| per field "
+            f"{worst_case[0]:.3e} ({worst_case[1]}; tol {tol:g}); two calls equal to the last "
+            f"bit: {repeat}; no live step gives J = I, P = 0 exactly: {exact}")
+        if not (worst_case[0] <= tol and repeat and exact):
+            fail(f"K10 preintegrate disagrees with its plain version at {dtype}")
+        if dtype == torch.float32:
+            err10 = max(err10, worst_case[0])
     if not err10 <= 1e-5:
         fail("K10 preintegrate disagrees with its plain version")
     d1, a1, g1, m1 = cases["B=1 N=64"]
     z1 = torch.zeros(1, 3, device=d1.device)
     n10 = d1.shape[1]
+    # a masked step multiplies J and P by an exact identity: only the live
+    # steps' operations count
     record(rec, "preintegrate", err10, lambda: imu.preintegrate(d1, a1, g1, m1, z1, z1, params),
            lambda: imu.preintegrate_plain(d1, a1, g1, m1, z1, z1, params),
            "preintegrate_kernel",
            4 * (n10 + 2 * (n10 + 1) * 3 + 6 + 4 + 10 + 2 * 225 + 1) + n10,
-           n10 * preintegrate_step_ops())
+           live(d1, m1) * preintegrate_step_ops())
+    d9, a9, g9, m9 = cases[f"B={nb} N=64"]
+    z9 = torch.zeros(nb, 3, device=d9.device)
+    rec["preintegrate"]["extra_device_of"] = {
+        f"B={nb} N=64, the initializer's batch ({live(d9, m9)} live steps)":
+            lambda: imu.preintegrate(d9, a9, g9, m9, z9, z9, params)}
     return rec
 
 
@@ -1875,16 +2069,18 @@ def estimator_kernels():
     return [WINDOW_LIN, WINDOW_BLOCKS, SCHUR_SOLVE, MARG_WINDOW]
 
 
-def phase_slice(S, plain=False):
+def phase_slice(S, plain=False, imu_twin=False):
     """Phase 4; plain=True runs it on the plain twins of K11-K14 (the
-    --estimator-witness run)."""
-    if plain:
-        with plain_estimator():
-            return _slice(S, True)
-    return _slice(S, False)
+    --estimator-witness run), imu_twin=True on K10's (--imu-witness)."""
+    with contextlib.ExitStack() as twins:
+        if plain:
+            twins.enter_context(plain_estimator())
+        if imu_twin:
+            twins.enter_context(plain_twins_of_k9_k10())
+        return _slice(S, plain, imu_twin)
 
 
-def _slice(S, plain):
+def _slice(S, plain, imu_twin):
     import torch
 
     from vplines_slam_tpu_torch.kernels import all_kernels
@@ -1919,7 +2115,8 @@ def _slice(S, plain):
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
     # the point front-end's (K1-K4), K10 and the estimator's (K11-K14)
-    kernels = all_kernels()[:5] + [PREINTEGRATE] + ([] if plain else estimator_kernels())
+    kernels = (all_kernels()[:5] + ([] if imu_twin else [PREINTEGRATE])
+               + ([] if plain else estimator_kernels()))
     for k in all_kernels():
         k.launches = 0
     TWIN_CALLS.clear()
@@ -1991,16 +2188,18 @@ def _slice(S, plain):
         lambda: loop.run(carry, *extra), N_SYNC, np.median(fe_ms[st] + be_ms[st]))
 
 
-def phase_lines(S, plain=False):
+def phase_lines(S, plain=False, imu_twin=False):
     """Phase 5: the lines-on device loop on the same world; plain=True runs
-    it on the plain twins of K11-K14."""
-    if plain:
-        with plain_estimator():
-            return _lines(S, True)
-    return _lines(S, False)
+    it on the plain twins of K11-K14, imu_twin=True on K10's."""
+    with contextlib.ExitStack() as twins:
+        if plain:
+            twins.enter_context(plain_estimator())
+        if imu_twin:
+            twins.enter_context(plain_twins_of_k9_k10())
+        return _lines(S, plain, imu_twin)
 
 
-def _lines(S, plain):
+def _lines(S, plain, imu_twin):
     import torch
 
     from vplines_slam_tpu_torch.kernels import all_kernels
@@ -2036,8 +2235,10 @@ def _lines(S, plain):
 
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
+    from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
+
     idle = ((CLAHE_LUT, CLAHE_APPLY) + tuple(loop_kernels()) + tuple(selector_kernels())
-            + (tuple(estimator_kernels()) if plain else ()))
+            + (tuple(estimator_kernels()) if plain else ()) + ((PREINTEGRATE,) if imu_twin else ()))
     # CLAHE off, no loop closure, no selector
     kernels = [k for k in all_kernels() if k not in idle]
     for k in all_kernels():
@@ -2632,6 +2833,18 @@ def phase_estimator_witness(S, SL, C, sl, ll, cs, t_start):
             fail(f"the {label}'s ATE on the plain twins is {d:.4f} m from the kernels'")
 
 
+def phase_imu_witness(S, SL, sl, ll, t_start):
+    """Phases 4-5 again with K10's plain twin (f32, on the card) in place of
+    the kernel: how far the preintegration's rounding alone moves the
+    slices' ATE (printed beside the kernels')."""
+    for label, run, first in (("points slice", lambda: phase_slice(S, imu_twin=True)[1], sl),
+                              ("lines slice", lambda: phase_lines(SL, imu_twin=True)[1], ll)):
+        log(f"[{time.perf_counter() - t_start:.0f} s] IMU witness: {label}, K10's plain twin")
+        tw = run()
+        log(f"  witness: {label} ATE with K10 {first['ate']:.4f} m, with its plain twin "
+            f"{tw['ate']:.4f} m (|diff| {abs(tw['ate'] - first['ate']):.4f} m)")
+
+
 def phase_profile(run, n, frame_ms):
     """torch.profiler over n extra frames driven by run() (the same frames
     ran once already, so the run is warm).
@@ -2669,6 +2882,7 @@ def phase_profile(run, n, frame_ms):
 
 
 def main(argv=None):
+    global VP_GRID_AGAINST
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 3)")
@@ -2681,6 +2895,14 @@ def main(argv=None):
     ap.add_argument("--cold-witness", action="store_true",
                     help="after phase 6, run it again with the plain twins of K9/K10, with "
                          "a CPU run's draws, and with other draw seeds (ATE of each)")
+    ap.add_argument("--imu-witness", action="store_true",
+                    help="after phase 8, run phases 4-5 again with K10's plain twin in place "
+                         "of the kernel (the ATE that the preintegration's rounding alone "
+                         "moves)")
+    ap.add_argument("--vp-grid-against", metavar="TREE",
+                    help="another checkout (e.g. the parent commit unpacked with git "
+                         "archive): hold its vp_grid kernel against this tree's, to the bit, "
+                         "on phase 3's inputs and on every lines frame of phases 5 and 6")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -2695,6 +2917,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     smi = phase_toolchain()
     phase_build()
+    if args.vp_grid_against:
+        VP_GRID_AGAINST = other_vp_grid(args.vp_grid_against)
     from vplines_slam_tpu_torch.estimator.window import WindowConfig
 
     nf = WindowConfig().nf
@@ -2727,9 +2951,13 @@ def main(argv=None):
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: points slice")
     _, sl, prof_points = phase_slice(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
-    _, ll, prof_lines = phase_lines(SL)
+    with recording_vp([]) as vp5:
+        _, ll, prof_lines = phase_lines(SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
-    launches, cs = phase_cold_start(C, profile=args.profile)
+    with recording_vp([]) as vp6:
+        launches, cs = phase_cold_start(C, profile=args.profile)
+    vp_frames_check(rec, vp5, "phase 5")
+    vp_frames_check(rec, vp6, "phase 6")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
     loop_launches, lc = phase_loop_circuit(dev)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
@@ -2744,6 +2972,8 @@ def main(argv=None):
         phase_cold_witness(C)
     if args.estimator_witness:
         phase_estimator_witness(S, SL, C, sl, ll, cs, t_start)
+    if args.imu_witness:
+        phase_imu_witness(S, SL, sl, ll, t_start)
     # profiler sessions last: they slow every later launch of the process
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel device times (torch.profiler)")
     device_times(rec)

@@ -10,14 +10,21 @@
 //   scoring a doubly vmapped gather.
 // Bound on the H100: launch latency.  64 lines give 2016 pairs and 64 x 90
 //   hypotheses x 3 lookups into a 130 KB grid: tens of kFLOP.
-// vp_grid design: ONE block; the grid lives in dynamic shared memory (90 x
-//   360 floats = 127 KB, opted in with cudaFuncSetAttribute).  Pair weights
-//   and cells are computed in parallel, then accumulated deterministically:
-//   the thread that owns a cell (cell % blockDim) adds that cell's votes in
-//   pair order, so the sums are the same in every run and in the order of a
-//   sequential scatter (the plain version's index_add uses atomics on the
-//   card, so it differs from the kernel by float reassociation).  The
-//   smoothing reads the accumulated grid and writes the result.
+// vp_grid design: a CTA per latitude row of the output (grid_la CTAs of
+//   1,024 threads, no atomics).  Each CTA recomputes every pair's vote: the
+//   latitude row of its cell first, then, only for a vote landing in the
+//   CTA's row or the rows above and below (the latitude wraps, row 0 next
+//   to the last), its weight and longitude.  Those votes are compacted in
+//   pair order (a thread takes kPairSlots consecutive pair slots, a block
+//   scan of the counts gives the offsets), and one warp adds them into the
+//   three rows in shared memory, 32 votes at a time: __match_any_sync
+//   groups the lanes that hold the same cell and the group's lowest lane
+//   adds the group's weights in lane order.  So every cell's sum is formed
+//   from 0 in ascending pair order, as in a sequential scatter (the plain
+//   version's index_add uses atomics on the card, so it differs from the
+//   kernel by float reassociation).  The CTA then smooths its row from the
+//   three and writes it, coalesced.  Under 48 KB of shared memory, so no
+//   attribute is set on the frame path.
 // vp_score design: ONE block; each thread scores hypotheses (three grid
 //   lookups, summed in order), a (value, index) block reduction takes the
 //   maximum with the LOWEST flat index on ties -- ties are common, since
@@ -33,6 +40,7 @@
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kMaxGridLo = 1024;  // longitude bins vp_grid takes (VPConfig: 360)
 constexpr float kPi = 3.14159265358979323846f;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -56,66 +64,141 @@ __device__ __forceinline__ float torch_remainder(float a, float b) {
   return m;
 }
 
-// unit direction -> flat (lat, lon) cell, folded to the upper hemisphere
-__device__ int sphere_cell(const float* v_in, int grid_la, int grid_lo) {
+// unit direction folded to the upper hemisphere
+__device__ __forceinline__ void sphere_dir(const float* v_in, float* v) {
   const float nv = norm3(v_in);
-  float v[3] = {__fdiv_rn(v_in[0], nv), __fdiv_rn(v_in[1], nv), __fdiv_rn(v_in[2], nv)};
+  v[0] = __fdiv_rn(v_in[0], nv);
+  v[1] = __fdiv_rn(v_in[1], nv);
+  v[2] = __fdiv_rn(v_in[2], nv);
   const float s = v[2] < 0.f ? -1.f : 1.f;
   v[0] = mul(v[0], s);
   v[1] = mul(v[1], s);
   v[2] = mul(v[2], s);
-  const float lat = acosf(fminf(fmaxf(v[2], -1.f), 1.f));
-  const float lon = torch_remainder(atan2f(v[1], v[0]), 2.f * kPi);
-  int la = (int)mul(__fdiv_rn(lat, 0.5f * kPi), (float)grid_la);
-  int lo = (int)mul(__fdiv_rn(lon, 2.f * kPi), (float)grid_lo);
-  la = min(max(la, 0), grid_la - 1);
-  lo = min(max(lo, 0), grid_lo - 1);
-  return la * grid_lo + lo;
 }
+
+__device__ __forceinline__ int sphere_row(const float* v, int grid_la) {
+  const float lat = acosf(fminf(fmaxf(v[2], -1.f), 1.f));
+  const int la = (int)mul(__fdiv_rn(lat, 0.5f * kPi), (float)grid_la);
+  return min(max(la, 0), grid_la - 1);
+}
+
+__device__ __forceinline__ int sphere_col(const float* v, int grid_lo) {
+  const float lon = torch_remainder(atan2f(v[1], v[0]), 2.f * kPi);
+  const int lo = (int)mul(__fdiv_rn(lon, 2.f * kPi), (float)grid_lo);
+  return min(max(lo, 0), grid_lo - 1);
+}
+
+// unit direction -> flat (lat, lon) cell, folded to the upper hemisphere
+__device__ int sphere_cell(const float* v_in, int grid_la, int grid_lo) {
+  float v[3];
+  sphere_dir(v_in, v);
+  return sphere_row(v, grid_la) * grid_lo + sphere_col(v, grid_lo);
+}
+
+constexpr int kPairSlots = 4;                          // pair slots a thread takes a round
+constexpr int kRoundSlots = kThreads * kPairSlots;     // pair slots f = i * L + j a round
 
 __global__ void __launch_bounds__(kThreads)
 vp_grid_kernel(const float* __restrict__ line, const float* __restrict__ length,
                const float* __restrict__ angle, const unsigned char* __restrict__ valid,
                int L, int grid_la, int grid_lo, float pair_gate, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int n_cells = grid_la * grid_lo;
-  float* grid = smem;                         // [n_cells]
-  int* cell = (int*)(grid + n_cells);         // [L * L] pair cell, -1 = no vote
-  float* wt = (float*)(cell + L * L);         // [L * L] pair weight
-  const int tid = threadIdx.x;
-
-  for (int c = tid; c < n_cells; c += blockDim.x) grid[c] = 0.f;
-  for (int f = tid; f < L * L; f += blockDim.x) {
-    const int i = f / L, j = f % L;
-    int c = -1;
-    float w = 0.f;
-    if (j > i && valid[i] && valid[j]) {
-      float inter[3];
-      cross3(line + 3 * i, line + 3 * j, inter);
-      float dang = fabsf(sub(angle[i], angle[j]));
-      dang = fminf(sub(kPi, dang), dang);
-      w = mul(__fsqrt_rn(mul(length[i], length[j])), add(sinf(mul(2.f, dang)), 0.2f));
-      if (norm3(inter) > 1e-9f && dang <= pair_gate && w > 0.f)
-        c = sphere_cell(inter, grid_la, grid_lo);
+  extern __shared__ float rows[];  // [3][grid_lo]: rows r - 1, r, r + 1 (wrapped)
+  __shared__ int s_cell[kRoundSlots];  // the round's votes in pair order: d * grid_lo + lo
+  __shared__ float s_wt[kRoundSlots];
+  __shared__ int s_warp[kThreads / 32];
+  __shared__ int s_total;
+  const int r = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int c = tid; c < 3 * grid_lo; c += blockDim.x) rows[c] = 0.f;
+  const int n_slots = L * L;
+  for (int base = 0; base < n_slots; base += kRoundSlots) {
+    int cell[kPairSlots];
+    float wt[kPairSlots];
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < kPairSlots; ++k) {
+      cell[k] = -1;
+      wt[k] = 0.f;
+      const int f = base + tid * kPairSlots + k, i = f / L, j = f % L;
+      if (f < n_slots && j > i && valid[i] && valid[j]) {
+        float inter[3];
+        cross3(line + 3 * i, line + 3 * j, inter);
+        float dang = fabsf(sub(angle[i], angle[j]));
+        dang = fminf(sub(kPi, dang), dang);
+        if (norm3(inter) > 1e-9f && dang <= pair_gate) {
+          float v[3];
+          sphere_dir(inter, v);
+          int d = sphere_row(v, grid_la) - r + 1;  // 0, 1, 2: rows r - 1, r, r + 1
+          if (d < 0) d += grid_la;
+          if (d >= grid_la) d -= grid_la;
+          if (d <= 2) {
+            const float w = mul(__fsqrt_rn(mul(length[i], length[j])),
+                                add(sinf(mul(2.f, dang)), 0.2f));
+            if (w > 0.f) {
+              cell[k] = d * grid_lo + sphere_col(v, grid_lo);
+              wt[k] = w;
+              ++cnt;
+            }
+          }
+        }
+      }
     }
-    cell[f] = c;
-    wt[f] = w;
+    // block scan of the counts: this thread's first slot in the vote list
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int t = lane < (int)(blockDim.x >> 5) ? s_warp[lane] : 0;
+      int x = t;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += u;
+      }
+      s_warp[lane] = x - t;
+      if (lane == 31) s_total = x;
+    }
+    __syncthreads();
+    int pos = s_warp[warp] + incl - cnt;
+#pragma unroll
+    for (int k = 0; k < kPairSlots; ++k)
+      if (cell[k] >= 0) {
+        s_cell[pos] = cell[k];
+        s_wt[pos] = wt[k];
+        ++pos;
+      }
+    __syncthreads();
+    // one warp adds the votes in list order; lanes on one cell add in lane order
+    if (warp == 0) {
+      const int total = s_total;
+      for (int v0 = 0; v0 < total; v0 += 32) {
+        const int v = v0 + lane;
+        const int c = v < total ? s_cell[v] : -1 - lane;  // idle lanes: a cell of their own
+        const float w = v < total ? s_wt[v] : 0.f;
+        const unsigned grp = __match_any_sync(0xffffffffu, c);
+        const bool leader = c >= 0 && (grp & ((1u << lane) - 1u)) == 0u;
+        float acc = leader ? rows[c] : 0.f;
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          const float wk = __shfl_sync(0xffffffffu, w, k);
+          if (leader && ((grp >> k) & 1u)) acc = add(acc, wk);
+        }
+        if (leader) rows[c] = acc;
+        __syncwarp();
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  // deterministic accumulation: the owner of each cell adds its votes in
-  // pair order
-  for (int f = 0; f < L * L; ++f) {
-    const int c = cell[f];
-    if (c >= 0 && c % (int)blockDim.x == tid) grid[c] = add(grid[c], wt[f]);
-  }
-  __syncthreads();
-  for (int c = tid; c < n_cells; c += blockDim.x) {
-    const int la = c / grid_lo, lo = c % grid_lo;
-    const int up = ((la + grid_la - 1) % grid_la) * grid_lo + lo;
-    const int dn = ((la + 1) % grid_la) * grid_lo + lo;
-    const int lf = la * grid_lo + (lo + grid_lo - 1) % grid_lo;
-    const int rt = la * grid_lo + (lo + 1) % grid_lo;
-    out[c] = add(add(add(add(grid[c], grid[up]), grid[dn]), grid[lf]), grid[rt]);
+  const float* up = rows;
+  const float* mid = rows + grid_lo;
+  const float* dn = rows + 2 * grid_lo;
+  for (int lo = tid; lo < grid_lo; lo += blockDim.x) {
+    const int lf = lo == 0 ? grid_lo - 1 : lo - 1, rt = lo + 1 == grid_lo ? 0 : lo + 1;
+    out[(size_t)r * grid_lo + lo] = add(add(add(add(mid[lo], up[lo]), dn[lo]), mid[lf]), mid[rt]);
   }
 }
 
@@ -213,13 +296,11 @@ vp_score_kernel(const float* __restrict__ grid, const float* __restrict__ vp1,
 extern "C" int vp_vp_grid(const float* line, const float* length, const float* angle,
                           const unsigned char* valid, int L, int grid_la, int grid_lo,
                           float pair_gate, float* grid, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * grid_la * grid_lo + (sizeof(int) + sizeof(float)) * L * L;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(vp_grid_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  vp_grid_kernel<<<1, kThreads, smem, stream>>>(line, length, angle, valid, L, grid_la,
-                                                grid_lo, pair_gate, grid);
+  // three rows of the grid beside the static vote list, under the 48 KB a
+  // CTA gets without an attribute
+  if (grid_la < 3 || grid_lo < 1 || grid_lo > kMaxGridLo) return (int)cudaErrorInvalidValue;
+  vp_grid_kernel<<<grid_la, kThreads, sizeof(float) * 3 * grid_lo, stream>>>(
+      line, length, angle, valid, L, grid_la, grid_lo, pair_gate, grid);
   return (int)cudaGetLastError();
 }
 

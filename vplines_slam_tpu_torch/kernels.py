@@ -165,6 +165,13 @@ def check(t, name, dtype=torch.float32, ndim=None, shape=None):
     return t.data_ptr()
 
 
+def as_u8(mask):
+    """A mask as the uint8 bytes a kernel reads: a bool tensor is viewed as
+    its bytes (no conversion launch), any other dtype converted."""
+    mask = mask.contiguous()
+    return mask.view(torch.uint8) if mask.dtype == torch.bool else mask.to(torch.uint8)
+
+
 def all_kernels():
     """Every kernel of the package: the point front-end's (K1-K4), the line
     front-end's (K5-K8), then CLAHE (K9, both trackers with equalize), IMU

@@ -12,6 +12,7 @@ State order (O_P,O_R,O_V,O_BA,O_BG) = (0,3,6,9,12); noise order
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -146,13 +147,35 @@ def preintegrate_plain(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Prei
     )
 
 
+# id(params) -> (params, {(dtype, device): K10's squared noise densities}),
+# the few most recent parameter sets
+_NOISE_SQ: collections.OrderedDict = collections.OrderedDict()
+
+
+def _noise_sq(params: ImuParams, dtype, device):
+    """[acc_n², gyr_n², acc_w², gyr_w²] as K10 takes them, each squared in the
+    parameters' dtype and then cast, as the twin's ``_noise_cov``; built once
+    per ``ImuParams``, dtype and device."""
+    ent = _NOISE_SQ.get(id(params))
+    if ent is None or ent[0] is not params:
+        ent = _NOISE_SQ[id(params)] = (params, {})
+        while len(_NOISE_SQ) > 8:
+            _NOISE_SQ.popitem(last=False)
+    key = (dtype, device)
+    if key not in ent[1]:
+        ent[1][key] = torch.stack([params.acc_n * params.acc_n, params.gyr_n * params.gyr_n,
+                                   params.acc_w * params.acc_w, params.gyr_w * params.gyr_w]
+                                  ).to(dtype=dtype, device=device).contiguous()
+    return ent[1][key]
+
+
 def _preintegrate_cuda(dts, accs, gyrs, mask, ba, bg, params: ImuParams) -> Preintegration:
-    """K10: one block per interval, one launch for the batch."""
+    """K10: one warp per interval, one launch for the batch."""
     dtype, dev = accs.dtype, accs.device
     B, N = dts.shape
     ins = [x.to(dtype).contiguous() for x in (dts, accs, gyrs, ba, bg)]
-    m8 = mask.to(torch.uint8).contiguous()
-    noise = torch.stack([params.acc_n, params.gyr_n, params.acc_w, params.gyr_w]).to(dtype)
+    m8 = kernels.as_u8(mask)
+    noise = _noise_sq(params, dtype, dev)
     empty = lambda *s: torch.empty(B, *s, dtype=dtype, device=dev)
     dp, dq, dv, J, P, sum_dt = empty(3), empty(4), empty(3), empty(15, 15), empty(15, 15), empty()
     ck = lambda t, n, **kw: kernels.check(t, n, dtype, **kw)

@@ -411,9 +411,7 @@ def global_signature(desc, valid, dim=256, n_words=256, xy=None, img_hw=None,
     N = desc.shape[0]
     dev = desc.device
     desc = desc.to(torch.int32).contiguous()
-    # a bool mask is read as its bytes (no conversion launch)
-    v8 = (valid.contiguous().view(torch.uint8) if valid.dtype == torch.bool
-          else valid.to(torch.uint8).contiguous())
+    v8 = kernels.as_u8(valid)
     sy = sx = 0.0
     xy_p = None
     if xy is not None:

@@ -14,10 +14,11 @@ into indices the way ``jax.random.choice(..., p=...)`` does (cumsum of p,
 ``r = c[-1]·(1 - u)``, left ``searchsorted``), so a caller that feeds JAX's
 own uniforms gets JAX's draw.
 
-Kernel K8 (``csrc/vp.cu``) is two single-block launches: ``VP_GRID`` (pair
-votes accumulated deterministically in shared memory, then the smoothing)
-and ``VP_SCORE`` (every hypothesis' three lookups, the flat argmax as a
-(value, index) reduction, the classification of the lines).
+Kernel K8 (``csrc/vp.cu``) is two launches: ``VP_GRID`` (a CTA per
+latitude row: the pair votes landing on that row and its two neighbours,
+added in pair order in shared memory, then the row's smoothing) and
+``VP_SCORE`` (one block: every hypothesis' three lookups, the flat argmax as
+a (value, index) reduction, the classification of the lines).
 """
 
 from __future__ import annotations
@@ -102,11 +103,17 @@ def vp_grid_plain(line, length, angle, valid, cfg: VPConfig):
             + torch.roll(grid, 1, 1) + torch.roll(grid, -1, 1))
 
 
+VP_GRID_MAX_LO = 1024  # longitude bins the kernel's shared-memory rows hold
+
+
 def _vp_grid_cuda(line, length, angle, valid, cfg: VPConfig):
+    if cfg.grid_la < 3 or not 1 <= cfg.grid_lo <= VP_GRID_MAX_LO:
+        raise ValueError(f"vp_grid on the card takes grid_la >= 3 and 1 <= grid_lo <= "
+                         f"{VP_GRID_MAX_LO}, got {cfg.grid_la} x {cfg.grid_lo}")
     L = line.shape[0]
     # the converted inputs stay referenced until the launch is enqueued
     line, length, angle = line.contiguous(), length.contiguous(), angle.contiguous()
-    valid8 = valid.to(torch.uint8).contiguous()
+    valid8 = kernels.as_u8(valid)
     grid = torch.empty(cfg.grid_la, cfg.grid_lo, dtype=line.dtype, device=line.device)
     VP_GRID(kernels.check(line, "line", shape=(L, 3)),
             kernels.check(length, "length", shape=(L,)),
@@ -118,7 +125,8 @@ def _vp_grid_cuda(line, length, angle, valid, cfg: VPConfig):
 
 
 def vp_grid(line, length, angle, valid, cfg: VPConfig):
-    """K8 stage 1.  CPU tensors: plain.  CUDA tensors: one block."""
+    """K8 stage 1.  CPU tensors: plain.  CUDA tensors: a CTA per latitude
+    row."""
     return (_vp_grid_cuda if line.is_cuda else vp_grid_plain)(line, length, angle, valid, cfg)
 
 
@@ -157,7 +165,7 @@ def _vp_score_cuda(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg: VPConfig):
     # the converted inputs stay referenced until the launch is enqueued
     vp1, b1, b2, line = vp1.contiguous(), b1.contiguous(), b2.contiguous(), line.contiguous()
     sweep = torch.stack([cos_s, sin_s]).contiguous()
-    valid8 = valid.to(torch.uint8).contiguous()
+    valid8 = kernels.as_u8(valid)
     vps = torch.empty(3, 3, dtype=grid.dtype, device=grid.device)
     vp_id = torch.empty(L, dtype=torch.int32, device=grid.device)
     best = torch.empty((), dtype=grid.dtype, device=grid.device)

@@ -116,3 +116,138 @@ def loop_trajectory(radius=3.0, omega=2.0 * np.pi / 30.0, height_amp=0.25,
         return rot_to_quat(ypr_to_rot(torch.stack([yaw, pitch, roll])))
 
     return Trajectory(pos=pos, quat=quat)
+
+
+# ---------------------------------------------------------------------------
+# kernel check cases: padded IMU intervals (K10) and VP line sets (K8)
+# ---------------------------------------------------------------------------
+
+
+def imu_interval_cases(seed=0, cap=64, rate_hz=200.0):
+    """Padded IMU intervals in the layouts the callers of
+    ``models.imu.preintegrate`` build, by name: (dts [B, cap], accs and
+    gyrs [B, cap + 1, 3], mask [B, cap], ba, bg [B, 3]) as numpy f64.
+
+    - "frame 20/64": a frame's interval at 200 Hz IMU and 10 Hz frames, 20
+      live steps, the rest zero-filled (``VioEngine._pack_imu``);
+    - "merged 40/64": two such intervals merged by ``slide_window_new``, the
+      padding repeating the last real sample;
+    - "merged over capacity": 36 + 40 steps merged past the capacity, so
+      decimated 2:1 (adjacent dt summed, every other sample kept);
+    - "no live step": an interval with no sample (J = I, P = 0);
+    - "masked between live": masked steps with real samples between live
+      ones;
+    - "B=9 biased": the initializer's nine intervals of 18-26 live steps,
+      with non-zero bias linearization points."""
+    rng = np.random.default_rng(seed)
+    dt0 = 1.0 / rate_hz
+
+    def samples(k):
+        acc = np.array([0.3, -0.2, GRAVITY]) + rng.standard_normal((k, 3))
+        return acc, 0.5 * rng.standard_normal((k, 3))
+
+    def one(n_live, fill="zero", live=None):
+        live = np.arange(n_live) if live is None else np.asarray(live)
+        dts, mask = np.zeros(cap), np.zeros(cap, bool)
+        dts[live] = dt0 + rng.uniform(-2e-5, 2e-5, len(live))
+        mask[live] = True
+        accs, gyrs = np.zeros((cap + 1, 3)), np.zeros((cap + 1, 3))
+        k = int(live.max()) + 2 if len(live) else 0
+        accs[:k], gyrs[:k] = samples(k)
+        if fill == "repeat" and k:
+            accs[k:], gyrs[k:] = accs[k - 1], gyrs[k - 1]
+        elif fill == "all":
+            accs, gyrs = samples(cap + 1)
+        return dts, accs, gyrs, mask
+
+    def merged(cnt_a, cnt_b):
+        # slide_window_new's merge at 2x capacity, decimated 2:1 past it
+        dts_a, acc_a, gyr_a, _ = one(cnt_a)
+        dts_b, acc_b, gyr_b, _ = one(cnt_b)
+        total = cnt_a + cnt_b
+        dt2 = np.zeros(2 * cap)
+        dt2[:cnt_a], dt2[cnt_a:total] = dts_a[:cnt_a], dts_b[:cnt_b]
+        acc2 = np.concatenate([acc_a[:cnt_a], acc_b[:cnt_b + 1]])
+        gyr2 = np.concatenate([gyr_a[:cnt_a], gyr_b[:cnt_b + 1]])
+        acc2 = np.concatenate([acc2, np.repeat(acc2[-1:], 2 * cap + 1 - len(acc2), 0)])
+        gyr2 = np.concatenate([gyr2, np.repeat(gyr2[-1:], 2 * cap + 1 - len(gyr2), 0)])
+        mask2 = np.arange(2 * cap) < total
+        if total > cap:
+            return (dt2[0::2] + dt2[1::2], acc2[0::2][:cap + 1], gyr2[0::2][:cap + 1],
+                    mask2[0::2])
+        return dt2[:cap], acc2[:cap + 1], gyr2[:cap + 1], mask2[:cap]
+
+    def batch(intervals, bias=0.0):
+        B = len(intervals)
+        ba = bias * rng.standard_normal((B, 3))
+        bg = 0.2 * bias * rng.standard_normal((B, 3))
+        return (*(np.stack(x) for x in zip(*intervals)), ba, bg)
+
+    return {
+        "frame 20/64": batch([one(20)]),
+        "merged 40/64": batch([merged(20, 20)]),
+        "merged over capacity": batch([merged(36, 40)]),
+        "no live step": batch([one(0)]),
+        "masked between live": batch([one(0, "all", [0, 1, 2, 5, 9, 10, 17, 30, 31, 32, 33,
+                                                    50, cap - 1])]),
+        "B=9 biased": batch([one(18 + b) for b in range(9)], bias=0.05),
+    }
+
+
+VP_CAMERA = (458.654, 367.215, 248.375, 752, 480)  # fx, cx, cy, width, height: EuRoC cam0
+
+
+def vp_line_cases(seed=0, gate=np.pi / 3.0, dtype=np.float64):
+    """Line sets for the VP sphere accumulator, by name: (segs [L, 4] pixel
+    segments in ``VP_CAMERA``'s image, valid [L], angles [L] or None):
+
+    - "hot": 64 valid lines through three orthogonal VPs (about 650 pairs
+      vote at the VPs, hundreds into one cell);
+    - "wrap": lines crossing at the principal point (latitude row 0) and
+      two near-parallel pairs crossing far out along +x, just above and
+      just below it (latitude row 89 at longitude 0 and 359);
+    - "none valid", "one valid": the hot set with no or one valid line;
+    - "gate": four lines whose angles are given in ``dtype`` (0, the pair
+      gate rounded to it, the next value above, 0.3), so one pair sits on
+      the gate and one just past."""
+    rng = np.random.default_rng(seed)
+    f, cx, cy, W, H = VP_CAMERA
+    q = rng.standard_normal(4)
+    w, x, y, z = q / np.linalg.norm(q)
+    R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                  [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                  [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+    def through_vps(n):
+        out = []
+        for k in range(n):
+            d = R[:, k % 3]
+            x0 = np.array([rng.uniform(50, W - 50), rng.uniform(50, H - 50)])
+            u = (np.array([f * d[0] / d[2] + cx, f * d[1] / d[2] + cy]) - x0
+                 if abs(d[2]) > 1e-6 else d[:2])
+            u = u / np.linalg.norm(u)
+            t = rng.uniform(30.0, 150.0)
+            out.append(np.concatenate([x0 - 0.5 * t * u, x0 + 0.5 * t * u]))
+        return np.array(out)
+
+    wrap = []
+    for k in range(8):  # through the principal point, spread in angle
+        a = np.pi * k / 8 + 0.01
+        u = np.array([np.cos(a), np.sin(a)])
+        c = np.array([cx, cy]) + rng.uniform(-0.2, 0.2, 2)
+        wrap.append(np.concatenate([c - 60 * u, c + 60 * u]))
+    for side in (-1.0, 1.0):  # two near-parallel pairs crossing ~27,800 px out on +x,
+        for y0, slope in ((50.0, 1.2e-3), (40.0, 0.84e-3)):  # 17 px above / below cy
+            ya = cy + side * y0
+            wrap.append([100.0, ya, 700.0, ya - side * 600.0 * slope])
+    hot = through_vps(64)
+    all64 = np.ones(64, bool)
+    g = dtype(gate)
+    return {
+        "hot": (hot, all64, None),
+        "wrap": (np.array(wrap), np.ones(12, bool), None),
+        "none valid": (hot, np.zeros(64, bool), None),
+        "one valid": (hot, np.arange(64) == 5, None),
+        "gate": (through_vps(4), np.ones(4, bool),
+                 np.array([0.0, g, np.nextafter(g, dtype(4.0)), 0.3], dtype)),
+    }
