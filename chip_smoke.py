@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
   python3 chip_smoke.py [--kernels-only] [--profile] [--cold-witness] [--estimator-witness]
-                        [--imu-witness] [--vp-grid-against TREE]
+                        [--imu-witness] [--klt-witness] [--against TREE]
 
 Phases (any failure exits nonzero; there is no CPU path):
   1. toolchain: torch/CUDA versions, nvcc, triton, the card's name and power limit;
@@ -45,7 +45,10 @@ Phases (any failure exits nonzero; there is no CPU path):
      from where the figure-8 runs sideways to the camera; truth-seeded
      warm-up with both trackers, then 24 frames with every kernel's launch
      count read around that run; asserts as phase 4, plus solved lines > 0.
-     Phase 3 checks the line kernels on these frames.  Phases 4-5 keep CLAHE
+     Phase 3 checks the line kernels on these frames.  Every K2 track call
+     of phases 4-5 runs again on track_plain: ok agreement >= 0.99, max
+     |pts1 diff| 1e-3 px in point mode and GAIN_BIAS_TRACK_TOL_PX (0.05 px)
+     in gain/bias mode.  Phases 4-5 keep CLAHE
      off; IMU preintegration (K10) runs in both;
   6. cold start: ``SlamSystem`` built from configs/euroc.yaml's values,
      written out here (camera, IMU noise, extrinsic, estimator, frontend and
@@ -85,12 +88,21 @@ Phases (any failure exits nonzero; there is no CPU path):
      its twin on the last frame's real inputs with budget = max_features
      (twice, equal to the last bit).  Its launch counts of K20 go to the
      kernels JSON.
+  Phase 3 holds K2 as track calls it (every pyramid level and the gates in
+  one launch) against track_plain on 150 points of a frame and on a lines
+  frame's anchors in gain/bias mode, from a zero and from a nonzero initial
+  flow (|pts1 diff| 1e-3 px where both are ok, ok agreement 0.99, two calls
+  equal to the bit, one launch a call), and each level through
+  _track_level; K9 (two calls equal to the bit) against its twin (1e-6) on
+  a raw and an undistorted frame.
   Phase 3 also holds K10 on the interval layouts of
   utils/synthetic.imu_interval_cases (a frame's 20 live steps of 64, merged
   intervals within and past the capacity, no live step, masked steps
   between live ones, nine biased intervals) against its twin at f32 (1e-5)
   and f64 (1e-12), two calls equal to the bit, J = I and P = 0 exactly with
-  no live step; and K8's vp_grid on the line sets of
+  no live step, and pins its handling of non-finite padding (a NaN sample
+  read by masked steps only: K10 finite, the twin NaN; an inf dt in a
+  masked slot: both NaN); and K8's vp_grid on the line sets of
   utils/synthetic.vp_line_cases (hundreds of votes in one cell, both wraps,
   no and one valid line, pairs on the gate): the twin's mass and two calls
   equal to the bit.  Every vp_grid call of phases 5 and 6 is kept (by
@@ -117,12 +129,16 @@ Phases (any failure exits nonzero; there is no CPU path):
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
   marginalization) was called.
   --imu-witness runs phases 4-5 again with K10's plain twin (f32, on the
-  card) and prints their ATE beside the kernel's.
-  --vp-grid-against TREE builds TREE's csrc/vp.cu (another checkout, e.g.
-  the parent commit unpacked with git archive) and holds its vp_grid
-  against this tree's, to the bit, on phase 3's inputs and on every lines
-  frame of phases 5 and 6 (with vp_score's labels on its grid), and times
-  it on the same inputs.
+  card) and prints their ATE beside the kernel's; --klt-witness does the
+  same with K2's (track_plain).
+  --against TREE (alias --vp-grid-against) builds TREE's csrc/vp.cu,
+  klt.cu and clahe.cu (another checkout, e.g. the parent commit unpacked
+  with git archive) and runs them on this tree's inputs in this process:
+  its vp_grid to the bit on phase 3's inputs and on every lines frame of
+  phases 5 and 6 (with vp_score's labels on its grid), its K9 (LUTs and
+  output) to the bit on phase 3's frames and on every clahe call of phase
+  6, its track beside this tree's on phase 3's tracks; each is timed on
+  the same inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -253,15 +269,19 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
                      library_label=library_label)
 
 
-# device time per call of the designs the current K8 vp_grid, K10, K11,
-# K12, K13, K14, K17 signature and K20 greedy pass replaced (one CTA holding
+# device time per call of the designs the current K2, K9, K8 vp_grid, K10,
+# K11, K12, K13, K14, K17 signature and K20 greedy pass replaced (a launch
+# of a 256-thread CTA per feature for each of three levels; a CTA per tile
+# with shared atomics, then a thread per pixel; one CTA holding
 # the whole grid; a CTA of 256 threads per interval over every step; five
 # launches, a thread per observation carrying all its tangents; a CTA per
 # node-pair tile scanning every row; two launches, one-CTA Cholesky; a
 # thread per entry of H1 over every slot; one CTA over all descriptors;
 # 2 x 30 + 1 launches of 45x45 LUs), on phase 3's inputs, on an NVIDIA H100
 # 80GB HBM3 at 700 W, for the log beside the new ones
-PREVIOUS_DEVICE_MS = {"vp_grid": 0.1962, "preintegrate": 0.1431, "window_lin": 0.1340,
+PREVIOUS_DEVICE_MS = {"klt_track": 3 * 0.0167, "klt_track_gain_bias": 3 * 0.0247,
+                      "clahe": 0.0068 + 0.0048,
+                      "vp_grid": 0.1962, "preintegrate": 0.1431, "window_lin": 0.1340,
                       "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
                       "simhash_signature": 0.1194, "selector_greedy": 4.8784}
 
@@ -288,8 +308,10 @@ def device_times(rec):
                 + (f" (the previous design: {PREVIOUS_DEVICE_MS[name]:.4f} ms in all)"
                    if name in PREVIOUS_DEVICE_MS else ""))
         for label, fn2 in r.pop("extra_device_of", {}).items():
-            fn2, calls = fn2 if isinstance(fn2, tuple) else (fn2, 1)  # (fn, calls it makes)
-            ms = sum(device_kernels(fn2).values()) / calls
+            # (fn, calls it makes[, a substring of the kernels to count])
+            fn2, calls, kname2 = (fn2 + (None,))[:3] if isinstance(fn2, tuple) else (fn2, 1, None)
+            times = device_kernels(fn2) if kname2 is None else device_split(fn2, kname2)
+            ms = sum(times.values()) / calls
             r.setdefault("extra_device_ms", {})[label] = ms
             log(f"    {label}: device {ms:.4f} ms")
         if "solve_of" in r:
@@ -299,50 +321,155 @@ def device_times(rec):
                 f"({r['solve_bound_by']})")
 
 
-# --vp-grid-against: another tree's vp_grid kernel, a function of vp_grid's
-# arguments (other_vp_grid)
-VP_GRID_AGAINST = None
+# --against: another tree's K8 vp_grid, K2 and K9, as functions of this
+# tree's arguments (OtherTree)
+AGAINST = None
 
 
-def other_vp_grid(tree):
-    """Build ``csrc/vp.cu`` of another checkout (the parent commit's, say,
-    unpacked with ``git archive``) into a library of its own beside this
-    tree's build, and return its vp_grid as a function of ``ops/vp.vp_grid``'s
-    arguments: the C entry is the same, so the two kernels can be held
-    against each other on the same inputs in one process."""
-    import ctypes
-    import hashlib
+class OtherTree:
+    """Kernels of another checkout (the parent commit's, say, unpacked with
+    ``git archive``): its ``csrc/vp.cu``, ``klt.cu`` and ``clahe.cu``, each
+    built into a library of its own beside this tree's build (one nvcc a
+    source, all started together), called with this tree's arguments, so
+    that the two designs run on the same inputs in one process.  K2 comes
+    as the previous design's per-level entry (``vp_klt_track_level``, with
+    ``track``'s level loop and gates around it here) or as this tree's
+    fused entry; K9 as the previous design's two entries or this tree's
+    one."""
 
-    import torch
+    def __init__(self, tree):
+        import ctypes
+        import hashlib
 
-    from vplines_slam_tpu_torch import kernels as kmod
-    from vplines_slam_tpu_torch.ops import vp
+        from vplines_slam_tpu_torch import kernels as kmod
 
-    src = Path(tree).resolve() / "vplines_slam_tpu_torch" / "csrc" / "vp.cu"
-    so = kmod.BUILD_DIR / f"libother_vp_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
-    if not so.exists():
+        self.tree = Path(tree).resolve()
+        srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
+                for n in ("vp", "klt", "clahe")}
+        libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = subprocess.run([kmod._nvcc(), *kmod.NVCC_FLAGS, "-shared", "-o", str(so),
-                              str(src)], capture_output=True, text=True)
-        if out.returncode != 0:
-            fail(f"nvcc failed on {src}:\n{out.stdout}{out.stderr}")
-    fn = ctypes.CDLL(str(so)).vp_vp_grid
-    fn.argtypes = list(vp.VP_GRID.argtypes) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        for n, src in srcs.items():
+            h = hashlib.sha256(src.read_bytes())
+            h.update((src.parent / "common.cuh").read_bytes())
+            libs[n] = kmod.BUILD_DIR / f"libother_{n}_{h.hexdigest()[:16]}.so"
+            if not libs[n].exists():
+                procs[n] = subprocess.Popen(
+                    [kmod._nvcc(), *kmod.NVCC_FLAGS, "-shared", "-o", str(libs[n]), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n, pr in procs.items():
+            out = pr.communicate()[0]
+            if pr.returncode != 0:
+                fail(f"nvcc failed on {srcs[n]}:\n{out}")
+        self.lib = {n: ctypes.CDLL(str(so)) for n, so in libs.items()}
+        self.fns = {}
+        log(f"the other tree's vp_grid, K2 and K9: {self.tree}")
 
-    def run(line, length, angle, valid, cfg):
+    def _fn(self, lib, name, argtypes):
+        import ctypes
+
+        if name not in self.fns:
+            fn = getattr(self.lib[lib], name)
+            fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.fns[name] = fn
+        return self.fns[name]
+
+    def _call(self, lib, name, argtypes, *args):
+        import torch
+
+        err = self._fn(lib, name, argtypes)(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the other tree's {name} failed to launch: error {err}")
+
+    def has(self, lib, name):
+        return hasattr(self.lib[lib], name)
+
+    def vp_grid(self, line, length, angle, valid, cfg):
+        import torch
+
+        from vplines_slam_tpu_torch.ops import vp
+
         line, length, angle = line.contiguous(), length.contiguous(), angle.contiguous()
         valid8 = valid.to(torch.uint8).contiguous()
         grid = torch.empty(cfg.grid_la, cfg.grid_lo, dtype=line.dtype, device=line.device)
-        err = fn(line.data_ptr(), length.data_ptr(), angle.data_ptr(), valid8.data_ptr(),
-                 line.shape[0], cfg.grid_la, cfg.grid_lo, float(cfg.pair_angle_gate),
-                 grid.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            fail(f"the other tree's vp_grid failed to launch: error {err}")
+        self._call("vp", "vp_vp_grid", vp.VP_GRID.argtypes, line.data_ptr(), length.data_ptr(),
+                   angle.data_ptr(), valid8.data_ptr(), line.shape[0], cfg.grid_la,
+                   cfg.grid_lo, float(cfg.pair_angle_gate), grid.data_ptr())
         return grid
 
-    log(f"vp_grid against {src}")
-    return run
+    def track_level(self, img0, img1, pts0, guess, cfg):
+        """The other tree's K2 on one level: (flow, ok, resid)."""
+        import ctypes
+
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+
+        if not self.has("klt", "vp_klt_track_level"):
+            return self._track_fused([img0], [img1], pts0, guess, cfg, False)
+        H, W = img0.shape
+        N = pts0.shape[0]
+        flow = torch.empty(N, 2, dtype=img0.dtype, device=img0.device)
+        ok = torch.empty(N, dtype=torch.uint8, device=img0.device)
+        resid = torch.empty(N, dtype=img0.dtype, device=img0.device)
+        P, I, F = kmod.P, kmod.I, ctypes.c_float
+        self._call("klt", "vp_klt_track_level",
+                   [P, P, I, I, P, P, I, I, I, F, I, P, P, P], img0.data_ptr(), img1.data_ptr(),
+                   H, W, pts0.contiguous().data_ptr(), guess.contiguous().data_ptr(), N,
+                   cfg.win, cfg.iters, float(cfg.min_eig), int(cfg.illum_adapt),
+                   flow.data_ptr(), ok.data_ptr(), resid.data_ptr())
+        return flow, ok.bool(), resid
+
+    def _swapped(self, kernel, lib, fn):
+        """fn() with kernel's C entry taken from the other tree's library (the
+        same name and arguments), its launch count left as it was."""
+        saved, launches = kernel._fn, kernel.launches
+        kernel._fn = self._fn(lib, kernel.name, kernel.argtypes)
+        try:
+            return fn()
+        finally:
+            kernel._fn, kernel.launches = saved, launches
+
+    def _track_fused(self, pyr0, pyr1, pts0, flow0, cfg, gate):
+        from vplines_slam_tpu_torch.ops import klt
+
+        return self._swapped(klt.KLT_TRACK, "klt",
+                             lambda: klt._track_cuda(pyr0, pyr1, pts0, flow0, cfg, gate))
+
+    def track(self, img0, img1, pts0, cfg, init_flow=None):
+        """The other tree's ``track``: its fused K2, or (the previous
+        design) a launch of its per-level K2 a level inside ``track``'s
+        level loop and gates, as that design's ``track`` ran them."""
+        from vplines_slam_tpu_torch.ops import klt
+        from vplines_slam_tpu_torch.ops.image import build_pyramid
+
+        if self.has("klt", "vp_klt_track_level"):
+            return klt.track_levels(img0, img1, pts0, cfg, init_flow, self.track_level)
+        pyr0, pyr1 = build_pyramid(img0, cfg.levels), build_pyramid(img1, cfg.levels)
+        return self._track_fused(pyr0, pyr1, pts0, init_flow, cfg, True)
+
+    def clahe(self, img, clip=3.0, tiles=8, bins=32):
+        """The other tree's K9: (out, luts)."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import image
+
+        H, W = img.shape
+        th, tw = H // tiles, W // tiles
+        luts = torch.empty(tiles, tiles, bins, dtype=img.dtype, device=img.device)
+        out = torch.empty_like(img)
+        P, I, F = kmod.P, kmod.I, kmod.F
+        limit = clip * th * tw / bins
+        if self.has("clahe", "vp_clahe_lut"):
+            self._call("clahe", "vp_clahe_lut", [P, I, I, I, I, I, F, P], img.data_ptr(), W,
+                       tiles, th, tw, bins, limit, luts.data_ptr())
+            self._call("clahe", "vp_clahe_apply", [P, P, I, I, I, I, I, I, P], img.data_ptr(),
+                       luts.data_ptr(), H, W, tiles, th, tw, bins, out.data_ptr())
+        else:
+            return self._swapped(image.CLAHE, "clahe", lambda: image.clahe_cuda(img, clip, tiles,
+                                                                                 bins))
+        return out, luts
 
 
 @contextlib.contextmanager
@@ -371,6 +498,126 @@ def recording_vp(store):
         vp.vp_grid, vp.vp_score = grid_fn, score_fn
 
 
+@contextlib.contextmanager
+def recording_clahe(store):
+    """Keep every clahe call of the two trackers in the block in store, as
+    references to its input and output (no copy, no launch, no sync), for
+    ``clahe_frames_check``."""
+    from vplines_slam_tpu_torch.models import feature_tracker, line_tracker
+
+    saved = feature_tracker.clahe, line_tracker.clahe
+
+    def wrap(fn):
+        def rec(img, *a):
+            out = fn(img, *a)
+            store.append((img, out))
+            return out
+        return rec
+
+    feature_tracker.clahe, line_tracker.clahe = wrap(saved[0]), wrap(saved[1])
+    try:
+        yield store
+    finally:
+        feature_tracker.clahe, line_tracker.clahe = saved
+
+
+def clahe_frames_check(rec, store, where):
+    """Every recorded clahe call: K9 again on its image equal to the bit,
+    the plain version within 1e-6; with --against the other tree's LUTs and
+    output equal to the bit.  Adds K9's device time per call over these
+    images to its record."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import image
+
+    if not store:
+        fail(f"{where}: no clahe call recorded")
+    again = all(torch.equal(image.clahe(im), out) for im, out in store)
+    err = max(float((image.clahe_plain(im) - out).abs().max()) for im, out in store)
+    ok, other = again and err <= 1e-6, ""
+    if AGAINST is not None:
+        same = all(torch.equal(o, out) and torch.equal(lo, image.clahe_cuda(im)[1])
+                   for (im, out), (o, lo) in zip(store, (AGAINST.clahe(im) for im, _ in store)))
+        other = f"; the other tree's kernels: LUTs and output equal to the bit {same}"
+        ok = ok and same
+    log(f"K9 clahe on {where}'s {len(store)} calls: again on each image, equal to the bit: "
+        f"{again}; max |kernel - plain| {err:.3e} (tol 1e-6){other}")
+    if not ok:
+        fail(f"K9 clahe on {where}'s images")
+    extra = rec["clahe"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} images, per call"] = (
+        lambda: [image.clahe(im) for im, _ in store], len(store))
+    if AGAINST is not None:
+        extra[f"the other tree's K9 on {where}'s images, per call"] = (
+            lambda: [AGAINST.clahe(im) for im, _ in store], len(store))
+
+
+@contextlib.contextmanager
+def recording_klt(store):
+    """Keep every ``klt.track`` call of the block in store, as references to
+    its inputs and outputs (no copy, no launch, no sync), for
+    ``klt_frames_check``."""
+    from vplines_slam_tpu_torch.ops import klt
+
+    track = klt.track
+
+    def rec(img0, img1, pts0, cfg=klt.KLTConfig(), init_flow=None):
+        out = track(img0, img1, pts0, cfg, init_flow)
+        store.append(((img0, img1, pts0, cfg, init_flow), out))
+        return out
+
+    klt.track = rec
+    try:
+        yield store
+    finally:
+        klt.track = track
+
+
+# K2's gain/bias tracks against track_plain on the slice's calls: phase 5
+# reads 0.0224 px (NVIDIA H100 80GB HBM3; the per-level design, to whose
+# sums this one is equal to the bit, reads the same), phase 4 has no line
+GAIN_BIAS_TRACK_TOL_PX = 0.05
+
+
+def klt_frames_check(store, where):
+    """Every recorded track call again on ``track_plain`` (on the card): ok
+    agreement over the calls' points (tol >= 0.99) and, in point mode, max
+    |pts1 diff| where both are ok (tol 1e-3 px).  In gain/bias mode the line
+    anchors' flow along their edge is barely conditioned (the line matcher
+    relaxes the gate for that), so f32 sums in another order move some of
+    them by hundredths of a pixel: held at GAIN_BIAS_TRACK_TOL_PX.  With
+    --against the other tree's track equal to the bit on every call."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import klt
+
+    if not store:
+        fail(f"{where}: no track call recorded")
+    n = sum(int(args[2].shape[0]) for args, _ in store)
+    err, err_gb, flips = 0.0, 0.0, 0
+    for args, out in store:
+        p = klt.track_plain(*args)
+        both = out[1] & p[1]
+        e = float((out[0] - p[0])[both].abs().max()) if bool(both.any()) else 0.0
+        if args[3].illum_adapt:
+            err_gb = max(err_gb, e)
+        else:
+            err = max(err, e)
+        flips += int((out[1] != p[1]).sum())
+    same, other = True, ""
+    if AGAINST is not None:
+        same = all(all(torch.equal(a, b) for a, b in zip(out, AGAINST.track(*args)))
+                   for args, out in store)
+        other = f"; equal to the other tree's track to the bit on every call: {same}"
+    agree = 1.0 - flips / max(n, 1)
+    log(f"K2 klt_track on {where}'s {len(store)} calls ({n} points): against track_plain "
+        f"{flips} ok flags differ, agreement {agree:.5f} (tol >= 0.99); max |pts1 diff| (ok in "
+        f"both) {err:.3e} px in point mode (tol 1e-3), {err_gb:.3e} px in gain/bias mode "
+        f"(tol {GAIN_BIAS_TRACK_TOL_PX}){other}")
+    if not (err <= 1e-3 and err_gb <= GAIN_BIAS_TRACK_TOL_PX and agree >= 0.99 and same):
+        fail(f"K2 klt_track on {where}'s calls")
+
+
 def vp_frames_check(rec, store, where):
     """Every recorded lines frame: vp_grid again on its inputs, equal to the
     bit; with --vp-grid-against the other tree's grid equal to the bit and
@@ -384,8 +631,8 @@ def vp_frames_check(rec, store, where):
         fail(f"{where}: no vp_grid call recorded")
     again = all(torch.equal(vp.vp_grid(*r["grid_args"]), r["grid"]) for r in store)
     ok, other = again, ""
-    if VP_GRID_AGAINST is not None:
-        grids = [VP_GRID_AGAINST(*r["grid_args"]) for r in store]
+    if AGAINST is not None:
+        grids = [AGAINST.vp_grid(*r["grid_args"]) for r in store]
         same_grid = all(torch.equal(g, r["grid"]) for g, r in zip(grids, store))
         same_ids = all(torch.equal(vp.vp_score(g, *r["score_args"][1:])[1], r["score"][1])
                        for g, r in zip(grids, store))
@@ -399,9 +646,9 @@ def vp_frames_check(rec, store, where):
     extra = rec["vp_grid"].setdefault("extra_device_of", {})
     extra[f"{where}'s {len(store)} lines frames, per call"] = (
         lambda: [vp.vp_grid(*r["grid_args"]) for r in store], len(store))
-    if VP_GRID_AGAINST is not None:
+    if AGAINST is not None:
         extra[f"the other tree's vp_grid on {where}'s frames, per call"] = (
-            lambda: [VP_GRID_AGAINST(*r["grid_args"]) for r in store], len(store))
+            lambda: [AGAINST.vp_grid(*r["grid_args"]) for r in store], len(store))
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +757,60 @@ def stage(dev, n_frames, world=None, t0=0.0):
 # ---------------------------------------------------------------------------
 
 
+def klt_fused_check(rec, name, img0, img1, pts0, valid, kcfg, cost):
+    """K2 as ``track`` calls it (every level and the gates in one launch)
+    against ``track_plain`` on the card, from a zero and from a nonzero
+    initial flow: max |pts1 diff| where both are ok (tol 1e-3 px), ok
+    agreement over the valid inputs (tol >= 0.99), two calls equal to the
+    bit, one launch a call.  Stores the record; returns the kernel's (pts1, ok,
+    resid).  Every sum is added in the previous design's order, so with
+    --against the other tree's track must equal it to the bit."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import klt
+
+    def errs(k, p):
+        both = k[1] & p[1] & valid
+        e = float((k[0] - p[0])[both].abs().max()) if bool(both.any()) else 0.0
+        agree = float((k[1] == p[1])[valid].float().mean()) if bool(valid.any()) else 1.0
+        return e, agree
+
+    n0 = klt.KLT_TRACK.launches
+    k = klt.track(img0, img1, pts0, kcfg)
+    one = klt.KLT_TRACK.launches - n0 == 1
+    same = all(torch.equal(a, b) for a, b in zip(k, klt.track(img0, img1, pts0, kcfg)))
+    p = klt.track_plain(img0, img1, pts0, kcfg)
+    e, agree = errs(k, p)
+    # an initial flow: the plain track's flow plus 0.75 px
+    init = (p[0] - pts0 + 0.75).contiguous()
+    ei, agree_i = errs(klt.track(img0, img1, pts0, kcfg, init_flow=init),
+                       klt.track_plain(img0, img1, pts0, kcfg, init_flow=init))
+    other, same_o = "", True
+    if AGAINST is not None:
+        same_o = all(torch.equal(a, b) for a, b in zip(k, AGAINST.track(img0, img1, pts0, kcfg)))
+        other = f"; equal to the other tree's track to the bit: {same_o}"
+    log(f"K2 klt_track ({name}: {int(valid.sum())} of {pts0.shape[0]} inputs valid, win "
+        f"{kcfg.win}, {kcfg.levels} levels, {kcfg.iters} iters, gain/bias "
+        f"{kcfg.illum_adapt}): one launch a call {one}; against track_plain max |pts1 diff| "
+        f"(ok in both) {e:.3e} px, ok agreement {agree:.4f}; with an init_flow {ei:.3e} px, "
+        f"{agree_i:.4f} (tol 1e-3 px, >= 0.99); {int(k[1].sum())} tracks ok; two calls equal "
+        f"to the last bit: {same}{other}")
+    if not (one and same and e <= 1e-3 and agree >= 0.99 and ei <= 1e-3 and agree_i >= 0.99
+            and same_o):
+        fail(f"K2 klt_track ({name}) disagrees with track_plain or the other tree's track")
+    # both with the four K1 launches of the pyramids; the device time counts K2 alone
+    record(rec, name, max(e, ei), lambda: klt.track(img0, img1, pts0, kcfg),
+           lambda: klt.track_plain(img0, img1, pts0, kcfg), "klt_track_kernel", *cost)
+    if AGAINST is not None:
+        rec[name]["extra_device_of"] = {
+            "the other tree's K2 on the same inputs":
+                (lambda: AGAINST.track(img0, img1, pts0, kcfg), 1, "klt_"),
+            "the other tree's whole track (K1, K2, scaling and gates)":
+                lambda: AGAINST.track(img0, img1, pts0, kcfg),
+            "this tree's whole track (K1, K2)": lambda: klt.track(img0, img1, pts0, kcfg)}
+    return k
+
+
 def phase_kernels(S, SL):
     """S: the points slice's staging, SL: the lines slice's."""
     import torch
@@ -544,12 +845,16 @@ def phase_kernels(S, SL):
     xy0, _, valid0 = corners.detect(img0, cfg.max_features, cfg.min_dist, cfg.quality)
     pyr0 = image.build_pyramid(img0, cfg.klt.levels)
     pyr1 = image.build_pyramid(img1, cfg.klt.levels)
-    flow_err, agree, n_ok = 0.0, 0, 0
+    flow_err, agree, n_ok, level_same = 0.0, 0, 0, True
     for lvl in range(cfg.klt.levels):
         s = 2.0 ** lvl
         guess = torch.zeros_like(xy0)
         fk, ok_k, rk = klt._track_level(pyr0[lvl], pyr1[lvl], xy0 / s, guess, cfg.klt)
         fp, ok_p, rp = klt._track_level_plain(pyr0[lvl], pyr1[lvl], xy0 / s, guess, cfg.klt)
+        if AGAINST is not None:
+            level_same &= all(torch.equal(a, b) for a, b in zip(
+                (fk, ok_k, rk), AGAINST.track_level(pyr0[lvl], pyr1[lvl], xy0 / s, guess,
+                                                    cfg.klt)))
         both = ok_k & ok_p & valid0
         if bool(both.any()):
             flow_err = max(flow_err, float((fk - fp)[both].abs().max()))
@@ -557,23 +862,41 @@ def phase_kernels(S, SL):
         n_ok += ok_k.numel()
     agreement = agree / n_ok
     log(f"K2 klt_track_level: max flow err (ok in both) = {flow_err:.3e} px (tol 1e-3), "
-        f"ok agreement {agreement:.4f} (tol >= 0.99)")
-    if not (flow_err <= 1e-3 and agreement >= 0.99):
-        fail("K2 klt_track_level disagrees with its plain version")
+        f"ok agreement {agreement:.4f} (tol >= 0.99)"
+        + ("" if AGAINST is None else
+           f"; every level equal to the other tree's kernel to the bit: {level_same}"))
+    if not (flow_err <= 1e-3 and agreement >= 0.99 and level_same):
+        fail("K2 klt_track_level disagrees with its plain version or the other tree's kernel")
 
-    def klt_cost(n, kcfg):
+    def klt_cost(n, kcfg, shape, levels=1, io=29):
+        """(bytes, operations) of K2 over n features and `levels` levels of
+        a pyramid whose level 0 is `shape`: on each level one template
+        superset from the first image and one moving region from the second
+        a feature (the re-anchor moves the window at most DRIFT px, so both
+        rounds read within about one region), each capped at the level's
+        image (coarse levels hold fewer pixels than the features' regions);
+        `io` bytes of points and outputs a feature (29 for a level's pts0,
+        guess, flow, ok and residual, 21 for track's pts0, pts1, ok and
+        residual); the iterations' arithmetic."""
         P, TS, MS = kcfg.win, kcfg.win + 3, kcfg.win + 1 + 2 * klt.DRIFT
         it = kcfg.iters + 1
-        return (n * 4 * (TS * TS + 3 * MS * MS) + n * 13,
-                n * (TS * TS * 12 + P * P * 20 + it * P * P * (12 + 8 * kcfg.illum_adapt)))
+        (h, w), nbytes = shape, n * io
+        for _ in range(levels):
+            nbytes += 4 * (min(n * TS * TS, h * w) + min(n * MS * MS, h * w))
+            h, w = (h + 1) // 2, (w + 1) // 2
+        return (nbytes, levels * n * (TS * TS * 12 + P * P * 20
+                                      + it * P * P * (12 + 8 * kcfg.illum_adapt)))
 
     lv0 = (pyr0[0], pyr1[0], xy0, torch.zeros_like(xy0), cfg.klt)
     record(rec, "klt_track_level", flow_err, lambda: klt._track_level(*lv0),
-           lambda: klt._track_level_plain(*lv0), "klt_level_kernel",
-           *klt_cost(xy0.shape[0], cfg.klt))
+           lambda: klt._track_level_plain(*lv0), "klt_track_kernel",
+           *klt_cost(xy0.shape[0], cfg.klt, img0.shape))
+    # K2 as the front end calls it: every level and the gates in one launch
+    pts1, ok1, _ = klt_fused_check(rec, "klt_track", img0, img1, xy0, valid0, cfg.klt,
+                                   klt_cost(xy0.shape[0], cfg.klt, img0.shape, cfg.klt.levels,
+                                            io=21))
 
     # K3 corner response + cell selection, with the tracked features of frame 1
-    pts1, ok1, _ = klt.track(img0, img1, xy0, cfg.klt)
     ok1 = ok1 & valid0
     ch, cw = -(-H // cfg.min_dist), -(-W // cfg.min_dist)
     occ = corners._occupied(pts1, ok1, cfg.min_dist, ch, cw, img1.device)
@@ -707,13 +1030,17 @@ def phase_kernels(S, SL):
     apts = anchors.reshape(-1, 2).contiguous()
     upyr0 = image.build_pyramid(u0, mcfg.klt.levels)
     upyr1 = image.build_pyramid(u1, mcfg.klt.levels)
-    flow_err2, agree2, n2 = 0.0, 0, 0
+    flow_err2, agree2, n2, level_same = 0.0, 0, 0, True
     am = amask.reshape(-1)
     for lvl in range(mcfg.klt.levels):
         sc = 2.0 ** lvl
         guess = torch.zeros_like(apts)
         fk, okk, rk = klt._track_level(upyr0[lvl], upyr1[lvl], apts / sc, guess, mcfg.klt)
         fp, okp, rp = klt._track_level_plain(upyr0[lvl], upyr1[lvl], apts / sc, guess, mcfg.klt)
+        if AGAINST is not None:
+            level_same &= all(torch.equal(a, b) for a, b in zip(
+                (fk, okk, rk), AGAINST.track_level(upyr0[lvl], upyr1[lvl], apts / sc, guess,
+                                                   mcfg.klt)))
         bth = okk & okp & am
         if bool(bth.any()):
             flow_err2 = max(flow_err2, float((fk - fp)[bth].abs().max()))
@@ -722,16 +1049,21 @@ def phase_kernels(S, SL):
     agreement2 = agree2 / max(n2, 1)
     log(f"K2 klt_track_level (gain/bias, win {mcfg.klt.win}, {mcfg.klt.iters} iters): "
         f"{int(am.sum())} anchors of {int(v0.sum())} lines, max flow err (ok in both) = "
-        f"{flow_err2:.3e} px (tol 1e-3), ok agreement {agreement2:.4f} (tol >= 0.99)")
-    if not (flow_err2 <= 1e-3 and agreement2 >= 0.99):
-        fail("K2 klt_track_level (gain/bias) disagrees with its plain version")
+        f"{flow_err2:.3e} px (tol 1e-3), ok agreement {agreement2:.4f} (tol >= 0.99)"
+        + ("" if AGAINST is None else
+           f"; every level equal to the other tree's kernel to the bit: {level_same}"))
+    if not (flow_err2 <= 1e-3 and agreement2 >= 0.99 and level_same):
+        fail("K2 klt_track_level (gain/bias) disagrees with its plain version or the other "
+             "tree's kernel")
     lvg = (upyr0[0], upyr1[0], apts, torch.zeros_like(apts), mcfg.klt)
     record(rec, "klt_track_level_gain_bias", flow_err2, lambda: klt._track_level(*lvg),
-           lambda: klt._track_level_plain(*lvg), "klt_level_kernel",
-           *klt_cost(apts.shape[0], mcfg.klt))
+           lambda: klt._track_level_plain(*lvg), "klt_track_kernel",
+           *klt_cost(apts.shape[0], mcfg.klt, u0.shape))
+    tracked, okt, _ = klt_fused_check(rec, "klt_track_gain_bias", u0, u1, apts, am, mcfg.klt,
+                                      klt_cost(apts.shape[0], mcfg.klt, u0.shape,
+                                               mcfg.klt.levels, io=21))
 
     # K7 line_vote: the tracked anchors voting for frame 1's segments
-    tracked, okt, _ = klt.track(u0, u1, apts, mcfg.klt)
     L0, Aa = amask.shape
     vote_in = (tracked.reshape(L0, Aa, 2).contiguous(), okt.reshape(L0, Aa) & amask, s0, v0,
                s1, v1, mcfg)
@@ -789,19 +1121,19 @@ def phase_kernels(S, SL):
         gp = vp.vp_grid_plain(*args8, vcfg)
         mass = abs(float(gk.sum()) - float(gp.sum())) / max(float(gp.sum()), 1e-30)
         same = torch.equal(gk, vp.vp_grid(*args8, vcfg))
-        other = ("" if VP_GRID_AGAINST is None else
+        other = ("" if AGAINST is None else
                  f"; equal to the other tree's kernel to the bit: "
-                 f"{torch.equal(gk, VP_GRID_AGAINST(*args8, vcfg))}")
+                 f"{torch.equal(gk, AGAINST.vp_grid(*args8, vcfg))}")
         log(f"K8 vp_grid, {label}: {int(args8[3].sum())} valid lines, total mass "
             f"{float(gk.sum()):.4f}, rel diff to the plain version {mass:.3e} (tol 1e-5); two "
             f"calls equal to the last bit: {same}{other}")
-        if not (mass <= 1e-5 and same and (VP_GRID_AGAINST is None
-                                            or torch.equal(gk, VP_GRID_AGAINST(*args8, vcfg)))):
+        if not (mass <= 1e-5 and same and (AGAINST is None
+                                            or torch.equal(gk, AGAINST.vp_grid(*args8, vcfg)))):
             fail(f"K8 vp_grid on {label}")
-    if VP_GRID_AGAINST is not None:
+    if AGAINST is not None:
         rec["vp_grid"]["extra_device_of"] = {
             "the other tree's vp_grid on phase 3's frame":
-                lambda: VP_GRID_AGAINST(line, length, angle, v0, vcfg)}
+                lambda: AGAINST.vp_grid(line, length, angle, v0, vcfg)}
     u8 = SL["vp_u"][0]
     probs = v0.to(line.dtype) + 1e-6
     pidx = vp.choice_from_uniform(probs / probs.sum(), u8)
@@ -836,40 +1168,37 @@ def phase_kernels(S, SL):
            P8 * vcfg.n_sweep * 3 * 45 + Lg * 3 * 30)
 
     # K9 clahe: the raw frame (point tracker) and the undistorted one (line
-    # tracker), 8x8 tiles of 60x94 px, 32 bins, clip 3.0
+    # tracker), 8x8 tiles of 60x94 px, 32 bins, clip 3.0; two calls to the
+    # bit; with --against the other tree's kernels to the bit
     tiles, bins, clip = 8, 32, 3.0
-    th, tw = H // tiles, W // tiles
-    lut_err, out_err = 0.0, 0.0
+    th9, tw9 = H // tiles, W // tiles
+    lut_err, out_err, calls_same, other_same = 0.0, 0.0, True, True
     for im in (img0, u0.contiguous()):
-        lk = torch.empty(tiles, tiles, bins, device=im.device)
-        image.CLAHE_LUT(kmod.check(im, "img"), W, tiles, th, tw, bins, clip * th * tw / bins,
-                        kmod.check(lk, "luts"))
-        lp = image.clahe_luts_plain(im, clip, tiles, bins)
-        lut_err = max(lut_err, float((lk - lp).abs().max()))
-        out_err = max(out_err, float((image.clahe(im) - image.clahe_plain(im)).abs().max()))
-    log(f"K9 clahe_lut: max |kernel - plain| = {lut_err:.3e} (tol 1e-6: exact counts; the "
-        f"scan adds in another order); clahe_apply (whole clahe): max |kernel - plain| = "
-        f"{out_err:.3e} (tol 1e-6, images in [0, 1])")
-    if not (lut_err <= 1e-6 and out_err <= 1e-6):
-        fail("K9 clahe disagrees with its plain version")
-    luts9 = image.clahe_luts_plain(img0, clip, tiles, bins).contiguous()
-    out9 = torch.empty_like(img0)
-
-    def k9_lut():
-        lk = torch.empty(tiles, tiles, bins, device=img0.device)
-        image.CLAHE_LUT(kmod.check(img0, "img"), W, tiles, th, tw, bins,
-                        clip * th * tw / bins, kmod.check(lk, "luts"))
-
-    def k9_apply():
-        image.CLAHE_APPLY(kmod.check(img0, "img"), kmod.check(luts9, "luts"), H, W, tiles, th,
-                          tw, bins, kmod.check(out9, "out"))
-
+        ok9, lk = image.clahe_cuda(im, clip, tiles, bins)
+        ok9b, lkb = image.clahe_cuda(im, clip, tiles, bins)
+        calls_same &= torch.equal(ok9, ok9b) and torch.equal(lk, lkb)
+        calls_same &= torch.equal(ok9, image.clahe(im))
+        lut_err = max(lut_err, float((lk - image.clahe_luts_plain(im, clip, tiles, bins))
+                                     .abs().max()))
+        out_err = max(out_err, float((ok9 - image.clahe_plain(im)).abs().max()))
+        if AGAINST is not None:
+            oo, lo = AGAINST.clahe(im, clip, tiles, bins)
+            other_same &= torch.equal(oo, ok9) and torch.equal(lo, lk)
+    other = ("" if AGAINST is None else
+             f"; LUTs and output equal to the other tree's kernels to the bit: {other_same}")
+    log(f"K9 clahe: LUTs max |kernel - plain| = {lut_err:.3e} (tol 1e-6: exact counts; the "
+        f"scan adds in another order), output max |kernel - plain| = {out_err:.3e} (tol 1e-6, "
+        f"images in [0, 1]); two calls equal to the bit: {calls_same}{other}")
+    if not (lut_err <= 1e-6 and out_err <= 1e-6 and calls_same and other_same):
+        fail("K9 clahe disagrees with its plain version, across two calls or with the other "
+             "tree's kernels")
     # no PyTorch call computes CLAHE (nor its tile histograms + CDFs): no library time
-    record(rec, "clahe_lut", lut_err, k9_lut,
-           lambda: image.clahe_luts_plain(img0, clip, tiles, bins), "clahe_lut_kernel",
-           4 * th * tw * tiles * tiles + 4 * tiles * tiles * bins, 4 * th * tw * tiles * tiles)
-    record(rec, "clahe_apply", out_err, k9_apply, lambda: image.clahe_apply_plain(img0, luts9),
-           "clahe_apply_kernel", 4 * 2 * n_px + 4 * tiles * tiles * bins, 40 * n_px)
+    record(rec, "clahe", max(lut_err, out_err), lambda: image.clahe(img0),
+           lambda: image.clahe_plain(img0), "clahe_kernel",
+           4 * 2 * n_px + 4 * tiles * tiles * bins, 4 * th9 * tw9 * tiles * tiles + 40 * n_px)
+    if AGAINST is not None:
+        rec["clahe"]["extra_device_of"] = {
+            "the other tree's K9 on the same image": lambda: AGAINST.clahe(img0, clip, tiles, bins)}
 
     # K10 preintegrate: one interval of 64 steps (every frame), the merged
     # interval of 128 (non-keyframes) and the 9 intervals of the initializer
@@ -931,8 +1260,33 @@ def phase_kernels(S, SL):
             err10 = max(err10, worst_case[0])
     if not err10 <= 1e-5:
         fail("K10 preintegrate disagrees with its plain version")
+    # ROADMAP C's deliberate divergence: K10 skips the matrix work of masked
+    # steps, so a NaN acceleration sample read by masked steps only leaves its
+    # result finite where the twin (NaN * 0) gives NaN.  An inf dt in a masked
+    # slot makes dt * mask NaN (inf * 0), which both read as a live step: both
+    # give NaN.  Pinned: the check fails if either side changes
     d1, a1, g1, m1 = cases["B=1 N=64"]
     z1 = torch.zeros(1, 3, device=d1.device)
+    masked = (m1[0] == 0).tolist()
+    pair = [j for j in range(1, len(masked)) if masked[j - 1] and masked[j]]
+    if len(pair) < 2:
+        fail("K10 divergence check: the B=1 N=64 interval has no two masked steps in a row")
+    finite = lambda pre: all(bool(torch.isfinite(x).all()) for x in pre)
+    a_nan = a1.clone()
+    a_nan[0, pair[0], 0] = float("nan")
+    d_inf = d1.clone()
+    d_inf[0, pair[-1]] = float("inf")
+    div = {label: (finite(imu.preintegrate(d, a, g1, m1, z1, z1, params)),
+                   finite(imu.preintegrate_plain(d, a, g1, m1, z1, z1, params)))
+           for label, d, a in (("a NaN acceleration sample", d1, a_nan),
+                               ("an inf dt", d_inf, a1))}
+    log(f"K10 on masked slots (ROADMAP C's divergence): with a NaN acceleration sample read "
+        f"by masked steps only, K10 finite {div['a NaN acceleration sample'][0]}, its twin "
+        f"finite {div['a NaN acceleration sample'][1]} (pinned: True, False); with an inf dt "
+        f"in a masked slot, K10 finite {div['an inf dt'][0]}, its twin finite "
+        f"{div['an inf dt'][1]} (pinned: False, False)")
+    if div != {"a NaN acceleration sample": (True, False), "an inf dt": (False, False)}:
+        fail("K10's handling of non-finite padding changed (ROADMAP C's pinned divergence)")
     n10 = d1.shape[1]
     # a masked step multiplies J and P by an exact identity: only the live
     # steps' operations count
@@ -2069,18 +2423,35 @@ def estimator_kernels():
     return [WINDOW_LIN, WINDOW_BLOCKS, SCHUR_SOLVE, MARG_WINDOW]
 
 
-def phase_slice(S, plain=False, imu_twin=False):
+@contextlib.contextmanager
+def plain_klt():
+    """Run ``klt.track`` through ``track_plain`` (on the card: K1 builds
+    the pyramids, the levels run as plain tensor code)."""
+    from vplines_slam_tpu_torch.ops import klt
+
+    saved = klt.track
+    klt.track = klt.track_plain
+    try:
+        yield
+    finally:
+        klt.track = saved
+
+
+def phase_slice(S, plain=False, imu_twin=False, klt_twin=False):
     """Phase 4; plain=True runs it on the plain twins of K11-K14 (the
-    --estimator-witness run), imu_twin=True on K10's (--imu-witness)."""
+    --estimator-witness run), imu_twin=True on K10's (--imu-witness),
+    klt_twin=True on K2's (--klt-witness)."""
     with contextlib.ExitStack() as twins:
         if plain:
             twins.enter_context(plain_estimator())
         if imu_twin:
             twins.enter_context(plain_twins_of_k9_k10())
-        return _slice(S, plain, imu_twin)
+        if klt_twin:
+            twins.enter_context(plain_klt())
+        return _slice(S, plain, imu_twin, klt_twin)
 
 
-def _slice(S, plain, imu_twin):
+def _slice(S, plain, imu_twin, klt_twin):
     import torch
 
     from vplines_slam_tpu_torch.kernels import all_kernels
@@ -2114,8 +2485,11 @@ def _slice(S, plain, imu_twin):
 
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
 
+    from vplines_slam_tpu_torch.ops.klt import KLT_TRACK
+
     # the point front-end's (K1-K4), K10 and the estimator's (K11-K14)
-    kernels = (all_kernels()[:5] + ([] if imu_twin else [PREINTEGRATE])
+    kernels = ([k for k in all_kernels()[:5] if not (klt_twin and k is KLT_TRACK)]
+               + ([] if imu_twin else [PREINTEGRATE])
                + ([] if plain else estimator_kernels()))
     for k in all_kernels():
         k.launches = 0
@@ -2188,18 +2562,21 @@ def _slice(S, plain, imu_twin):
         lambda: loop.run(carry, *extra), N_SYNC, np.median(fe_ms[st] + be_ms[st]))
 
 
-def phase_lines(S, plain=False, imu_twin=False):
+def phase_lines(S, plain=False, imu_twin=False, klt_twin=False):
     """Phase 5: the lines-on device loop on the same world; plain=True runs
-    it on the plain twins of K11-K14, imu_twin=True on K10's."""
+    it on the plain twins of K11-K14, imu_twin=True on K10's, klt_twin=True
+    on K2's."""
     with contextlib.ExitStack() as twins:
         if plain:
             twins.enter_context(plain_estimator())
         if imu_twin:
             twins.enter_context(plain_twins_of_k9_k10())
-        return _lines(S, plain, imu_twin)
+        if klt_twin:
+            twins.enter_context(plain_klt())
+        return _lines(S, plain, imu_twin, klt_twin)
 
 
-def _lines(S, plain, imu_twin):
+def _lines(S, plain, imu_twin, klt_twin):
     import torch
 
     from vplines_slam_tpu_torch.kernels import all_kernels
@@ -2229,7 +2606,7 @@ def _lines(S, plain, imu_twin):
     args = (S["imgs"][sl], tuple(b[s0 - 1: s1 - 1] for b in S["batches"]), dts(n),
             S["ridx"][sl], S["vp_u"][sl])
 
-    from vplines_slam_tpu_torch.ops.image import CLAHE_APPLY, CLAHE_LUT
+    from vplines_slam_tpu_torch.ops.image import CLAHE
 
     from vplines_slam_tpu_torch.utils.stats import SPANS
 
@@ -2237,8 +2614,11 @@ def _lines(S, plain, imu_twin):
 
     from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
 
-    idle = ((CLAHE_LUT, CLAHE_APPLY) + tuple(loop_kernels()) + tuple(selector_kernels())
-            + (tuple(estimator_kernels()) if plain else ()) + ((PREINTEGRATE,) if imu_twin else ()))
+    from vplines_slam_tpu_torch.ops.klt import KLT_TRACK
+
+    idle = ((CLAHE,) + tuple(loop_kernels()) + tuple(selector_kernels())
+            + (tuple(estimator_kernels()) if plain else ()) + ((PREINTEGRATE,) if imu_twin else ())
+            + ((KLT_TRACK,) if klt_twin else ()))
     # CLAHE off, no loop closure, no selector
     kernels = [k for k in all_kernels() if k not in idle]
     for k in all_kernels():
@@ -2577,7 +2957,7 @@ def _cold_start_run(C, sysm, feed, on_card, profile, plain, selector, sel_calls,
     from vplines_slam_tpu_torch.kernels import TWIN_CALLS as LOOP_TWIN_CALLS
     from vplines_slam_tpu_torch.kernels import all_kernels
     from vplines_slam_tpu_torch.models.imu import PREINTEGRATE
-    from vplines_slam_tpu_torch.ops.image import CLAHE_APPLY, CLAHE_LUT
+    from vplines_slam_tpu_torch.ops.image import CLAHE
     from vplines_slam_tpu_torch.solver.lm import TWIN_CALLS
     from vplines_slam_tpu_torch.utils.evaluation import ate_rmse, umeyama_alignment
     from vplines_slam_tpu_torch.utils.stats import SPANS
@@ -2643,7 +3023,7 @@ def _cold_start_run(C, sysm, feed, on_card, profile, plain, selector, sel_calls,
     if on_card:
         per = SPANS.per_frame_ms()[2:]  # the first tracked frames pay one-time costs
         spans = dict(frontend=("frontend",), line_frontend=("line_frontend",),
-                     clahe=(CLAHE_LUT.name, CLAHE_APPLY.name), vio=("vio",),
+                     clahe=(CLAHE.name,), vio=("vio",),
                      preintegrate=(PREINTEGRATE.name,), loop_stage=("loop_stage",),
                      lc_extract=("lc_extract",), lc_retrieve=("lc_retrieve",),
                      selector=("selector",))
@@ -2742,7 +3122,7 @@ def _cold_start_run(C, sysm, feed, on_card, profile, plain, selector, sel_calls,
     if selector is None:
         idle |= {k.name for k in selector_kernels()}
     if plain:
-        idle |= {CLAHE_LUT.name, CLAHE_APPLY.name, PREINTEGRATE.name}
+        idle |= {CLAHE.name, PREINTEGRATE.name}
     if n_kf_db == 0:
         fail("the cold-start run inserted no keyframe into the loop-closure database")
     if not all(np.array_equal(o.p_corrected, o.p_vio) for o in outs):
@@ -2845,6 +3225,18 @@ def phase_imu_witness(S, SL, sl, ll, t_start):
             f"{tw['ate']:.4f} m (|diff| {abs(tw['ate'] - first['ate']):.4f} m)")
 
 
+def phase_klt_witness(S, SL, sl, ll, t_start):
+    """Phases 4-5 again with K2's plain twin (``track_plain`` on the card) in
+    place of the kernel: how far K2's rounding alone moves the slices' ATE
+    (printed beside the kernel's)."""
+    for label, run, first in (("points slice", lambda: phase_slice(S, klt_twin=True)[1], sl),
+                              ("lines slice", lambda: phase_lines(SL, klt_twin=True)[1], ll)):
+        log(f"[{time.perf_counter() - t_start:.0f} s] KLT witness: {label}, K2's plain twin")
+        tw = run()
+        log(f"  witness: {label} ATE with K2 {first['ate']:.4f} m, with its plain twin "
+            f"{tw['ate']:.4f} m (|diff| {abs(tw['ate'] - first['ate']):.4f} m)")
+
+
 def phase_profile(run, n, frame_ms):
     """torch.profiler over n extra frames driven by run() (the same frames
     ran once already, so the run is warm).
@@ -2882,7 +3274,7 @@ def phase_profile(run, n, frame_ms):
 
 
 def main(argv=None):
-    global VP_GRID_AGAINST
+    global AGAINST
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 3)")
@@ -2899,10 +3291,16 @@ def main(argv=None):
                     help="after phase 8, run phases 4-5 again with K10's plain twin in place "
                          "of the kernel (the ATE that the preintegration's rounding alone "
                          "moves)")
-    ap.add_argument("--vp-grid-against", metavar="TREE",
+    ap.add_argument("--klt-witness", action="store_true",
+                    help="after phase 8, run phases 4-5 again with K2's plain twin "
+                         "(track_plain) in place of the kernel (the ATE that K2's rounding "
+                         "alone moves)")
+    ap.add_argument("--against", "--vp-grid-against", dest="against", metavar="TREE",
                     help="another checkout (e.g. the parent commit unpacked with git "
-                         "archive): hold its vp_grid kernel against this tree's, to the bit, "
-                         "on phase 3's inputs and on every lines frame of phases 5 and 6")
+                         "archive): build its K8 vp_grid, K2 and K9 and run them on this "
+                         "tree's inputs in this process: vp_grid and K9 to the bit on phase "
+                         "3's inputs and on every lines frame and clahe call of phases 5-6, "
+                         "each timed beside this tree's")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -2917,8 +3315,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     smi = phase_toolchain()
     phase_build()
-    if args.vp_grid_against:
-        VP_GRID_AGAINST = other_vp_grid(args.vp_grid_against)
+    if args.against:
+        AGAINST = OtherTree(args.against)
     from vplines_slam_tpu_torch.estimator.window import WindowConfig
 
     nf = WindowConfig().nf
@@ -2949,15 +3347,19 @@ def main(argv=None):
         device_times(rec)
         return
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: points slice")
-    _, sl, prof_points = phase_slice(S)
+    with recording_klt([]) as klt4:
+        _, sl, prof_points = phase_slice(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
-    with recording_vp([]) as vp5:
+    with recording_vp([]) as vp5, recording_klt([]) as klt5:
         _, ll, prof_lines = phase_lines(SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
-    with recording_vp([]) as vp6:
+    with recording_vp([]) as vp6, recording_clahe([]) as cl6:
         launches, cs = phase_cold_start(C, profile=args.profile)
+    klt_frames_check(klt4, "phase 4")
+    klt_frames_check(klt5, "phase 5")
     vp_frames_check(rec, vp5, "phase 5")
     vp_frames_check(rec, vp6, "phase 6")
+    clahe_frames_check(rec, cl6, "phase 6")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
     loop_launches, lc = phase_loop_circuit(dev)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
@@ -2974,6 +3376,8 @@ def main(argv=None):
         phase_estimator_witness(S, SL, C, sl, ll, cs, t_start)
     if args.imu_witness:
         phase_imu_witness(S, SL, sl, ll, t_start)
+    if args.klt_witness:
+        phase_klt_witness(S, SL, sl, ll, t_start)
     # profiler sessions last: they slow every later launch of the process
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel device times (torch.profiler)")
     device_times(rec)

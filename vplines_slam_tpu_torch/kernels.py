@@ -186,10 +186,10 @@ def all_kernels():
     from .ops import brief, corners, image, klt, line_match, lines, mvg, vp
     from .solver import lm, marginalization
 
-    return [image.PYR_DOWN, klt.KLT_TRACK_LEVEL, corners.CORNER_RESPONSE,
+    return [image.PYR_DOWN, klt.KLT_TRACK, corners.CORNER_RESPONSE,
             corners.CORNER_SELECT, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
             lines.LINE_ANCHORS, lines.LINE_GROW, line_match.LINE_VOTE, vp.VP_GRID,
-            vp.VP_SCORE, image.CLAHE_LUT, image.CLAHE_APPLY, imu.PREINTEGRATE,
+            vp.VP_SCORE, image.CLAHE, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
             marginalization.MARG_WINDOW, brief.FAST, brief.BRIEF, brief.HAMMING_MATCH,
             brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4, selector.SELECTOR_INFO,

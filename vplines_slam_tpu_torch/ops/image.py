@@ -36,18 +36,13 @@ REMAP_STATIC = kernels.Kernel(
     [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.P],
 )
 
-CLAHE_LUT = kernels.Kernel(
-    "vp_clahe_lut", "vplines_slam_tpu_torch/csrc/clahe.cu",
+CLAHE = kernels.Kernel(
+    "vp_clahe", "vplines_slam_tpu_torch/csrc/clahe.cu",
     "vplines_slam_tpu/ops/image.py:254",
-    [kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.F, kernels.P],
-)
-
-CLAHE_APPLY = kernels.Kernel(
-    "vp_clahe_apply", "vplines_slam_tpu_torch/csrc/clahe.cu",
-    "vplines_slam_tpu/ops/image.py:254",
-    [kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
+    [kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.F, kernels.P, kernels.P,
      kernels.P],
 )
+CLAHE_PARTS = 4  # CTAs a tile (csrc/clahe.cu kParts): the partial counts' scratch
 
 PYR_TAPS = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
@@ -301,20 +296,26 @@ def clahe_plain(img, clip_limit=3.0, tiles=8, bins=32):
     return clahe_apply_plain(img, clahe_luts_plain(img, clip_limit, tiles, bins))
 
 
-def clahe(img, clip_limit=3.0, tiles=8, bins=32):
-    """K9: contrast-limited adaptive histogram equalization
-    (cv::createCLAHE(3.0, 8x8)): 32-bin tile histograms, piecewise-linear
-    CDF LUTs.  CPU tensor: ``clahe_plain``.  CUDA tensor: ``clahe_lut`` (one
-    block per tile) then ``clahe_apply`` (one thread per pixel)."""
-    if not img.is_cuda:
-        return clahe_plain(img, clip_limit, tiles, bins)
+def clahe_cuda(img, clip_limit=3.0, tiles=8, bins=32):
+    """K9 on a CUDA image: (out [H, W], luts [tiles, tiles, bins]), in
+    two launches of one kernel."""
     H, W = img.shape
     th, tw = H // tiles, W // tiles
     luts = torch.empty(tiles, tiles, bins, dtype=img.dtype, device=img.device)
+    part = torch.empty(tiles * tiles * CLAHE_PARTS * bins, dtype=torch.int32, device=img.device)
     out = torch.empty_like(img)
-    src = kernels.check(img, "img", ndim=2)
-    CLAHE_LUT(src, W, tiles, th, tw, bins, clip_limit * (th * tw) / bins,
-              kernels.check(luts, "luts"))
-    CLAHE_APPLY(src, kernels.check(luts, "luts"), H, W, tiles, th, tw, bins,
-                kernels.check(out, "out"))
-    return out
+    CLAHE(kernels.check(img, "img", ndim=2), H, W, tiles, bins, clip_limit * (th * tw) / bins,
+          kernels.check(luts, "luts"),
+          part.data_ptr(), kernels.check(out, "out"))
+    return out, luts
+
+
+def clahe(img, clip_limit=3.0, tiles=8, bins=32):
+    """K9: contrast-limited adaptive histogram equalization
+    (cv::createCLAHE(3.0, 8x8)): 32-bin tile histograms, piecewise-linear
+    CDF LUTs.  CPU tensor: ``clahe_plain``.  CUDA tensor: ``clahe_cuda``
+    (four CTAs a tile: their rows' counts, then the LUTs they blend and
+    their rows' mapping)."""
+    if not img.is_cuda:
+        return clahe_plain(img, clip_limit, tiles, bins)
+    return clahe_cuda(img, clip_limit, tiles, bins)[0]

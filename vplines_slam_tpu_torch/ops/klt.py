@@ -6,11 +6,12 @@ inverse-compositional ``_track_level`` and its per-patch gain/bias mode
 
 The JAX version gathers windows with row strips and one-hot matmuls (a TPU
 workaround).  The plain version here gathers directly; kernel K2
-(``csrc/klt.cu``, one CTA per feature) runs a whole pyramid level.  Both keep
-the semantics that change the output: the zero pad ``E = r + D + 2``, the
-window-anchor clips, Scharr gradients taken on the integer template superset
-(with the superset's wrap-around borders) and then interpolated, ``min_eig``
-divided by ``P*P`` with the ``det > 1e-12`` guard, and the two rounds of
+(``csrc/klt.cu``, four warps per feature) runs every pyramid level of a
+``track`` call, and its gates, in one launch.  Both keep the semantics that
+change the output: the zero pad ``E = r + D + 2``, the window-anchor clips,
+Scharr gradients taken on the integer template superset (with the
+superset's wrap-around borders) and then interpolated, ``min_eig`` divided
+by ``P*P`` with the ``det > 1e-12`` guard, and the two rounds of
 ``iters // 2`` with one re-anchor, where drift inside a round is clamped to
 the moving window.  In gain/bias mode every moving patch (and the final
 residual's) is renormalized to the template's mean and population std.
@@ -18,6 +19,7 @@ residual's) is renormalized to the template's mean and population std.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -26,11 +28,18 @@ import torch.nn.functional as F
 from .. import kernels
 from .image import build_pyramid
 
-KLT_TRACK_LEVEL = kernels.Kernel(
-    "vp_klt_track_level", "vplines_slam_tpu_torch/csrc/klt.cu",
-    "vplines_slam_tpu/ops/klt.py:162",
-    [kernels.P, kernels.P, kernels.I, kernels.I, kernels.P, kernels.P,
-     kernels.I, kernels.I, kernels.I, kernels.F, kernels.I, kernels.P, kernels.P, kernels.P],
+MAX_LEVELS = 4  # pyramid levels one K2 launch takes (csrc/klt.cu kMaxLevels)
+
+_KLT_ARGS = kernels.args_struct(
+    "KltArgs",
+    [f"img0_{l}" for l in range(MAX_LEVELS)] + [f"img1_{l}" for l in range(MAX_LEVELS)]
+    + ["pts0", "flow0", "pts1", "ok", "resid"],
+    [f"{k}_{l}" for k in ("H", "W", "vec") for l in range(MAX_LEVELS)]
+    + ["levels", "N", "P", "iters", "illum", "gate"],
+    ["min_eig", "max_residual"])
+KLT_TRACK = kernels.Kernel(
+    "vp_klt_track", "vplines_slam_tpu_torch/csrc/klt.cu",
+    "vplines_slam_tpu/ops/klt.py:162", [ctypes.POINTER(_KLT_ARGS)],
 )
 
 DRIFT = 5  # in-window drift margin per round (px), D in the reference
@@ -177,37 +186,61 @@ def _track_level_plain(img0, img1, pts0, guess, cfg: KLTConfig):
     return d, ok, resid
 
 
+def _track_cuda(pyr0, pyr1, pts0, flow0, cfg: KLTConfig, gate):
+    """K2: one launch over the levels of pyr0 / pyr1 (level 0 first),
+    coarse to fine.  gate: (pts1, gated ok, level 0's residual) as ``track``
+    returns them; else (flow, level 0's ok, residual) as ``_track_level``."""
+    L, N, P = len(pyr0), pts0.shape[0], cfg.win
+    if L > MAX_LEVELS:
+        raise ValueError(f"klt: K2 takes at most MAX_LEVELS = {MAX_LEVELS} pyramid levels, "
+                         f"got {L}")
+    if P < 3 or P > 31 or P % 2 == 0:
+        raise ValueError(f"klt: window must be odd and in [3, 31], got {P}")
+    dev = pts0.device
+    out = torch.empty(N, 2, dtype=torch.float32, device=dev)
+    ok = torch.empty(N, dtype=torch.bool, device=dev)
+    resid = torch.empty(N, dtype=torch.float32, device=dev)
+    if N == 0:
+        return out, ok, resid
+    pts0 = pts0.contiguous()
+    pad = [0] * (MAX_LEVELS - L)
+    imgs0 = [kernels.check(im, f"img0[{l}]", ndim=2) for l, im in enumerate(pyr0)]
+    imgs1 = [kernels.check(im1, f"img1[{l}]", shape=im0.shape)
+             for l, (im0, im1) in enumerate(zip(pyr0, pyr1))]
+    Hs = [im.shape[0] for im in pyr0]
+    Ws = [im.shape[1] for im in pyr0]
+    # 16-byte copies need rows of a multiple of 4 floats on a 16-byte base
+    vec = [int(w % 4 == 0 and p0 % 16 == 0 and p1 % 16 == 0)
+           for w, p0, p1 in zip(Ws, imgs0, imgs1)]
+    flow_ptr = None
+    if flow0 is not None:
+        flow0 = flow0.to(torch.float32).contiguous()
+        flow_ptr = kernels.check(flow0, "init_flow", shape=(N, 2))
+    args = _KLT_ARGS(*imgs0, *pad, *imgs1, *pad, kernels.check(pts0, "pts0", shape=(N, 2)),
+                     flow_ptr, out.data_ptr(), ok.data_ptr(), resid.data_ptr(),
+                     *Hs, *pad, *Ws, *pad, *vec, *pad, L, N, P, cfg.iters,
+                     int(cfg.illum_adapt), int(gate),
+                     float(cfg.min_eig), float(cfg.max_residual))
+    KLT_TRACK(ctypes.byref(args))
+    return out, ok, resid
+
+
 def _track_level(img0, img1, pts0, guess, cfg: KLTConfig):
-    """K2.  CPU tensors: ``_track_level_plain``.  CUDA tensors: one launch of
-    the per-feature kernel for the whole level."""
+    """K2 on one level.  CPU tensors: ``_track_level_plain``.  CUDA tensors:
+    one launch of the kernel with that level alone and no gates."""
     if not img0.is_cuda:
         return _track_level_plain(img0, img1, pts0, guess, cfg)
-    H, W = img0.shape
-    N = pts0.shape[0]
-    P = cfg.win
-    if P < 3 or P % 2 == 0:
-        raise ValueError(f"klt: window must be odd and >= 3, got {P}")
-    flow = torch.empty(N, 2, dtype=img0.dtype, device=img0.device)
-    ok = torch.empty(N, dtype=torch.uint8, device=img0.device)
-    resid = torch.empty(N, dtype=img0.dtype, device=img0.device)
-    if N == 0:
-        return flow, ok.bool(), resid
-    pts0 = pts0.contiguous()
-    guess = guess.contiguous()
-    KLT_TRACK_LEVEL(
-        kernels.check(img0, "img0", ndim=2), kernels.check(img1, "img1", shape=(H, W)),
-        H, W, kernels.check(pts0, "pts0", shape=(N, 2)),
-        kernels.check(guess, "guess", shape=(N, 2)),
-        N, P, cfg.iters, float(cfg.min_eig), int(cfg.illum_adapt),
-        kernels.check(flow, "flow"), kernels.check(ok, "ok", torch.uint8),
-        kernels.check(resid, "resid"),
-    )
-    return flow, ok.bool(), resid
+    return _track_cuda([img0], [img1], pts0, guess, cfg, gate=False)
 
 
-def track(img0, img1, pts0, cfg: KLTConfig = KLTConfig(), init_flow=None):
-    """Track pts0 [N,2] from img0 to img1 through a pyramid.
-    Returns (pts1 [N,2], ok [N], residual [N])."""
+def track_plain(img0, img1, pts0, cfg: KLTConfig = KLTConfig(), init_flow=None):
+    """The level loop over ``_track_level_plain`` plus the gates: K2's twin."""
+    return track_levels(img0, img1, pts0, cfg, init_flow, _track_level_plain)
+
+
+def track_levels(img0, img1, pts0, cfg, init_flow, level_fn):
+    """``track``'s level loop and gates around ``level_fn`` (the signature
+    of ``_track_level``), one call a level."""
     dtype = img0.dtype
     N = pts0.shape[0]
     pyr0 = build_pyramid(img0, cfg.levels)
@@ -218,7 +251,7 @@ def track(img0, img1, pts0, cfg: KLTConfig = KLTConfig(), init_flow=None):
     resid = torch.zeros(N, dtype=dtype, device=img0.device)
     for lvl in range(cfg.levels - 1, -1, -1):
         s = 2.0 ** lvl
-        flow, ok, resid = _track_level(pyr0[lvl], pyr1[lvl], pts0 / s, flow, cfg)
+        flow, ok, resid = level_fn(pyr0[lvl], pyr1[lvl], pts0 / s, flow, cfg)
         # only the finest level's conditioning gates the track
         if lvl == 0:
             ok_all = ok_all & ok
@@ -233,3 +266,18 @@ def track(img0, img1, pts0, cfg: KLTConfig = KLTConfig(), init_flow=None):
     )
     ok_all = ok_all & inb & (resid < cfg.max_residual)
     return pts1, ok_all, resid
+
+
+def track(img0, img1, pts0, cfg: KLTConfig = KLTConfig(), init_flow=None):
+    """Track pts0 [N,2] from img0 to img1 through a pyramid.
+    Returns (pts1 [N,2], ok [N], residual [N]).  CPU tensors:
+    ``track_plain``.  CUDA tensors: the pyramids (K1), then one launch of K2
+    over every level, gates included."""
+    if not img0.is_cuda:
+        return track_plain(img0, img1, pts0, cfg, init_flow)
+    if pts0.shape[0] == 0:  # nothing to track: no pyramid, no launch
+        return _track_cuda([img0] * cfg.levels, [img1] * cfg.levels, pts0, init_flow, cfg,
+                           gate=True)
+    pyr0 = build_pyramid(img0, cfg.levels)
+    pyr1 = build_pyramid(img1, cfg.levels)
+    return _track_cuda(pyr0, pyr1, pts0, init_flow, cfg, gate=True)

@@ -251,3 +251,89 @@ def vp_line_cases(seed=0, gate=np.pi / 3.0, dtype=np.float64):
         "gate": (through_vps(4), np.ones(4, bool),
                  np.array([0.0, g, np.nextafter(g, dtype(4.0)), 0.3], dtype)),
     }
+
+
+# ---------------------------------------------------------------------------
+# kernel check cases: KLT tracks (K2) and CLAHE images (K9)
+# ---------------------------------------------------------------------------
+
+
+def _textured(rng, H, W, n_blobs=40):
+    """Smooth random texture plus gaussian blobs in [0, 1]."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    img = 0.15 + 0.1 * np.sin(xx / 7.0 + rng.uniform(0, 6)) * np.cos(yy / 9.0)
+    for _ in range(n_blobs):
+        cx, cy = rng.uniform(8, W - 8), rng.uniform(8, H - 8)
+        img += rng.uniform(0.3, 0.7) * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 6.0)
+    return np.clip(img, 0.0, 1.0)
+
+
+def _shifted(img, dx, dy):
+    """img resampled bilinearly at (x - dx, y - dy), edge-clamped: the
+    content moves by (+dx, +dy)."""
+    H, W = img.shape
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    x, y = np.clip(xx - dx, 0, W - 1), np.clip(yy - dy, 0, H - 1)
+    x0, y0 = np.minimum(np.floor(x).astype(int), W - 2), np.minimum(np.floor(y).astype(int), H - 2)
+    fx, fy = x - x0, y - y0
+    return ((1 - fy) * ((1 - fx) * img[y0, x0] + fx * img[y0, x0 + 1])
+            + fy * ((1 - fx) * img[y0 + 1, x0] + fx * img[y0 + 1, x0 + 1]))
+
+
+def klt_cases(seed=0, H=96, W=128):
+    """Tracks for the pyramidal KLT, by name: (img0, img1 [H, W], pts0
+    [N, 2], init_flow [N, 2] or None, config overrides of
+    ``ops/klt.KLTConfig``) as numpy f64:
+
+    - "border": features on and next to the image border, where the
+      template's and the moving window's anchor clips bind;
+    - "flat": six features inside a constant square (det <= 1e-12, ok
+      false), then textured ones outside it;
+    - "past drift": one level, a 7.6 px shift from a zero guess, past the
+      in-window drift margin of 5 px, so the re-anchor decides;
+    - "gain/bias": the second image 1.25 x the first + 0.05 and shifted, in
+      the line matcher's gain/bias mode (win 15, 8 iterations);
+    - "empty": no feature;
+    - "levels 1" .. "levels 4": 1-4 pyramid levels from an initial flow."""
+    rng = np.random.default_rng(seed)
+    img0 = _textured(rng, H, W)
+    inner = rng.uniform([12, 12], [W - 12, H - 12], (24, 2))
+    border = np.array([[0.0, 0.0], [0.5, 40.0], [W - 1.0, 3.0], [W - 0.3, H - 0.3],
+                       [2.0, H - 2.0], [W / 2, 0.2], [W / 2, H - 1.0], [6.0, 6.0],
+                       [W - 6.5, H / 2]])
+    flat = img0.copy()
+    flat[20:80, 30:100] = 0.4  # a feature's whole superset (P + 3 = 24 px) inside
+    outside = np.array([[12.0, 12.0], [115.0, 12.0], [12.0, 86.0], [116.0, 85.0],
+                        [64.0, 8.0], [64.0, 90.0]])
+    flat_pts = np.concatenate([rng.uniform([46, 36], [84, 64], (6, 2)), outside])
+    init = rng.uniform(-1.5, 1.5, (24, 2)) + np.array([2.6, -1.9])
+    cases = {
+        "border": (img0, _shifted(img0, 1.7, -0.8), np.concatenate([border, inner[:8]]),
+                   None, {}),
+        "flat": (flat, _shifted(flat, 1.2, 0.9), flat_pts, None, {}),
+        "past drift": (img0, _shifted(img0, 7.6, 6.2), inner, None, {"levels": 1}),
+        "gain/bias": (img0, 1.25 * _shifted(img0, 2.3, -1.4) + 0.05, inner, None,
+                      {"win": 15, "iters": 8, "illum_adapt": True}),
+        "empty": (img0, img0, np.zeros((0, 2)), None, {}),
+    }
+    for levels in (1, 2, 3, 4):
+        cases[f"levels {levels}"] = (img0, _shifted(img0, 3.1, -2.4), inner, init,
+                                     {"levels": levels})
+    return cases
+
+
+def clahe_cases(seed=0):
+    """Images for CLAHE, by name, numpy f64:
+
+    - "constant": every pixel in one bin, so the clip and the spread bind;
+    - "outside [0, 1]": values from -0.3 to 1.4 (clipped before binning);
+    - "crop": 77 x 101, not multiples of the 8 x 8 tiles, so the histograms
+      crop the image and the mapping covers the rest;
+    - "random": seeded uniform noise."""
+    rng = np.random.default_rng(seed)
+    return {
+        "constant": np.full((96, 128), 0.37),
+        "outside [0, 1]": rng.uniform(-0.3, 1.4, (96, 128)),
+        "crop": _textured(rng, 77, 101, n_blobs=20),
+        "random": rng.uniform(0.0, 1.0, (96, 128)),
+    }
