@@ -88,6 +88,16 @@ Phases (any failure exits nonzero; there is no CPU path):
      its twin on the last frame's real inputs with budget = max_features
      (twice, equal to the last bit).  Its launch counts of K20 go to the
      kernels JSON.
+  Phase 3 holds K1 as track calls it (both 3-level pyramids in one launch)
+  against its plain twin (1e-6, two calls equal to the bit), also at 2
+  (pyr_down) and 4 levels, 5 refused, and at 2-4 levels on 61x97 and 40x3
+  images, the two at once (two launches) and the frame one float off a
+  16-byte boundary (K1's scalar loads); every pyramid pair of phases 4-6 is
+  kept (by reference) and built again afterwards (to the bit, 1e-6 to the
+  twin), and each of phases 4-6 launches K1 exactly as often as K2 (one
+  launch a track call).  It holds K8's vp_score on an all-zero grid (flat
+  index 0) and on the line sets of vp_line_cases, two calls equal to the
+  bit; every vp_score call of phases 5-6 runs again, equal to the bit.
   Phase 3 holds K2 as track calls it (every pyramid level and the gates in
   one launch) against track_plain on 150 points of a frame and on a lines
   frame's anchors in gain/bias mode, from a zero and from a nonzero initial
@@ -131,14 +141,16 @@ Phases (any failure exits nonzero; there is no CPU path):
   --imu-witness runs phases 4-5 again with K10's plain twin (f32, on the
   card) and prints their ATE beside the kernel's; --klt-witness does the
   same with K2's (track_plain).
-  --against TREE (alias --vp-grid-against) builds TREE's csrc/vp.cu,
-  klt.cu and clahe.cu (another checkout, e.g. the parent commit unpacked
-  with git archive) and runs them on this tree's inputs in this process:
-  its vp_grid to the bit on phase 3's inputs and on every lines frame of
-  phases 5 and 6 (with vp_score's labels on its grid), its K9 (LUTs and
-  output) to the bit on phase 3's frames and on every clahe call of phase
-  6, its track beside this tree's on phase 3's tracks; each is timed on
-  the same inputs.
+  --against TREE (alias --vp-grid-against) builds TREE's csrc/pyr_down.cu,
+  vp.cu, klt.cu and clahe.cu (another checkout, e.g. the parent commit
+  unpacked with git archive) and runs them on this tree's inputs in this
+  process: its K1 to the bit on every level of phase 3's pyramids and of
+  every track call of phases 4-6, its vp_grid and vp_score to the bit on
+  phase 3's inputs, the vp_line_cases sets and every lines frame of phases
+  5 and 6 (with vp_score's labels on its grid), its K9 (LUTs and output)
+  to the bit on phase 3's frames and on every clahe call of phase 6, its
+  track beside this tree's on phase 3's tracks; each is timed on the same
+  inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -269,19 +281,22 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
                      library_label=library_label)
 
 
-# device time per call of the designs the current K2, K9, K8 vp_grid, K10,
-# K11, K12, K13, K14, K17 signature and K20 greedy pass replaced (a launch
-# of a 256-thread CTA per feature for each of three levels; a CTA per tile
+# device time per call of the designs the current K1, K2, K9, K8 vp_grid
+# and vp_score, K10, K11, K12, K13, K14, K17 signature and K20 greedy pass
+# replaced (a launch a level and image, a thread per output pixel: the four
+# launches of a track call's two 3-level pyramids; a launch of
+# a 256-thread CTA per feature for each of three levels; a CTA per tile
 # with shared atomics, then a thread per pixel; one CTA holding
-# the whole grid; a CTA of 256 threads per interval over every step; five
+# the whole grid; one CTA scoring every hypothesis; a CTA of 256 threads
+# per interval over every step; five
 # launches, a thread per observation carrying all its tangents; a CTA per
 # node-pair tile scanning every row; two launches, one-CTA Cholesky; a
 # thread per entry of H1 over every slot; one CTA over all descriptors;
 # 2 x 30 + 1 launches of 45x45 LUs), on phase 3's inputs, on an NVIDIA H100
 # 80GB HBM3 at 700 W, for the log beside the new ones
-PREVIOUS_DEVICE_MS = {"klt_track": 3 * 0.0167, "klt_track_gain_bias": 3 * 0.0247,
-                      "clahe": 0.0068 + 0.0048,
-                      "vp_grid": 0.1962, "preintegrate": 0.1431, "window_lin": 0.1340,
+PREVIOUS_DEVICE_MS = {"pyramids": 0.0089, "klt_track": 3 * 0.0167,
+                      "klt_track_gain_bias": 3 * 0.0247, "clahe": 0.0068 + 0.0048,
+                      "vp_grid": 0.1962, "vp_score": 0.0202, "preintegrate": 0.1431, "window_lin": 0.1340,
                       "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
                       "simhash_signature": 0.1194, "selector_greedy": 4.8784}
 
@@ -321,18 +336,21 @@ def device_times(rec):
                 f"({r['solve_bound_by']})")
 
 
-# --against: another tree's K8 vp_grid, K2 and K9, as functions of this
-# tree's arguments (OtherTree)
+# --against: another tree's K1, K8 (vp_grid, vp_score), K2 and K9, as
+# functions of this tree's arguments (OtherTree)
 AGAINST = None
 
 
 class OtherTree:
     """Kernels of another checkout (the parent commit's, say, unpacked with
-    ``git archive``): its ``csrc/vp.cu``, ``klt.cu`` and ``clahe.cu``, each
-    built into a library of its own beside this tree's build (one nvcc a
-    source, all started together), called with this tree's arguments, so
-    that the two designs run on the same inputs in one process.  K2 comes
-    as the previous design's per-level entry (``vp_klt_track_level``, with
+    ``git archive``): its ``csrc/pyr_down.cu``, ``vp.cu``, ``klt.cu`` and
+    ``clahe.cu``, each built into a library of its own beside this tree's
+    build (one nvcc a source, all started together), called with this
+    tree's arguments, so that the two designs run on the same inputs in one
+    process.  K1 comes as the previous design's one-level entry
+    (``vp_pyr_down``, a launch a level and image) or as this tree's
+    ``vp_pyramids``; vp_score with this tree's arguments; K2 as the
+    previous design's per-level entry (``vp_klt_track_level``, with
     ``track``'s level loop and gates around it here) or as this tree's
     fused entry; K9 as the previous design's two entries or this tree's
     one."""
@@ -345,7 +363,7 @@ class OtherTree:
 
         self.tree = Path(tree).resolve()
         srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
-                for n in ("vp", "klt", "clahe")}
+                for n in ("pyr_down", "vp", "klt", "clahe")}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -362,7 +380,7 @@ class OtherTree:
                 fail(f"nvcc failed on {srcs[n]}:\n{out}")
         self.lib = {n: ctypes.CDLL(str(so)) for n, so in libs.items()}
         self.fns = {}
-        log(f"the other tree's vp_grid, K2 and K9: {self.tree}")
+        log(f"the other tree's K1, vp_grid, vp_score, K2 and K9: {self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -396,6 +414,37 @@ class OtherTree:
                    angle.data_ptr(), valid8.data_ptr(), line.shape[0], cfg.grid_la,
                    cfg.grid_lo, float(cfg.pair_angle_gate), grid.data_ptr())
         return grid
+
+    def vp_score(self, grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg):
+        """The other tree's vp_score (the same C entry and arguments)."""
+        from vplines_slam_tpu_torch.ops import vp
+
+        return self._swapped(vp.VP_SCORE, "vp", lambda: vp.vp_score(grid, vp1, b1, b2, cos_s,
+                                                                     sin_s, line, valid, cfg))
+
+    def pyramids(self, imgs, levels):
+        """The other tree's K1 on one or two images of one shape: a pyramid
+        (a list of levels) each; the previous design launches once a level
+        and image."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import image
+
+        if self.has("pyr_down", "vp_pyramids"):
+            return self._swapped(image.PYRAMIDS, "pyr_down",
+                                 lambda: image._pyramids_cuda(imgs, levels))
+        out = []
+        for im in imgs:
+            pyr = [im]
+            for _ in range(levels - 1):
+                H, W = pyr[-1].shape
+                dst = torch.empty((H + 1) // 2, (W + 1) // 2, dtype=im.dtype, device=im.device)
+                self._call("pyr_down", "vp_pyr_down", [kmod.P, kmod.P] + [kmod.I] * 4,
+                           pyr[-1].data_ptr(), dst.data_ptr(), H, W, dst.shape[0], dst.shape[1])
+                pyr.append(dst)
+            out.append(pyr)
+        return out
 
     def track_level(self, img0, img1, pts0, guess, cfg):
         """The other tree's K2 on one level: (flow, ok, resid)."""
@@ -618,11 +667,29 @@ def klt_frames_check(store, where):
         fail(f"K2 klt_track on {where}'s calls")
 
 
+def vp_score_same(store):
+    """(vp_score again on each recorded call's inputs equal to its outputs
+    to the bit, with --against the other tree's vp_score equal to them to
+    the bit)."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import vp
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    again = all(equal(vp.vp_score(*r["score_args"]), r["score"]) for r in store)
+    same = AGAINST is None or all(equal(AGAINST.vp_score(*r["score_args"]), r["score"])
+                                  for r in store)
+    return again, same
+
+
 def vp_frames_check(rec, store, where):
-    """Every recorded lines frame: vp_grid again on its inputs, equal to the
-    bit; with --vp-grid-against the other tree's grid equal to the bit and
-    vp_score's labels on it equal to the frame's.  Adds the kernels' device
-    time per call over these frames to vp_grid's record."""
+    """Every recorded lines frame: vp_grid and vp_score again on their
+    inputs, equal to the bit; with --against the other tree's grid equal to
+    the bit and vp_score's labels on it equal to the frame's, and the other
+    tree's vp_score equal to the frame's to the bit.  Adds the kernels'
+    device time per call over these frames to their records."""
     import torch
 
     from vplines_slam_tpu_torch.ops import vp
@@ -630,25 +697,106 @@ def vp_frames_check(rec, store, where):
     if not store:
         fail(f"{where}: no vp_grid call recorded")
     again = all(torch.equal(vp.vp_grid(*r["grid_args"]), r["grid"]) for r in store)
-    ok, other = again, ""
+    score_again, score_same = vp_score_same(store)
+    ok, other = again and score_again, ""
     if AGAINST is not None:
         grids = [AGAINST.vp_grid(*r["grid_args"]) for r in store]
         same_grid = all(torch.equal(g, r["grid"]) for g, r in zip(grids, store))
         same_ids = all(torch.equal(vp.vp_score(g, *r["score_args"][1:])[1], r["score"][1])
                        for g, r in zip(grids, store))
-        other = (f"; the other tree's kernel: grids equal to the bit {same_grid}, VP labels "
-                 f"equal {same_ids}")
-        ok = ok and same_grid and same_ids
-    log(f"K8 vp_grid on {where}'s {len(store)} lines frames: again on each frame's inputs, "
-        f"equal to the bit: {again}{other}")
+        other = (f"; the other tree's kernels: grids equal to the bit {same_grid}, VP labels "
+                 f"on them equal {same_ids}, vp_score's vps, labels and best equal to the bit "
+                 f"{score_same}")
+        ok = ok and same_grid and same_ids and score_same
+    log(f"K8 on {where}'s {len(store)} lines frames: again on each frame's inputs, equal to "
+        f"the bit: vp_grid {again}, vp_score {score_again}{other}")
     if not ok:
-        fail(f"K8 vp_grid on {where}'s frames")
-    extra = rec["vp_grid"].setdefault("extra_device_of", {})
-    extra[f"{where}'s {len(store)} lines frames, per call"] = (
-        lambda: [vp.vp_grid(*r["grid_args"]) for r in store], len(store))
+        fail(f"K8 vp_grid / vp_score on {where}'s frames")
+    # the kernel alone (its symbol), not the wrappers' conversions
+    for name, args_key, fn, other_fn in (
+            ("vp_grid", "grid_args", vp.vp_grid, AGAINST and AGAINST.vp_grid),
+            ("vp_score", "score_args", vp.vp_score, AGAINST and AGAINST.vp_score)):
+        extra = rec[name].setdefault("extra_device_of", {})
+        extra[f"{where}'s {len(store)} lines frames, per call"] = (
+            lambda fn=fn, k=args_key: [fn(*r[k]) for r in store], len(store), f"{name}_kernel")
+        if AGAINST is not None:
+            extra[f"the other tree's {name} on {where}'s frames, per call"] = (
+                lambda fn=other_fn, k=args_key: [fn(*r[k]) for r in store], len(store),
+                f"{name}_kernel")
+
+
+@contextlib.contextmanager
+def recording_pyramids(store):
+    """Keep every pyramid pair ``klt.track`` builds in the block in store,
+    as references to its inputs and outputs (no copy, no launch, no sync),
+    for ``pyramid_frames_check``."""
+    from vplines_slam_tpu_torch.ops import klt
+
+    build = klt.build_pyramids
+
+    def rec(img0, img1, levels):
+        out = build(img0, img1, levels)
+        store.append(((img0, img1, levels), out))
+        return out
+
+    klt.build_pyramids = rec
+    try:
+        yield store
+    finally:
+        klt.build_pyramids = build
+
+
+def pyramid_frames_check(rec, store, where):
+    """Every recorded pyramid pair: K1 again on its images equal to the bit,
+    the plain version within 1e-6 on every level; with --against every
+    level equal to the other tree's K1 to the bit.  Adds K1's device time
+    per call over these calls to its record."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import image
+
+    if not store:
+        fail(f"{where}: no pyramid built")
+
+    def levels_of(out):
+        return [lv for pyr in out for lv in pyr]
+
+    again = all(all(torch.equal(a, b) for a, b in zip(levels_of(image.build_pyramids(*args)),
+                                                       levels_of(out)))
+                for args, out in store)
+    err = 0.0
+    for (img0, img1, n), out in store:
+        for im, pyr in zip((img0, img1), out):
+            for lv, ref in zip(pyr[1:], image.build_pyramid_plain(im, n)[1:]):
+                err = max(err, float((lv - ref).abs().max()))
+    ok, other = again and err <= 1e-6, ""
     if AGAINST is not None:
-        extra[f"the other tree's vp_grid on {where}'s frames, per call"] = (
-            lambda: [AGAINST.vp_grid(*r["grid_args"]) for r in store], len(store))
+        same = all(all(torch.equal(a, b) for a, b in zip(
+            levels_of(AGAINST.pyramids([args[0], args[1]], args[2])), levels_of(out)))
+            for args, out in store)
+        other = f"; every level equal to the other tree's K1 to the bit: {same}"
+        ok = ok and same
+    log(f"K1 pyramids on {where}'s {len(store)} track calls: again on each call's images, equal "
+        f"to the bit: {again}; max |kernel - plain| {err:.3e} (tol 1e-6){other}")
+    if not ok:
+        fail(f"K1 pyramids on {where}'s track calls")
+    extra = rec["pyramids"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} track calls, per call"] = (
+        lambda: [image.build_pyramids(*args) for args, _ in store], len(store), "pyr")
+    if AGAINST is not None:
+        extra[f"the other tree's K1 on {where}'s track calls, per call"] = (
+            lambda: [AGAINST.pyramids([a[0], a[1]], a[2]) for a, _ in store], len(store), "pyr")
+
+
+def one_pyramid_launch_a_track(launches, where):
+    """Each track call with points builds both pyramids in one K1 launch and
+    tracks in one K2 launch: the two counts of a run are equal."""
+    from vplines_slam_tpu_torch.ops import image, klt
+
+    n1, n2 = launches.get(image.PYRAMIDS.name), launches.get(klt.KLT_TRACK.name)
+    log(f"{where}: K1 launches {n1}, K2 launches {n2} (one K1 launch a track call)")
+    if n1 is None or n1 != n2:
+        fail(f"{where}: K1 launched {n1} times for {n2} track calls")
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +946,7 @@ def klt_fused_check(rec, name, img0, img1, pts0, valid, kcfg, cost):
     if not (one and same and e <= 1e-3 and agree >= 0.99 and ei <= 1e-3 and agree_i >= 0.99
             and same_o):
         fail(f"K2 klt_track ({name}) disagrees with track_plain or the other tree's track")
-    # both with the four K1 launches of the pyramids; the device time counts K2 alone
+    # both with the K1 launch of the pyramids; the device time counts K2 alone
     record(rec, name, max(e, ei), lambda: klt.track(img0, img1, pts0, kcfg),
            lambda: klt.track_plain(img0, img1, pts0, kcfg), "klt_track_kernel", *cost)
     if AGAINST is not None:
@@ -825,21 +973,102 @@ def phase_kernels(S, SL):
     cfg = S["tcfg"]
     n_px = H * W
 
-    # K1 pyr_down at 480x752 (and the second level)
-    errs = []
-    for im in (img0, image.pyr_down_plain(img0)):
-        errs.append(float((image.pyr_down(im) - image.pyr_down_plain(im)).abs().max()))
-    err = max(errs)
+    # K1: both pyramids of a track call (frames 0 and 1, the KLT's levels) in
+    # one launch, every level within 1e-6 of the plain twin (f32 sums in
+    # another rounding: the kernel fuses its multiply-adds), two calls equal
+    # to the bit; one image at 2 (pyr_down) and at 4 levels, and 5 levels
+    # refused before a launch; with --against every level equal to the other
+    # tree's K1 to the bit
+    levels = cfg.klt.levels
     tol = 1e-6
-    log(f"K1 pyr_down: max |kernel - plain| = {err:.3e} (tol {tol})")
-    if not err <= tol:
-        fail("K1 pyr_down disagrees with its plain version")
+    plain_pyr = image.build_pyramid_plain
+
+    def pyr_err(got, ref):
+        return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+    n0 = image.PYRAMIDS.launches
+    pk = image.build_pyramids(img0, img1, levels)
+    one = image.PYRAMIDS.launches - n0 == 1
+    again = all(torch.equal(a, b) for a, b in zip(sum(pk, []),
+                                                  sum(image.build_pyramids(img0, img1, levels),
+                                                      [])))
+    err = max(pyr_err(pk[0], plain_pyr(img0, levels)), pyr_err(pk[1], plain_pyr(img1, levels)))
+    others = {f"{levels} levels, both frames": (pk, [img0, img1], levels),
+              "2 levels (pyr_down)": ([[img0, image.pyr_down(img0)]], [img0], 2),
+              "4 levels": ([image.build_pyramid(img0, 4)], [img0], 4)}
+    for label, (got, _, n) in list(others.items())[1:]:
+        err = max(err, pyr_err(got[0], plain_pyr(img0, n)))
+    try:
+        image.build_pyramids(img0, img1, image.MAX_LEVELS + 1)
+        refused = False
+    except ValueError as e:
+        refused = f"MAX_LEVELS = {image.MAX_LEVELS}" in str(e)
+    same_o, other = True, ""
+    if AGAINST is not None:
+        for label, (got, imgs, n) in others.items():
+            same_o &= all(torch.equal(a, b) for a, b in zip(sum(got, []),
+                                                            sum(AGAINST.pyramids(imgs, n), [])))
+        other = f"; every level equal to the other tree's K1 to the bit: {same_o}"
+    log(f"K1 pyramids ({levels} levels of two {H}x{W} frames; 2 and 4 levels of one): one "
+        f"launch a call {one}; max |kernel - plain| = {err:.3e} (tol {tol}); two calls equal to "
+        f"the bit: {again}; {image.MAX_LEVELS + 1} levels refused with a ValueError naming "
+        f"the limit: {refused}{other}")
+    if not (one and err <= tol and again and refused and same_o):
+        fail("K1 pyramids disagree with the plain version, across two calls or with the other "
+             "tree's K1")
+    # K1 off the frame's shape, at 2-4 levels: the scalar loads (W % 4 != 0,
+    # or a source 4 bytes past a 16-byte boundary: a contiguous view one
+    # float into a buffer), a coarsest level one pixel wide (40x3), and two
+    # images of different shapes (two launches); within 1e-6 of the plain
+    # twin, with --against equal to the other tree's K1 to the bit
+    gen = torch.Generator(device=img0.device).manual_seed(12)
+    a61 = torch.rand(61, 97, generator=gen, device=img0.device)
+    a40 = torch.rand(40, 3, generator=gen, device=img0.device)
+    buf = torch.empty(H * W + 1, device=img0.device)
+    mis = buf[1:].view(H, W)
+    mis.copy_(img0)
+    odd = {"61x97": [a61], "40x3": [a40], "61x97 beside 40x3": [a61, a40],
+           "the frame misaligned": [mis], "the frame misaligned beside frame 1": [mis, img1]}
+    err_odd, launches_ok, same_odd = 0.0, True, True
+    for label, imgs in odd.items():
+        for n in (2, 3, 4):
+            n0 = image.PYRAMIDS.launches
+            got = ([image.build_pyramid(imgs[0], n)] if len(imgs) == 1
+                   else list(image.build_pyramids(imgs[0], imgs[1], n)))
+            launches_ok &= image.PYRAMIDS.launches - n0 == (
+                1 if imgs[0].shape == imgs[-1].shape else 2)
+            for im, pyr in zip(imgs, got):
+                err_odd = max(err_odd, pyr_err(pyr, plain_pyr(im, n)))
+                if AGAINST is not None:
+                    same_odd &= all(torch.equal(a, b)
+                                    for a, b in zip(pyr, AGAINST.pyramids([im], n)[0]))
+    other = (f"; every level equal to the other tree's K1 to the bit: {same_odd}"
+             if AGAINST is not None else "")
+    log(f"K1 pyramids off the frame's shape ({', '.join(odd)}; 2-4 levels): launches as "
+        f"expected (two for different shapes) {launches_ok}; max |kernel - plain| = "
+        f"{err_odd:.3e} (tol {tol}){other}")
+    if not (launches_ok and err_odd <= tol and same_odd):
+        fail("K1 pyramids off the frame's shape disagree with the plain version or the other "
+             "tree's K1")
+    sizes = [(H, W)]
+    for _ in range(levels - 1):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    # the least work: each level-0 image read once, every level written once;
+    # per output pixel 9 operations a 5-tap sum, horizontal and vertical
+    n_lv = sum(h * w for h, w in sizes[1:])
+    ops1 = sum(9 * h * (w + sizes[k][1]) for k, (h, w) in enumerate(sizes[1:]))
     taps = torch.tensor(image.PYR_TAPS, device=img0.device)
     k2d = (taps[:, None] * taps[None, :])[None, None]
-    n_out = ((H + 1) // 2) * ((W + 1) // 2)
-    record(rec, "pyr_down", err, lambda: image.pyr_down(img0), lambda: image.pyr_down_plain(img0),
-           "pyr_down_kernel", 4 * (n_px + n_out), 50 * n_out,
-           library_fn=lambda: F.conv2d(img0[None, None], k2d, stride=2, padding=2))
+    frames2 = torch.stack([img0, img1])[:, None]
+    record(rec, "pyramids", err, lambda: image.build_pyramids(img0, img1, levels),
+           lambda: (plain_pyr(img0, levels), plain_pyr(img1, levels)), "pyramids_kernel",
+           2 * 4 * (n_px + n_lv), 2 * ops1,
+           library_fn=lambda: F.conv2d(frames2, k2d, stride=2, padding=2),
+           library_label="level 1 of both frames alone")
+    if AGAINST is not None:
+        rec["pyramids"]["extra_device_of"] = {
+            "the other tree's K1 on the same two frames":
+                (lambda: AGAINST.pyramids([img0, img1], levels), 1, "pyr")}
 
     # K2 klt level: 150 features detected on frame 0, every pyramid level
     xy0, _, valid0 = corners.detect(img0, cfg.max_features, cfg.min_dist, cfg.quality)
@@ -1133,7 +1362,7 @@ def phase_kernels(S, SL):
     if AGAINST is not None:
         rec["vp_grid"]["extra_device_of"] = {
             "the other tree's vp_grid on phase 3's frame":
-                lambda: AGAINST.vp_grid(line, length, angle, v0, vcfg)}
+                (lambda: AGAINST.vp_grid(line, length, angle, v0, vcfg), 1, "vp_grid_kernel")}
     u8 = SL["vp_u"][0]
     probs = v0.to(line.dtype) + 1e-6
     pidx = vp.choice_from_uniform(probs / probs.sum(), u8)
@@ -1160,12 +1389,44 @@ def phase_kernels(S, SL):
     if not (err_s8 <= 1e-5 * max(abs(float(sp[2])), 1.0) and vps_dot >= 0.9999
             and id_agree >= 0.95):
         fail("K8 vp_score disagrees with its plain version")
+    # two calls equal to the bit; an all-zero grid ties everywhere and must
+    # give flat index 0 (vp1[0], sweep position 0) with best 0; the line sets
+    # of utils/synthetic.vp_line_cases through detect_vps (the recorded
+    # calls again equal to the bit); with --against vps, labels and best
+    # equal to the bit to the other tree's vp_score on all of them
+    sargs = (gp8, vp1, b1, b2, cs, sn, line, v0, vcfg)
+    zargs = (torch.zeros_like(gp8),) + sargs[1:]
+    zk = vp.vp_score(*zargs)
+    v2_00 = b1[0] * cs[0] + b2[0] * sn[0]
+    zero_ok = (torch.equal(zk[0][0], vp1[0]) and float(zk[2]) == 0.0
+               and float((zk[0][1] - v2_00).abs().max()) <= 1e-6)
+    with recording_vp([]) as vcases:
+        u_rng = np.random.default_rng(SEED + 8)
+        for label, (segs, val, _) in synthetic.vp_line_cases(seed=SEED,
+                                                           dtype=np.float32).items():
+            vp.detect_vps(torch.as_tensor(segs, dtype=torch.float32, device=line.device),
+                          torch.as_tensor(val, device=line.device), fx8, cx8, cy8,
+                          torch.as_tensor(u_rng.uniform(0, 1, (vcfg.n_pairs, 2)),
+                                          device=line.device), vcfg)
+    score_calls = [dict(score_args=sargs, score=sk), dict(score_args=zargs, score=zk)] + vcases
+    again, same_o = vp_score_same(score_calls)
+    log(f"K8 vp_score: an all-zero grid gives flat index 0 with best 0: {zero_ok}; on phase 3's "
+        f"frame, the zero grid and the {len(vcases)} line sets of vp_line_cases: two calls "
+        f"equal to the bit {again}"
+        + ("" if AGAINST is None else f", vps, labels and best equal to the other tree's "
+                                      f"vp_score to the bit {same_o}"))
+    if not (zero_ok and again and same_o):
+        fail("K8 vp_score: the zero grid's index, two calls or the other tree's kernel")
     P8 = vp1.shape[0]
     record(rec, "vp_score", err_s8, lambda: vp.vp_score(gp8, vp1, b1, b2, cs, sn, line, v0, vcfg),
            lambda: vp.vp_score_plain(gp8, vp1, b1, b2, cs, sn, line, v0, vcfg),
            "vp_score_kernel",
            4 * (vcfg.grid_la * vcfg.grid_lo + 9 * P8 + 2 * vcfg.n_sweep + 3 * Lg + 10) + Lg * 5,
            P8 * vcfg.n_sweep * 3 * 45 + Lg * 3 * 30)
+    if AGAINST is not None:
+        rec["vp_score"]["extra_device_of"] = {
+            "the other tree's vp_score on the same inputs":
+                (lambda: AGAINST.vp_score(*sargs), 1, "vp_score_kernel")}
 
     # K9 clahe: the raw frame (point tracker) and the undistorted one (line
     # tracker), 8x8 tiles of 60x94 px, 32 bins, clip 3.0; two calls to the
@@ -3297,10 +3558,12 @@ def main(argv=None):
                          "alone moves)")
     ap.add_argument("--against", "--vp-grid-against", dest="against", metavar="TREE",
                     help="another checkout (e.g. the parent commit unpacked with git "
-                         "archive): build its K8 vp_grid, K2 and K9 and run them on this "
-                         "tree's inputs in this process: vp_grid and K9 to the bit on phase "
-                         "3's inputs and on every lines frame and clahe call of phases 5-6, "
-                         "each timed beside this tree's")
+                         "archive): build its K1, K8 (vp_grid, vp_score), K2 and K9 and run "
+                         "them on this tree's inputs in this process: K1 to the bit on "
+                         "phase 3's frames and every track call of phases 4-6, vp_grid and "
+                         "vp_score to the bit on phase 3's inputs and every lines frame of "
+                         "phases 5-6, K9 to the bit on every clahe call of phase 6, each "
+                         "timed beside this tree's")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -3347,14 +3610,18 @@ def main(argv=None):
         device_times(rec)
         return
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: points slice")
-    with recording_klt([]) as klt4:
-        _, sl, prof_points = phase_slice(S)
+    with recording_klt([]) as klt4, recording_pyramids([]) as pyr4:
+        launches4, sl, prof_points = phase_slice(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
-    with recording_vp([]) as vp5, recording_klt([]) as klt5:
-        _, ll, prof_lines = phase_lines(SL)
+    with recording_vp([]) as vp5, recording_klt([]) as klt5, recording_pyramids([]) as pyr5:
+        launches5, ll, prof_lines = phase_lines(SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
-    with recording_vp([]) as vp6, recording_clahe([]) as cl6:
+    with recording_vp([]) as vp6, recording_clahe([]) as cl6, recording_pyramids([]) as pyr6:
         launches, cs = phase_cold_start(C, profile=args.profile)
+    for where, counted, pyrs in (("phase 4", launches4, pyr4), ("phase 5", launches5, pyr5),
+                                 ("phase 6", launches, pyr6)):
+        one_pyramid_launch_a_track(counted, where)
+        pyramid_frames_check(rec, pyrs, where)
     klt_frames_check(klt4, "phase 4")
     klt_frames_check(klt5, "phase 5")
     vp_frames_check(rec, vp5, "phase 5")

@@ -30,6 +30,11 @@
 #ifndef VP_BALLOT
 #define VP_BALLOT(p) __ballot_sync(0xffffffffu, (p))
 #endif
+// The warp's greatest unsigned / least int in one instruction (K8's vp_score)
+#ifndef VP_REDUX_MAX
+#define VP_REDUX_MAX(v) __reduce_max_sync(0xffffffffu, (unsigned)(v))
+#define VP_REDUX_MIN(v) __reduce_min_sync(0xffffffffu, (int)(v))
+#endif
 #ifndef VP_MMA_F64
 #define VP_MMA_F64(d0, d1, a, b)                                                     \
   asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, " \
@@ -62,6 +67,14 @@
     cfg_.numAttrs = 1;                                                \
     return cudaLaunchKernelEx(&cfg_, kern, __VA_ARGS__);              \
   }()
+#endif
+// The cluster's barrier in two halves (K8's vp_score): every thread of the
+// cluster arrives without ordering memory on entry, works on, and waits
+// before it first touches another CTA's shared memory (all CTAs of the
+// cluster have started by then).
+#ifndef VP_CLUSTER_ARRIVE
+#define VP_CLUSTER_ARRIVE() asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory")
+#define VP_CLUSTER_WAIT() asm volatile("barrier.cluster.wait.aligned;" ::: "memory")
 #endif
 
 namespace vp {

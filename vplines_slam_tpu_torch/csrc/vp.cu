@@ -25,17 +25,41 @@
 //   kernel by float reassociation).  The CTA then smooths its row from the
 //   three and writes it, coalesced.  Under 48 KB of shared memory, so no
 //   attribute is set on the frame path.
-// vp_score design: ONE block; each thread scores hypotheses (three grid
-//   lookups, summed in order), a (value, index) block reduction takes the
-//   maximum with the LOWEST flat index on ties -- ties are common, since
-//   many hypotheses sum the same three cells -- and the threads then label
-//   the lines against the winning VP triple.
+// vp_score design: one launch of a cluster of kCluster = 16 CTAs.  CTA r
+//   takes vp1 hypotheses [r * ppc, (r + 1) * ppc) (ppc = ceil(P / 16): 4 of
+//   64) and all S sweep positions of each, two threads a hypothesis (4 x 90
+//   x 2 of 768): one finds the v2 cell, the other the v3 cell, and a
+//   shuffle brings the two masses together.  vp1's cell depends on p alone,
+//   so it is found once per p, by threads that hold no hypothesis, while
+//   the others find theirs; each score is then ((0 + g[c1]) + g[c2]) +
+//   g[c3], as before.  Each CTA takes its best (value, flat index p * S +
+//   s): the greatest score, on ties the LOWEST index -- ties are common,
+//   since many hypotheses sum the same three cells, and an all-zero grid
+//   ties everywhere (index 0) -- a comparison that is exact in any
+//   reduction order.  A score is taken only when above -inf, so a NaN score
+//   is never taken.  Each CTA writes its best into the leader's shared
+//   memory (distributed shared memory; a cluster barrier arrived at on
+//   entry and waited for just before makes sure every CTA has started;
+//   only warp 0 and the leader's warps that hold a line take part after
+//   the CTA's reduction); after one more cluster barrier the other CTAs
+//   leave.  Each of the leader's remaining warps folds the 16 bests,
+//   rebuilds the winning VP triple, and its threads label their lines.
+//   Warp reductions are two redux.sync instructions (the greatest key,
+//   the least index that holds it) and a shuffle of the holder's value.
+//   No global state outlives the launch.  (Measured on the H100: a thread
+//   a hypothesis, the triple pushed with each best, and the line
+//   normalisation between the halves of the last barrier were all slower.)
 // Products and sums that feed a bin index or a comparison are rounded one
 // operation at a time (no FMA contraction), as the plain version computes
 // them.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
+#include <climits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -57,12 +81,10 @@ __device__ __forceinline__ float norm3(const float* v) {
   return __fsqrt_rn(add(add(mul(v[0], v[0]), mul(v[1], v[1])), mul(v[2], v[2])));
 }
 
-// torch.remainder for floats: the result takes the divisor's sign
-__device__ __forceinline__ float torch_remainder(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.f && ((b < 0.f) != (m < 0.f))) m = add(m, b);
-  return m;
-}
+// torch.remainder(a, 2 pi) for a = atan2f(.): |a| <= pi < 2 pi, so fmodf(a, 2 pi)
+// is a itself, and the result takes the divisor's sign (-0 and NaN pass as
+// they are, as there)
+__device__ __forceinline__ float wrap_lon(float a) { return a < 0.f ? add(a, 2.f * kPi) : a; }
 
 // unit direction folded to the upper hemisphere
 __device__ __forceinline__ void sphere_dir(const float* v_in, float* v) {
@@ -83,7 +105,7 @@ __device__ __forceinline__ int sphere_row(const float* v, int grid_la) {
 }
 
 __device__ __forceinline__ int sphere_col(const float* v, int grid_lo) {
-  const float lon = torch_remainder(atan2f(v[1], v[0]), 2.f * kPi);
+  const float lon = wrap_lon(atan2f(v[1], v[0]));
   const int lo = (int)mul(__fdiv_rn(lon, 2.f * kPi), (float)grid_lo);
   return min(max(lo, 0), grid_lo - 1);
 }
@@ -211,7 +233,52 @@ __device__ __forceinline__ void hypothesis(const float* vp1, const float* b1, co
   cross3(vp1 + 3 * p, v2, v3);
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kCluster = 16;         // CTAs of vp_score's cluster (a non-portable size)
+constexpr int kScoreThreads = 768;   // a CTA: 4 vp1 x 90 sweep positions, two threads each
+constexpr int kMaxPairsPerCta = 64;  // vp1 hypotheses a CTA takes: P <= 1,024
+
+// vp_score's shared memory (dynamic: the leader's is written by the other CTAs)
+struct ScoreSmem {
+  float g1[kMaxPairsPerCta];  // the grid at each of the CTA's vp1 cells
+  float warp_val[kScoreThreads / 32];
+  int warp_idx[kScoreThreads / 32];
+  float cta_val[kCluster];  // the leader's: each CTA's best
+  int cta_idx[kCluster];
+};
+
+// (value, index) a beats (value, index) b: greater, or equal with a lower index
+__device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
+  return av > bv || (av == bv && ai < bi);
+}
+
+// The warp's best (value, index) in every lane: the greatest value (as an
+// order-preserving unsigned key; v is never NaN), the least index among the
+// lanes whose value equals it (-0 == +0, as the comparison above), and the
+// value of the lane that holds that index (its sign of zero).
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+  unsigned key = __float_as_uint(v);
+  key = key & 0x80000000u ? ~key : key | 0x80000000u;
+  key = VP_REDUX_MAX(key);
+  const float vmax = __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
+  const int imin = VP_REDUX_MIN(v == vmax ? i : INT_MAX);
+  v = VP_SHFL_IDX(v, __ffs(VP_BALLOT(v == vmax && i == imin)) - 1);
+  i = imin;
+}
+
+// the best of n (value, index) pairs in every lane of the calling warp
+__device__ __forceinline__ void fold_best(const float* val, const int* idx, int n, int lane,
+                                          float& v, int& i) {
+  v = -INFINITY;
+  i = INT_MAX;
+  for (int k = lane; k < n; k += 32)
+    if (beats(val[k], idx[k], v, i)) {
+      v = val[k];
+      i = idx[k];
+    }
+  warp_best(v, i);
+}
+
+__global__ void __launch_bounds__(kScoreThreads)
 vp_score_kernel(const float* __restrict__ grid, const float* __restrict__ vp1,
                 const float* __restrict__ b1, const float* __restrict__ b2,
                 const float* __restrict__ sweep, int P, int S,
@@ -219,66 +286,86 @@ vp_score_kernel(const float* __restrict__ grid, const float* __restrict__ vp1,
                 int L, int grid_la, int grid_lo, float angle_tol,
                 float* __restrict__ vps_out, int* __restrict__ vp_id,
                 float* __restrict__ best_out) {
-  __shared__ float s_val[kThreads / 32];
-  __shared__ int s_idx[kThreads / 32];
-  __shared__ float s_vps[9];
-  const int tid = threadIdx.x;
+  VP_DYN_SMEM(ScoreSmem, sm);
+  VP_CLUSTER_ARRIVE();
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5, rank = VP_CLUSTER_RANK();
+  const int ppc = (P + kCluster - 1) / kCluster, p0 = rank * ppc;
+  const int np = P - p0 < ppc ? (P - p0 > 0 ? P - p0 : 0) : ppc;
+  const int nh = np * S;  // this CTA's hypotheses: flat index p0 * S + h
+  const int part = tid & 1, step = nt >> 1;
+  // the grid at hypothesis (h0 + tid / 2)'s v2 and v3 cells: each of a pair
+  // of lanes finds one, a shuffle swaps them; every thread runs every round
+  float g2 = 0.f, g3 = 0.f;
+  auto cells = [&](int h0) {
+    const int h = h0 + (tid >> 1);
+    float g = 0.f;
+    if (h < nh) {
+      float v2[3], v3[3];
+      hypothesis(vp1, b1, b2, sweep, S, p0 + h / S, h % S, v2, v3);
+      g = grid[sphere_cell(part ? v3 : v2, grid_la, grid_lo)];
+    }
+    const float o = VP_SHFL_XOR(g, 1);
+    g2 = part ? o : g;
+    g3 = part ? g : o;
+  };
+  // vp1's cells once per p, on the last threads (those without a hypothesis
+  // of the first round when 2 * np * S + np <= nt), the first round's cells
+  for (int i = nt - 1 - tid; i < np; i += nt)
+    sm->g1[i] = grid[sphere_cell(vp1 + 3 * (p0 + i), grid_la, grid_lo)];
+  cells(0);
+  __syncthreads();
   float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int h = tid; h < P * S; h += blockDim.x) {
-    const int p = h / S, s = h % S;
-    float v2[3], v3[3];
-    hypothesis(vp1, b1, b2, sweep, S, p, s, v2, v3);
-    float score = 0.f;
-    score = add(score, grid[sphere_cell(vp1 + 3 * p, grid_la, grid_lo)]);
-    score = add(score, grid[sphere_cell(v2, grid_la, grid_lo)]);
-    score = add(score, grid[sphere_cell(v3, grid_la, grid_lo)]);
-    if (score > bv) {  // a thread's hypotheses come in increasing order
-      bv = score;
-      bi = h;
+  int bi = INT_MAX;
+  for (int h0 = 0; h0 < nh; h0 += step) {  // a thread's hypotheses in increasing order
+    if (h0 > 0) cells(h0);
+    const int h = h0 + (tid >> 1);
+    if (h < nh && part == 0) {
+      const float score = add(add(add(0.f, sm->g1[h / S]), g2), g3);
+      if (score > bv) {
+        bv = score;
+        bi = p0 * S + h;
+      }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (ov > bv || (ov == bv && oi < bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  if ((tid & 31) == 0) {
-    s_val[tid >> 5] = bv;
-    s_idx[tid >> 5] = bi;
+  warp_best(bv, bi);
+  if (lane == 0) {
+    sm->warp_val[warp] = bv;
+    sm->warp_idx[warp] = bi;
   }
   __syncthreads();
+  // warp 0 and the leader's warps that hold a line (the other threads have
+  // arrived at the first barrier and need not wait)
+  if (warp != 0 && (rank != 0 || warp * 32 >= L)) return;
+  if (warp == 0) fold_best(sm->warp_val, sm->warp_idx, nwarps, lane, bv, bi);
+  VP_CLUSTER_WAIT();  // every CTA of the cluster has started
   if (tid == 0) {
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-      if (s_val[w] > bv || (s_val[w] == bv && s_idx[w] < bi)) {
-        bv = s_val[w];
-        bi = s_idx[w];
-      }
-    const int p = bi / S, s = bi % S;
-    float v2[3], v3[3];
-    hypothesis(vp1, b1, b2, sweep, S, p, s, v2, v3);
-    for (int k = 0; k < 3; ++k) {
-      s_vps[k] = vp1[3 * p + k];
-      s_vps[3 + k] = v2[k];
-      s_vps[6 + k] = v3[k];
-    }
-    for (int k = 0; k < 9; ++k) vps_out[k] = s_vps[k];
+    VP_DSMEM(sm->cta_val, 0)[rank] = bv;
+    VP_DSMEM(sm->cta_idx, 0)[rank] = bi;
+  }
+  VP_CLUSTER_SYNC();  // the bests are in the leader's shared memory
+  // the leader's warps that hold a line (and thread 0) stay
+  if (rank != 0 || warp * 32 >= (L > 1 ? L : 1)) return;
+  // each warp takes the winner (no score above -inf, every one NaN: index 0,
+  // best -inf) and rebuilds its VP triple
+  fold_best(sm->cta_val, sm->cta_idx, kCluster, lane, bv, bi);
+  const int b = bi == INT_MAX ? 0 : bi, p = b / S;
+  float vps[9];
+  hypothesis(vp1, b1, b2, sweep, S, p, b % S, vps + 3, vps + 6);
+  for (int k = 0; k < 3; ++k) vps[k] = vp1[3 * p + k];
+  if (tid == 0) {
+    for (int k = 0; k < 9; ++k) vps_out[k] = vps[k];
     *best_out = bv;
   }
-  __syncthreads();
   // lines2Vps: a line passes through a VP when its homogeneous coefficients
   // are (nearly) orthogonal to the VP direction
-  for (int l = tid; l < L; l += blockDim.x) {
+  for (int l = tid; l < L; l += nt) {
     const float* ln = line + 3 * l;
     const float nl = fmaxf(norm3(ln), 1e-12f);
     float best_ang = INFINITY;
     int best = 0;
     for (int k = 0; k < 3; ++k) {
-      const float* v = s_vps + 3 * k;
+      const float* v = vps + 3 * k;
       const float dot = add(add(mul(__fdiv_rn(ln[0], nl), v[0]), mul(__fdiv_rn(ln[1], nl), v[1])),
                             mul(__fdiv_rn(ln[2], nl), v[2]));
       const float ang = fabsf(sub(0.5f * kPi, acosf(fminf(fmaxf(fabsf(dot), -1.f), 1.f))));
@@ -289,6 +376,18 @@ vp_score_kernel(const float* __restrict__ grid, const float* __restrict__ vp1,
     }
     vp_id[l] = (valid[l] && best_ang < angle_tol) ? best : 3;
   }
+}
+
+// vp_score_kernel's cluster of 16, allowed on the first launch on each
+// device and not again
+cudaError_t score_attributes() {
+  static std::atomic<unsigned> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (done.load() >> dev & 1u)) return e;
+  e = cudaFuncSetAttribute(vp_score_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) done.fetch_or(1u << dev);
+  return e;
 }
 
 }  // namespace
@@ -309,8 +408,12 @@ extern "C" int vp_vp_score(const float* grid, const float* vp1, const float* b1,
                            const unsigned char* valid, int L, int grid_la, int grid_lo,
                            float angle_tol, float* vps, int* vp_id, float* best,
                            cudaStream_t stream) {
-  if (P * S < 1) return (int)cudaErrorInvalidValue;
-  vp_score_kernel<<<1, kThreads, 0, stream>>>(grid, vp1, b1, b2, sweep, P, S, line, valid, L,
-                                              grid_la, grid_lo, angle_tol, vps, vp_id, best);
-  return (int)cudaGetLastError();
+  if (P * S < 1 || (P + kCluster - 1) / kCluster > kMaxPairsPerCta)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = score_attributes();
+  if (e == cudaSuccess)
+    e = VP_LAUNCH_CLUSTER(vp_score_kernel, kCluster, kCluster, kScoreThreads, sizeof(ScoreSmem),
+                          stream, grid, vp1, b1, b2, sweep, P, S, line, valid, L, grid_la,
+                          grid_lo, angle_tol, vps, vp_id, best);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

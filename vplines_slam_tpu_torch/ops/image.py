@@ -7,10 +7,11 @@ correlation as zero-padded roll shifts (a TPU workaround); the plain versions
 here pad once and add shifted slices, which is the same arithmetic in the
 same tap order.
 
-``pyr_down`` is kernel K1 (``csrc/pyr_down.cu``), ``remap_static`` kernel
-K5 (``csrc/remap.cu``) and ``clahe`` kernel K9 (``csrc/clahe.cu``): on a
-CUDA tensor each launches its kernel, on a CPU tensor it runs its plain
-twin.
+``build_pyramids`` / ``build_pyramid`` / ``pyr_down`` are kernel K1
+(``csrc/pyr_down.cu``: every level of one or two pyramids in one launch),
+``remap_static`` kernel K5 (``csrc/remap.cu``) and ``clahe`` kernel K9
+(``csrc/clahe.cu``): on a CUDA tensor each launches its kernel, on a CPU
+tensor it runs its plain twin.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-PYR_DOWN = kernels.Kernel(
-    "vp_pyr_down", "vplines_slam_tpu_torch/csrc/pyr_down.cu",
-    "vplines_slam_tpu/ops/image.py:115",
-    [kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I],
+PYRAMIDS = kernels.Kernel(
+    "vp_pyramids", "vplines_slam_tpu_torch/csrc/pyr_down.cu",
+    "vplines_slam_tpu/ops/image.py:122",
+    [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I],
 )
+MAX_LEVELS = 4  # pyramid levels one K1 launch builds (csrc/pyr_down.cu kMaxLevels)
 
 REMAP_STATIC = kernels.Kernel(
     "vp_remap_static", "vplines_slam_tpu_torch/csrc/remap.cu",
@@ -125,23 +127,67 @@ def pyr_down_plain(img):
 
 
 def pyr_down(img):
-    """K1.  CPU tensor: ``pyr_down_plain``.  CUDA tensor: the kernel."""
+    """K1 at one level.  CPU tensor: ``pyr_down_plain``.  CUDA tensor: the
+    kernel with two levels."""
     if not img.is_cuda:
         return pyr_down_plain(img)
-    H, W = img.shape
-    Ho, Wo = (H + 1) // 2, (W + 1) // 2
-    out = torch.empty(Ho, Wo, dtype=img.dtype, device=img.device)
-    PYR_DOWN(kernels.check(img, "img", ndim=2), kernels.check(out, "out"),
-             H, W, Ho, Wo)
-    return out
+    return _pyramids_cuda([img], 2)[0][1]
+
+
+def build_pyramid_plain(img, levels):
+    """K1's plain twin for a whole pyramid: ``pyr_down_plain`` level after
+    level."""
+    pyr = [img]
+    for _ in range(levels - 1):
+        pyr.append(pyr_down_plain(pyr[-1]))
+    return pyr
 
 
 def build_pyramid(img, levels):
-    """List of images, level 0 = full resolution."""
-    pyr = [img]
+    """List of images, level 0 = full resolution.  CUDA tensor: one launch
+    of K1 for every level."""
+    if not img.is_cuda:
+        return build_pyramid_plain(img, levels)
+    return _pyramids_cuda([img], levels)[0]
+
+
+def build_pyramids(img0, img1, levels):
+    """(``build_pyramid(img0, levels)``, ``build_pyramid(img1, levels)``).
+    CUDA tensors of one shape: one launch of K1 for both."""
+    if not img0.is_cuda:
+        return build_pyramid(img0, levels), build_pyramid(img1, levels)
+    if img0.shape != img1.shape:
+        return _pyramids_cuda([img0], levels)[0], _pyramids_cuda([img1], levels)[0]
+    return tuple(_pyramids_cuda([img0, img1], levels))
+
+
+def _pyramids_cuda(imgs, levels):
+    """K1: levels 1..levels-1 of each image (one or two of one shape) in one
+    launch, each pyramid's levels views into one buffer."""
+    if levels > MAX_LEVELS:
+        raise ValueError(f"pyramid: K1 builds at most MAX_LEVELS = {MAX_LEVELS} levels, "
+                         f"got {levels}")
+    if levels <= 1:
+        return [[im] for im in imgs]
+    H, W = imgs[0].shape
+    sizes = [(H, W)]
     for _ in range(levels - 1):
-        pyr.append(pyr_down(pyr[-1]))
-    return pyr
+        h, w = sizes[-1]
+        sizes.append(((h + 1) // 2, (w + 1) // 2))
+    n = sum(h * w for h, w in sizes[1:])
+    bufs = [torch.empty(n, dtype=imgs[0].dtype, device=imgs[0].device) for _ in imgs]
+    src = [kernels.check(im, f"img[{i}]", ndim=2) for i, im in enumerate(imgs)]
+    dst = [kernels.check(b, f"out[{i}]") for i, b in enumerate(bufs)]
+    if H * W > 0:
+        PYRAMIDS(src[0], src[-1], dst[0], dst[-1], H, W, levels, len(imgs))
+    out = []
+    for im, b in zip(imgs, bufs):
+        pyr, o = [im], 0
+        for h, w in sizes[1:]:
+            pyr.append(b[o:o + h * w].view(h, w))
+            o += h * w
+        out.append(pyr)
+    return out
 
 
 def bilinear_sample(img, xy, pad_value=0.0):

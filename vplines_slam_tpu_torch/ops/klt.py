@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .image import build_pyramid
+from .image import build_pyramids
 
 MAX_LEVELS = 4  # pyramid levels one K2 launch takes (csrc/klt.cu kMaxLevels)
 
@@ -243,8 +243,7 @@ def track_levels(img0, img1, pts0, cfg, init_flow, level_fn):
     of ``_track_level``), one call a level."""
     dtype = img0.dtype
     N = pts0.shape[0]
-    pyr0 = build_pyramid(img0, cfg.levels)
-    pyr1 = build_pyramid(img1, cfg.levels)
+    pyr0, pyr1 = build_pyramids(img0, img1, cfg.levels)
     scale = 2.0 ** (cfg.levels - 1)
     flow = (torch.zeros_like(pts0) if init_flow is None else init_flow.to(dtype)) / scale
     ok_all = torch.ones(N, dtype=torch.bool, device=img0.device)
@@ -271,13 +270,12 @@ def track_levels(img0, img1, pts0, cfg, init_flow, level_fn):
 def track(img0, img1, pts0, cfg: KLTConfig = KLTConfig(), init_flow=None):
     """Track pts0 [N,2] from img0 to img1 through a pyramid.
     Returns (pts1 [N,2], ok [N], residual [N]).  CPU tensors:
-    ``track_plain``.  CUDA tensors: the pyramids (K1), then one launch of K2
-    over every level, gates included."""
+    ``track_plain``.  CUDA tensors: both pyramids in one launch of K1, then
+    one launch of K2 over every level, gates included."""
     if not img0.is_cuda:
         return track_plain(img0, img1, pts0, cfg, init_flow)
     if pts0.shape[0] == 0:  # nothing to track: no pyramid, no launch
         return _track_cuda([img0] * cfg.levels, [img1] * cfg.levels, pts0, init_flow, cfg,
                            gate=True)
-    pyr0 = build_pyramid(img0, cfg.levels)
-    pyr1 = build_pyramid(img1, cfg.levels)
+    pyr0, pyr1 = build_pyramids(img0, img1, cfg.levels)
     return _track_cuda(pyr0, pyr1, pts0, init_flow, cfg, gate=True)

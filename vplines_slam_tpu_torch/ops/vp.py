@@ -17,12 +17,16 @@ own uniforms gets JAX's draw.
 Kernel K8 (``csrc/vp.cu``) is two launches: ``VP_GRID`` (a CTA per
 latitude row: the pair votes landing on that row and its two neighbours,
 added in pair order in shared memory, then the row's smoothing) and
-``VP_SCORE`` (one block: every hypothesis' three lookups, the flat argmax as
-a (value, index) reduction, the classification of the lines).
+``VP_SCORE`` (a cluster of 16 CTAs, the vp1 hypotheses split among them:
+every hypothesis' three lookups, vp1's once per vp1, the flat argmax as a
+(value, index) reduction across the cluster, the classification of the
+lines).  The detector's constants (the basis references and the sweep's
+cos / sin table) are made once per (config, dtype, device).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -160,11 +164,28 @@ def vp_score_plain(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg: VPConfig):
     return vps, _classify(line, valid, vps, cfg), best
 
 
-def _vp_score_cuda(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg: VPConfig):
-    P, S, L = vp1.shape[0], cos_s.shape[0], line.shape[0]
+VP_SCORE_MAX_PAIRS = 1024  # vp1 hypotheses the kernel takes (64 a CTA of 16)
+
+
+def _sweep_table(cos_s, sin_s):
+    """[2, S] table of the sweep's cos and sin: a view when sin_s follows
+    cos_s in one storage (``detect_vps``'s table), else a stack."""
+    S = cos_s.shape[0]
+    if (cos_s.dtype == sin_s.dtype and cos_s.is_contiguous() and sin_s.is_contiguous()
+            and cos_s.untyped_storage().data_ptr() == sin_s.untyped_storage().data_ptr()
+            and sin_s.data_ptr() == cos_s.data_ptr() + S * cos_s.element_size()):
+        return cos_s.as_strided((2, S), (S, 1))
+    return torch.stack([cos_s, sin_s])
+
+
+def _vp_score_cuda(grid, vp1, b1, b2, sweep, line, valid, cfg: VPConfig):
+    """K8 stage 2 on the sweep table ``sweep`` [2, S] (cos, sin)."""
+    P, S, L = vp1.shape[0], sweep.shape[1], line.shape[0]
+    if P > VP_SCORE_MAX_PAIRS:
+        raise ValueError(f"vp_score on the card takes at most {VP_SCORE_MAX_PAIRS} vp1 "
+                         f"hypotheses, got {P}")
     # the converted inputs stay referenced until the launch is enqueued
     vp1, b1, b2, line = vp1.contiguous(), b1.contiguous(), b2.contiguous(), line.contiguous()
-    sweep = torch.stack([cos_s, sin_s]).contiguous()
     valid8 = kernels.as_u8(valid)
     vps = torch.empty(3, 3, dtype=grid.dtype, device=grid.device)
     vp_id = torch.empty(L, dtype=torch.int32, device=grid.device)
@@ -181,9 +202,10 @@ def _vp_score_cuda(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg: VPConfig):
 
 
 def vp_score(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg: VPConfig):
-    """K8 stage 2.  CPU tensors: plain.  CUDA tensors: one block."""
-    fn = _vp_score_cuda if grid.is_cuda else vp_score_plain
-    return fn(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg)
+    """K8 stage 2.  CPU tensors: plain.  CUDA tensors: a cluster of 16 CTAs."""
+    if not grid.is_cuda:
+        return vp_score_plain(grid, vp1, b1, b2, cos_s, sin_s, line, valid, cfg)
+    return _vp_score_cuda(grid, vp1, b1, b2, _sweep_table(cos_s, sin_s), line, valid, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -198,12 +220,25 @@ def choice_from_uniform(p, u):
     return torch.searchsorted(c, c[-1] * (1.0 - u.to(c.dtype)))
 
 
+@functools.cache
+def detector_constants(cfg: VPConfig, dtype, device):
+    """``detect_vps``'s constants, made once per (cfg, dtype, device) and
+    never written: the basis references ez and ex, and the sweep's table
+    [2, S] of cos and sin of ``arange(S) * π / S`` (in f64, then cast)."""
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=device)
+    sweep = (torch.arange(cfg.n_sweep, dtype=torch.float64, device=device)
+             * (math.pi / cfg.n_sweep)).to(dtype)
+    return ez, ex, torch.stack([torch.cos(sweep), torch.sin(sweep)])
+
+
 def detect_vps(segs, valid, f, cx, cy, u, cfg: VPConfig = VPConfig()):
     """Detect 3 orthogonal vanishing points.  segs [L, 4] pixel segments,
     valid [L], u [n_pairs, 2] uniforms of the pair draw.  Returns (vps [3, 3]
     unit directions in the camera frame, line_vp_id [L] in {0,1,2,3} with 3 =
     unassigned, ok)."""
     dtype = segs.dtype
+    ez, ex, sweep = detector_constants(cfg, dtype, segs.device)
     line, length, angle = _line_params(segs, f, cx, cy)
     grid = vp_grid(line, length, angle, valid, cfg)
 
@@ -212,16 +247,11 @@ def detect_vps(segs, valid, f, cx, cy, u, cfg: VPConfig = VPConfig()):
     vp1 = cross(line[idx[:, 0]], line[idx[:, 1]])
     vp1 = vp1 / torch.clamp(torch.linalg.norm(vp1, dim=-1, keepdim=True), min=1e-12)
     # orthonormal basis of the plane ⊥ vp1
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=segs.device)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=segs.device)
     ref = torch.where(torch.abs(vp1[:, 2:3]) < 0.95, ez, ex)
     b1 = cross(vp1, ref)
     b1 = b1 / torch.linalg.norm(b1, dim=-1, keepdim=True)
     b2 = cross(vp1, b1)
-    sweep = (torch.arange(cfg.n_sweep, dtype=torch.float64, device=segs.device)
-             * (math.pi / cfg.n_sweep)).to(dtype)
-    vps, vp_id, best = vp_score(grid, vp1, b1, b2, torch.cos(sweep), torch.sin(sweep),
-                                line, valid, cfg)
+    vps, vp_id, best = vp_score(grid, vp1, b1, b2, sweep[0], sweep[1], line, valid, cfg)
     return vps, vp_id, best > 0
 
 
