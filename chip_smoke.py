@@ -141,16 +141,28 @@ Phases (any failure exits nonzero; there is no CPU path):
   --imu-witness runs phases 4-5 again with K10's plain twin (f32, on the
   card) and prints their ATE beside the kernel's; --klt-witness does the
   same with K2's (track_plain).
+  Phase 3 holds K6 (line_anchors' fields and best cells, line_select_grow's
+  walks: a_ok identical, supports exact, good flags 0.98, endpoints 0.05
+  px) against its twins on a frame, a 61x97 crop of it, a constant and an
+  all-zero frame, and K7 exactly against its twin on a frame's tracked
+  anchors and the cases of utils/synthetic.line_vote_cases (ties of
+  distance and of votes, no valid target, L1 = 32, one valid source,
+  collinear midpoints, zero-length targets, the gate, the vote ratio),
+  each launch again equal to the bit; every detect_lines and line_vote
+  call of phases 5-6 runs again, equal to the bit.
   --against TREE (alias --vp-grid-against) builds TREE's csrc/pyr_down.cu,
-  vp.cu, klt.cu and clahe.cu (another checkout, e.g. the parent commit
-  unpacked with git archive) and runs them on this tree's inputs in this
-  process: its K1 to the bit on every level of phase 3's pyramids and of
-  every track call of phases 4-6, its vp_grid and vp_score to the bit on
-  phase 3's inputs, the vp_line_cases sets and every lines frame of phases
-  5 and 6 (with vp_score's labels on its grid), its K9 (LUTs and output)
-  to the bit on phase 3's frames and on every clahe call of phase 6, its
-  track beside this tree's on phase 3's tracks; each is timed on the same
-  inputs.
+  vp.cu, klt.cu, clahe.cu, lines.cu and line_match.cu (another checkout,
+  e.g. the parent commit unpacked with git archive) and runs them on this
+  tree's inputs in this process: its K1 to the bit on every level of phase
+  3's pyramids and of every track call of phases 4-6, its vp_grid and
+  vp_score to the bit on phase 3's inputs, the vp_line_cases sets and every
+  lines frame of phases 5 and 6 (with vp_score's labels on its grid), its
+  K9 (LUTs and output) to the bit on phase 3's frames and on every clahe
+  call of phase 6, its track beside this tree's on phase 3's tracks, its
+  K6 (fields, best values and indices, the walks on the a_ok slots,
+  detect_lines' outputs) and K7 (match, n_votes) to the bit on phase 3's
+  frames and K7 cases and on every lines frame of phases 5 and 6; each is
+  timed on the same inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -282,8 +294,8 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
 
 
 # device time per call of the designs the current K1, K2, K9, K8 vp_grid
-# and vp_score, K10, K11, K12, K13, K14, K17 signature and K20 greedy pass
-# replaced (a launch a level and image, a thread per output pixel: the four
+# and vp_score, K10, K11, K12, K13, K14, K17 signature, K20 greedy pass, K6
+# and K7 replaced (a launch a level and image, a thread per output pixel: the four
 # launches of a track call's two 3-level pyramids; a launch of
 # a 256-thread CTA per feature for each of three levels; a CTA per tile
 # with shared atomics, then a thread per pixel; one CTA holding
@@ -292,13 +304,16 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
 # launches, a thread per observation carrying all its tangents; a CTA per
 # node-pair tile scanning every row; two launches, one-CTA Cholesky; a
 # thread per entry of H1 over every slot; one CTA over all descriptors;
-# 2 x 30 + 1 launches of 45x45 LUs), on phase 3's inputs, on an NVIDIA H100
-# 80GB HBM3 at 700 W, for the log beside the new ones
+# 2 x 30 + 1 launches of 45x45 LUs; a CTA per 16x16 cell; a warp per
+# anchor slot after detect_lines' sort and gathers, its kernel alone; one
+# 512-thread CTA with a thread per anchor slot), on phase 3's inputs, on an
+# NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
 PREVIOUS_DEVICE_MS = {"pyramids": 0.0089, "klt_track": 3 * 0.0167,
                       "klt_track_gain_bias": 3 * 0.0247, "clahe": 0.0068 + 0.0048,
                       "vp_grid": 0.1962, "vp_score": 0.0202, "preintegrate": 0.1431, "window_lin": 0.1340,
                       "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
-                      "simhash_signature": 0.1194, "selector_greedy": 4.8784}
+                      "simhash_signature": 0.1194, "selector_greedy": 4.8784,
+                      "line_anchors": 0.0106, "line_select_grow": 0.0054, "line_vote": 0.0151}
 
 
 def device_times(rec):
@@ -336,15 +351,16 @@ def device_times(rec):
                 f"({r['solve_bound_by']})")
 
 
-# --against: another tree's K1, K8 (vp_grid, vp_score), K2 and K9, as
-# functions of this tree's arguments (OtherTree)
+# --against: another tree's K1, K8 (vp_grid, vp_score), K2, K9, K6 and K7,
+# as functions of this tree's arguments (OtherTree)
 AGAINST = None
 
 
 class OtherTree:
     """Kernels of another checkout (the parent commit's, say, unpacked with
-    ``git archive``): its ``csrc/pyr_down.cu``, ``vp.cu``, ``klt.cu`` and
-    ``clahe.cu``, each built into a library of its own beside this tree's
+    ``git archive``): its ``csrc/pyr_down.cu``, ``vp.cu``, ``klt.cu``,
+    ``clahe.cu``, ``lines.cu`` and ``line_match.cu``, each built into a
+    library of its own beside this tree's
     build (one nvcc a source, all started together), called with this
     tree's arguments, so that the two designs run on the same inputs in one
     process.  K1 comes as the previous design's one-level entry
@@ -353,7 +369,11 @@ class OtherTree:
     previous design's per-level entry (``vp_klt_track_level``, with
     ``track``'s level loop and gates around it here) or as this tree's
     fused entry; K9 as the previous design's two entries or this tree's
-    one."""
+    one; K6's anchors through the same entry, its selection and walks as
+    this tree's ``vp_line_select_grow`` or as the previous design's
+    ``vp_line_grow`` behind ``detect_lines``' sort and gathers, and K7 with
+    this tree's masks or behind the previous design's conversions (the two
+    changed together)."""
 
     def __init__(self, tree):
         import ctypes
@@ -363,7 +383,7 @@ class OtherTree:
 
         self.tree = Path(tree).resolve()
         srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
-                for n in ("pyr_down", "vp", "klt", "clahe")}
+                for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match")}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -380,7 +400,7 @@ class OtherTree:
                 fail(f"nvcc failed on {srcs[n]}:\n{out}")
         self.lib = {n: ctypes.CDLL(str(so)) for n, so in libs.items()}
         self.fns = {}
-        log(f"the other tree's K1, vp_grid, vp_score, K2 and K9: {self.tree}")
+        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6 and K7: {self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -519,6 +539,184 @@ class OtherTree:
             return self._swapped(image.CLAHE, "clahe", lambda: image.clahe_cuda(img, clip, tiles,
                                                                                  bins))
         return out, luts
+
+
+    def new_lines(self):
+        """Whether the other tree's K6 selects its anchors in the walk's launch
+        (and its K7 reads bool masks and writes int64 matches): this design."""
+        return self.has("lines", "vp_line_select_grow")
+
+    def line_anchors(self, img, cfg):
+        """The other tree's K6 line_anchors (the same C entry and arguments)."""
+        from vplines_slam_tpu_torch.ops import lines
+
+        return self._swapped(lines.LINE_ANCHORS, "lines", lambda: lines._anchors_cuda(img, cfg))
+
+    def line_select_grow(self, best_val, best_idx, mag, dx, dy, cfg):
+        """The other tree's top cells and walks: (segs, lens, fits, supports,
+        a_ok).  The previous design took the top-k in detect_lines (a stable
+        sort and gathers: ``select_cells_plain``, the same ops) and walked
+        every slot with ``vp_line_grow``."""
+        import math
+
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import lines
+
+        if self.new_lines():
+            return self._swapped(lines.LINE_SELECT_GROW, "lines",
+                                 lambda: lines._select_grow_cuda(best_val, best_idx, mag, dx,
+                                                                 dy, cfg))
+        dev, dtype = mag.device, mag.dtype
+        ax, ay, a_ok = lines.select_cells_plain(best_val, best_idx, cfg, dtype)
+        H, W = mag.shape
+        A = ax.shape[0]
+        segs = torch.empty(A, 4, dtype=dtype, device=dev)
+        lens = torch.empty(A, dtype=dtype, device=dev)
+        fits_n = torch.empty(2, A, dtype=dtype, device=dev)
+        P, I, F = kmod.P, kmod.I, kmod.F
+        self._call("lines", "vp_line_grow", [P, P, P, P, P, I, I, I, I, F, F, P, P, P],
+                   ax.data_ptr(), ay.data_ptr(), mag.data_ptr(), dx.data_ptr(), dy.data_ptr(), H,
+                   W, A, int(cfg.max_steps), float(cfg.grad_thresh),
+                   float(math.cos(cfg.angle_tol)), segs.data_ptr(), lens.data_ptr(),
+                   fits_n.data_ptr())
+        return segs, lens, fits_n[0], fits_n[1], a_ok
+
+    def detect_lines(self, img, cfg):
+        """This tree's detect_lines with the other tree's K6 in place."""
+        from vplines_slam_tpu_torch.ops import lines
+
+        saved = lines.line_anchors, lines.line_select_grow
+        lines.line_anchors, lines.line_select_grow = self.line_anchors, self.line_select_grow
+        try:
+            return lines.detect_lines(img, cfg)
+        finally:
+            lines.line_anchors, lines.line_select_grow = saved
+
+    def line_vote(self, tracked, ok, segs0, valid0, segs1, valid1, cfg):
+        """The other tree's K7: (match int64, n_votes).  The previous design
+        took uint8 masks and wrote int32 matches, converted around it."""
+        import torch
+
+        from vplines_slam_tpu_torch.ops import line_match
+
+        if self.new_lines():
+            return self._swapped(line_match.LINE_VOTE, "line_match",
+                                 lambda: line_match._line_vote_cuda(tracked, ok, segs0, valid0,
+                                                                    segs1, valid1, cfg))
+        L0, A = ok.shape
+        L1 = segs1.shape[0]
+        tracked, segs0, segs1 = tracked.contiguous(), segs0.contiguous(), segs1.contiguous()
+        ok8, v08, v18 = (x.to(torch.uint8).contiguous() for x in (ok, valid0, valid1))
+        match = torch.empty(L0, dtype=torch.int32, device=segs0.device)
+        n_votes = torch.empty(L0, dtype=segs0.dtype, device=segs0.device)
+        self._call("line_match", "vp_line_vote", line_match.LINE_VOTE.argtypes,
+                   tracked.data_ptr(), ok8.data_ptr(), segs0.data_ptr(), v08.data_ptr(),
+                   segs1.data_ptr(), v18.data_ptr(), L0, A, L1, float(cfg.max_point_line_dist),
+                   float(cfg.vote_ratio), int(cfg.min_votes), match.data_ptr(),
+                   n_votes.data_ptr())
+        return match.long(), n_votes
+
+    def grow_kernel(self):
+        """The symbol of the other tree's walk kernel (device time)."""
+        return "line_select_grow_kernel" if self.new_lines() else "line_grow_kernel"
+
+
+@contextlib.contextmanager
+def recording_lines(store):
+    """Keep every detect_lines and line_vote call of the block in store
+    ({"detect": [], "vote": []}), as references to their inputs and outputs
+    (no copy, no launch, no sync), for ``line_frames_check``."""
+    from vplines_slam_tpu_torch.ops import line_match, lines
+
+    detect, vote = lines.detect_lines, line_match.line_vote
+
+    def detect_rec(img, cfg=lines.LineDetectConfig()):
+        out = detect(img, cfg)
+        store["detect"].append(((img, cfg), out))
+        return out
+
+    def vote_rec(*a):
+        out = vote(*a)
+        store["vote"].append((a, out))
+        return out
+
+    lines.detect_lines, line_match.line_vote = detect_rec, vote_rec
+    try:
+        yield store
+    finally:
+        lines.detect_lines, line_match.line_vote = detect, vote
+
+
+def _equal(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def walks_equal(a, b):
+    """Two (segs, lens, fits, supports, a_ok): a_ok identical, the rest
+    equal to the bit on the a_ok slots."""
+    import torch
+
+    k = a[4]
+    return torch.equal(k, b[4]) and all(torch.equal(x[k], y[k]) for x, y in zip(a[:4], b[:4]))
+
+
+def line_frames_check(rec, store, where):
+    """Every recorded lines frame: K6 (detect_lines, both launches) and K7
+    again on the frame's inputs, equal to the bit; with --against the other
+    tree's K6 fields, best values and indices, walks on the a_ok slots and
+    detect_lines' outputs, and its K7's match and n_votes, equal to the bit.
+    Adds the kernels' device time per call over these frames to their
+    records, the other tree's beside them."""
+    from vplines_slam_tpu_torch.ops import line_match, lines
+
+    det, vot = store["detect"], store["vote"]
+    if not det or not vot:
+        fail(f"{where}: no detect_lines or line_vote call recorded")
+    again_d = all(_equal(lines.detect_lines(*args), out) for args, out in det)
+    again_v = all(_equal(line_match.line_vote(*args), out) for args, out in vot)
+    anchors = [(lines.line_anchors(img, cfg), cfg) for (img, cfg), _ in det]
+    ok, other = again_d and again_v, ""
+    if AGAINST is not None:
+        same_f = all(_equal(AGAINST.line_anchors(img, cfg), a)
+                     for ((img, cfg), _), (a, _) in zip(det, anchors))
+        walks = [(lines.line_select_grow(a[3], a[4], *a[:3], cfg),
+                  AGAINST.line_select_grow(a[3], a[4], *a[:3], cfg)) for a, cfg in anchors]
+        same_w = all(walks_equal(m, t) for m, t in walks)
+        n_ok = sum(int(m[4].sum()) for m, _ in walks)
+        same_d = all(_equal(AGAINST.detect_lines(*args), out) for args, out in det)
+        same_v = all(_equal(AGAINST.line_vote(*args), out) for args, out in vot)
+        other = (f"; the other tree's kernels, equal to the bit: K6 fields, best values and "
+                 f"indices {same_f}, walks on the {n_ok} a_ok slots {same_w}, detect_lines' "
+                 f"segments, lengths and valid {same_d}, K7's match and n_votes {same_v}")
+        ok = ok and same_f and same_w and same_d and same_v
+    log(f"K6 / K7 on {where}'s {len(det)} detect_lines and {len(vot)} line_vote calls: again "
+        f"on each call's inputs, equal to the bit: detect_lines {again_d}, line_vote "
+        f"{again_v}{other}")
+    if not ok:
+        fail(f"K6 / K7 on {where}'s frames")
+    times = (("line_anchors", "line_anchors_kernel", len(det),
+              lambda: [lines.line_anchors(img, cfg) for (img, cfg), _ in det],
+              AGAINST and (lambda: [AGAINST.line_anchors(img, cfg) for (img, cfg), _ in det]),
+              "line_anchors_kernel"),
+             ("line_select_grow", "line_select_grow_kernel", len(det),
+              lambda: [lines.line_select_grow(a[3], a[4], *a[:3], cfg) for a, cfg in anchors],
+              AGAINST and (lambda: [AGAINST.line_select_grow(a[3], a[4], *a[:3], cfg)
+                                    for a, cfg in anchors]),
+              AGAINST and AGAINST.grow_kernel()),
+             ("line_vote", "line_vote_kernel", len(vot),
+              lambda: [line_match.line_vote(*args) for args, _ in vot],
+              AGAINST and (lambda: [AGAINST.line_vote(*args) for args, _ in vot]),
+              "line_vote_kernel"))
+    for name, kname, n, fn, other_fn, other_kname in times:
+        extra = rec[name].setdefault("extra_device_of", {})
+        extra[f"{where}'s {n} lines frames, per call"] = (fn, n, kname)
+        if AGAINST is not None:
+            extra[f"the other tree's kernel on {where}'s frames, per call"] = (other_fn, n,
+                                                                              other_kname)
 
 
 @contextlib.contextmanager
@@ -671,15 +869,10 @@ def vp_score_same(store):
     """(vp_score again on each recorded call's inputs equal to its outputs
     to the bit, with --against the other tree's vp_score equal to them to
     the bit)."""
-    import torch
-
     from vplines_slam_tpu_torch.ops import vp
 
-    def equal(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
-
-    again = all(equal(vp.vp_score(*r["score_args"]), r["score"]) for r in store)
-    same = AGAINST is None or all(equal(AGAINST.vp_score(*r["score_args"]), r["score"])
+    again = all(_equal(vp.vp_score(*r["score_args"]), r["score"]) for r in store)
+    same = AGAINST is None or all(_equal(AGAINST.vp_score(*r["score_args"]), r["score"])
                                   for r in store)
     return again, same
 
@@ -959,6 +1152,95 @@ def klt_fused_check(rec, name, img0, img1, pts0, valid, kcfg, cost):
     return k
 
 
+def k6_frame_check(img, dcfg, label):
+    """K6 on one frame against its twins on the card: line_anchors' fields
+    within 1e-6, best positions agreeing on >= 0.99 of the twin's cells with
+    an anchor and best values within 1e-6; line_select_grow and
+    select_and_grow_plain on the kernel's anchors: a_ok identical, the
+    support counts equal on the a_ok slots, the good flags agreeing on >=
+    0.98 of them, endpoints within 0.05 px where both are good (f32 moments
+    summed in another order), zeros on the other slots; both launches again
+    equal to the bit, and with --against equal to the other tree's to the
+    bit (fields, best values and indices, walks on the a_ok slots).
+    Returns the kernel's (anchors, walks) and the largest differences to the
+    twins (fields and best values; endpoints)."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import lines
+
+    ak = lines.line_anchors(img, dcfg)
+    ap = lines._anchors_plain(img, dcfg)
+    err_f = max(float((a - b).abs().max()) for a, b in zip(ak[:3], ap[:3]))
+    cells_on = ap[3] > 0
+    pos_agree = (float((ak[4] == ap[4])[cells_on].float().mean()) if bool(cells_on.any())
+                 else 1.0)
+    err_b = float((ak[3] - ap[3]).abs().max())
+    gk = lines.line_select_grow(ak[3], ak[4], *ak[:3], dcfg)
+    gp = lines.select_and_grow_plain(ak[3], ak[4], *ak[:3], dcfg)
+    a_ok = gk[4]
+
+    def good(g):
+        return (g[4] & (g[1] >= dcfg.min_len) & (g[2] <= dcfg.fit_err)
+                & (g[3] >= dcfg.min_len * 0.6))
+
+    gk_ok, gp_ok = good(gk), good(gp)
+    both = gk_ok & gp_ok
+    seg_err = float((gk[0] - gp[0])[both].abs().max()) if bool(both.any()) else 0.0
+    n_err = float((gk[3] - gp[3])[a_ok].abs().max()) if bool(a_ok.any()) else 0.0
+    good_agree = (float((gk_ok == gp_ok)[a_ok].float().mean()) if bool(a_ok.any()) else 1.0)
+    zeros = all(bool((x[~a_ok] == 0).all()) for x in gk[:4])
+    again = (_equal(lines.line_anchors(img, dcfg), ak)
+             and walks_equal(lines.line_select_grow(ak[3], ak[4], *ak[:3], dcfg), gk))
+    same, other = True, ""
+    if AGAINST is not None:
+        same_a = _equal(AGAINST.line_anchors(img, dcfg), ak)
+        same_w = walks_equal(AGAINST.line_select_grow(ak[3], ak[4], *ak[:3], dcfg), gk)
+        same = same_a and same_w
+        other = (f"; the other tree's kernels equal to the bit: fields and best {same_a}, "
+                 f"walks on the a_ok slots {same_w}")
+    log(f"K6 on {label} ({tuple(img.shape)}): line_anchors max |field diff| (mag, dx, dy) = "
+        f"{err_f:.3e} (tol 1e-6), {int(cells_on.sum())} cells with an anchor, positions "
+        f"agree {pos_agree:.4f} (tol >= 0.99), max |best value diff| = {err_b:.3e} (tol "
+        f"1e-6); line_select_grow: a_ok identical {torch.equal(a_ok, gp[4])} "
+        f"({int(a_ok.sum())} of {a_ok.shape[0]} slots), {int(gp_ok.sum())} good (plain) / "
+        f"{int(gk_ok.sum())} (kernel), support counts max diff {n_err:.0f} (tol 0), good-flag "
+        f"agreement {good_agree:.4f} (tol >= 0.98), max endpoint diff where good in both "
+        f"{seg_err:.3e} px (tol 0.05: f32 moments summed in another order), zeros off a_ok "
+        f"{zeros}; both launches again equal to the bit {again}{other}")
+    if not (err_f <= 1e-6 and pos_agree >= 0.99 and err_b <= 1e-6
+            and torch.equal(a_ok, gp[4]) and n_err == 0 and good_agree >= 0.98
+            and seg_err <= 0.05 and zeros and again and same):
+        fail(f"K6 on {label} disagrees with its plain versions, itself or the other tree's")
+    return ak, gk, max(err_f, err_b), seg_err
+
+
+def k7_check(label, args):
+    """K7 on one input against its twin on the card (match and n_votes
+    exact), twice equal to the bit, with --against equal to the other
+    tree's to the bit.  Returns the number of differing matches (0)."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import line_match
+
+    mk, nvk = line_match.line_vote(*args)
+    mp, nvp = line_match.line_vote_plain(*args)
+    n_diff = int((mk != mp).sum())
+    err7 = float((nvk - nvp).abs().max())
+    again = _equal(line_match.line_vote(*args), (mk, nvk))
+    dtype_ok = mk.dtype == torch.int64
+    same, other = True, ""
+    if AGAINST is not None:
+        same = _equal(AGAINST.line_vote(*args), (mk, nvk))
+        other = f"; equal to the other tree's K7 to the bit: {same}"
+    log(f"K7 line_vote on {label}: {int((mp >= 0).sum())} of {int(args[3].sum())} lines "
+        f"matched (plain); matches differing {n_diff} (tol 0), max |votes diff| = {err7:.0f} "
+        f"(tol 0), int64 {dtype_ok}; again equal to the bit {again}{other}")
+    if not (n_diff == 0 and err7 == 0 and again and same and dtype_ok):
+        fail(f"K7 line_vote on {label} disagrees with its plain version, itself or the other "
+             f"tree's")
+    return n_diff
+
+
 def phase_kernels(S, SL):
     """S: the points slice's staging, SL: the lines slice's."""
     import torch
@@ -1203,53 +1485,40 @@ def phase_kernels(S, SL):
     u0 = u0_p
     u1 = image.remap_static_plain(limg1, plan)
 
-    # K6 line_anchors: fields and per-cell best anchors of frame 0
+    # K6 on frame 0 (both launches recorded) and on a 61x97 crop of it, a
+    # constant frame (anchors on the zero-padded border only) and an all-zero
+    # one (every cell 0: the top-k falls back to cell order, no anchor ok)
     dcfg = lcfg.detect._replace(max_lines=lcfg.max_lines)
-    ak = lines.line_anchors(u0, dcfg)
-    ap = lines._anchors_plain(u0, dcfg)
-    err_f = max(float((a - b).abs().max()) for a, b in zip(ak[:3], ap[:3]))
-    cells_on = ap[3] > 0
-    pos_agree = float((ak[4] == ap[4])[cells_on].float().mean())
-    err_b = float((ak[3] - ap[3]).abs().max())
-    log(f"K6 line_anchors: max |field diff| (mag, dx, dy) = {err_f:.3e} (tol 1e-6); "
-        f"{int(cells_on.sum())} cells with an anchor, positions agree {pos_agree:.4f} "
-        f"(tol >= 0.99), max |best value diff| = {err_b:.3e} (tol 1e-6)")
-    if not (err_f <= 1e-6 and pos_agree >= 0.99 and err_b <= 1e-6):
-        fail("K6 line_anchors disagrees with its plain version")
-    ch6, cw6 = ap[3].shape
-    record(rec, "line_anchors", max(err_f, err_b), lambda: lines.line_anchors(u0, dcfg),
+    ak, gk, err_a, err_w = k6_frame_check(u0, dcfg, "frame 0")
+    ch6, cw6 = ak[3].shape
+    record(rec, "line_anchors", err_a, lambda: lines.line_anchors(u0, dcfg),
            lambda: lines._anchors_plain(u0, dcfg), "line_anchors_kernel",
            4 * 4 * n_px + 8 * ch6 * cw6, 60 * n_px)
-
-    # K6 line_grow: the walks of the 512 top anchors
-    top_val, top_cell = torch.sort(ap[3].reshape(-1), descending=True, stable=True)
-    top_cell = top_cell[:dcfg.max_anchors]
-    a_ok = top_val[:dcfg.max_anchors] > 0
-    by = torch.div(top_cell, cw6, rounding_mode="floor") * lines.CELL + ap[4].reshape(-1)[top_cell] // lines.CELL
-    bx = (top_cell % cw6) * lines.CELL + ap[4].reshape(-1)[top_cell] % lines.CELL
-    ax, ay = bx.float().contiguous(), by.float().contiguous()
-    gk = lines.line_grow(ax, ay, *ap[:3], dcfg)
-    gp = lines._grow_plain(ax, ay, *ap[:3], dcfg)
-
-    def good(g):
-        return a_ok & (g[1] >= dcfg.min_len) & (g[2] <= dcfg.fit_err) & (g[3] >= dcfg.min_len * 0.6)
-
-    gk_ok, gp_ok = good(gk), good(gp)
-    both = gk_ok & gp_ok
-    seg_err = float((gk[0] - gp[0])[both].abs().max()) if bool(both.any()) else 0.0
-    n_err = float((gk[3] - gp[3])[a_ok].abs().max())
-    good_agree = float((gk_ok == gp_ok)[a_ok].float().mean())
-    log(f"K6 line_grow: {int(a_ok.sum())} anchors, {int(gp_ok.sum())} good (plain) / "
-        f"{int(gk_ok.sum())} (kernel); support counts max diff {n_err:.0f} (tol 0); "
-        f"good-flag agreement {good_agree:.4f} (tol >= 0.98); max endpoint diff where good "
-        f"in both {seg_err:.3e} px (tol 0.05: f32 moments summed in another order)")
-    if not (n_err == 0 and good_agree >= 0.98 and seg_err <= 0.05):
-        fail("K6 line_grow disagrees with its plain version")
-    n_alive = float((gp[3] - 1).sum())
-    A = ax.shape[0]
-    record(rec, "line_grow", seg_err, lambda: lines.line_grow(ax, ay, *ap[:3], dcfg),
-           lambda: lines._grow_plain(ax, ay, *ap[:3], dcfg), "line_grow_kernel",
-           4 * (5 * n_alive + 6 * A + 9 * A), 60 * n_alive + 60 * A)
+    n_alive = float((gk[3] - 1).clamp(min=0).sum())
+    n_cells, A = ch6 * cw6, dcfg.max_anchors
+    n_ok = int(gk[4].sum())
+    # bytes: the cell values and indices read once, each a_ok walk's anchor
+    # direction and its live samples (mag, dx, dy and both tube sides),
+    # the outputs written once; operations: the selection's n log n
+    # comparisons and ~60 a sample and a walk
+    record(rec, "line_select_grow", err_w,
+           lambda: lines.line_select_grow(ak[3], ak[4], *ak[:3], dcfg),
+           lambda: lines.select_and_grow_plain(ak[3], ak[4], *ak[:3], dcfg),
+           "line_select_grow_kernel",
+           8 * n_cells + 4 * (5 * n_alive + 2 * n_ok) + 4 * 7 * A + A,
+           2 * n_cells * math.log2(n_cells) + 60 * n_alive + 60 * n_ok)
+    if AGAINST is not None:
+        rec["line_anchors"].setdefault("extra_device_of", {})[
+            "the other tree's kernel on frame 0"] = (
+            lambda: AGAINST.line_anchors(u0, dcfg), 1, "line_anchors_kernel")
+        rec["line_select_grow"].setdefault("extra_device_of", {})[
+            "the other tree's kernel on frame 0"] = (
+            lambda: AGAINST.line_select_grow(ak[3], ak[4], *ak[:3], dcfg), 1,
+            AGAINST.grow_kernel())
+    for label, im in (("a 61x97 crop of frame 0", u0[:61, :97].contiguous()),
+                      ("a constant frame", torch.full_like(u0, 0.5)),
+                      ("an all-zero frame", torch.zeros_like(u0))):
+        k6_frame_check(im, dcfg, label)
 
     # K2 in gain/bias mode: the line matcher's anchors of frame 0 -> 1
     s0, _, v0 = lines.detect_lines(u0, dcfg)
@@ -1292,22 +1561,31 @@ def phase_kernels(S, SL):
                                       klt_cost(apts.shape[0], mcfg.klt, u0.shape,
                                                mcfg.klt.levels, io=21))
 
-    # K7 line_vote: the tracked anchors voting for frame 1's segments
+    # K7 line_vote: the tracked anchors voting for frame 1's segments, then
+    # the cases of utils/synthetic.line_vote_cases (ties of distance and of
+    # votes, no valid target, L1 = 32, one valid source, collinear
+    # midpoints, zero-length targets, the gate, the vote ratio), each against
+    # the twin exactly, twice equal to the bit, and with --against equal to
+    # the other tree's K7 to the bit
     L0, Aa = amask.shape
     vote_in = (tracked.reshape(L0, Aa, 2).contiguous(), okt.reshape(L0, Aa) & amask, s0, v0,
                s1, v1, mcfg)
-    mk, nvk = line_match.line_vote(*vote_in)
-    mp, nvp = line_match.line_vote_plain(*vote_in)
-    n_diff = int((mk != mp).sum())
-    err7 = float((nvk - nvp).abs().max())
-    log(f"K7 line_vote: {int((mp >= 0).sum())} of {int(v0.sum())} lines matched (plain); "
-        f"matches differing {n_diff} (tol 0), max |votes diff| = {err7:.0f} (tol 0)")
-    if not (n_diff == 0 and err7 == 0):
-        fail("K7 line_vote disagrees with its plain version")
+    n_diff = k7_check("frame 0 -> 1", vote_in)
+    from vplines_slam_tpu_torch.utils import synthetic
+
+    for name, case in synthetic.line_vote_cases().items():
+        k7_check(f"case {name!r}", tuple(
+            torch.as_tensor(x, device=u0.device,
+                            dtype=torch.bool if x.dtype == bool else torch.float32)
+            for x in case) + (mcfg,))
     L1 = s1.shape[0]
     record(rec, "line_vote", n_diff, lambda: line_match.line_vote(*vote_in),
            lambda: line_match.line_vote_plain(*vote_in), "line_vote_kernel",
            L0 * Aa * 9 + (L0 + L1) * 17 + 8 * L0, 25 * L0 * Aa * L1 + 30 * L0 * L0)
+    if AGAINST is not None:
+        rec["line_vote"].setdefault("extra_device_of", {})[
+            "the other tree's kernel on frame 0 -> 1"] = (
+            lambda: AGAINST.line_vote(*vote_in), 1, "line_vote_kernel")
 
     # K8 vp_grid + vp_score: frame 0's lines
     vcfg = lcfg.vp
@@ -3558,12 +3836,14 @@ def main(argv=None):
                          "alone moves)")
     ap.add_argument("--against", "--vp-grid-against", dest="against", metavar="TREE",
                     help="another checkout (e.g. the parent commit unpacked with git "
-                         "archive): build its K1, K8 (vp_grid, vp_score), K2 and K9 and run "
-                         "them on this tree's inputs in this process: K1 to the bit on "
-                         "phase 3's frames and every track call of phases 4-6, vp_grid and "
+                         "archive): build its K1, K8 (vp_grid, vp_score), K2, K9, K6 and K7 "
+                         "and run them on this tree's inputs in this process: K1 to the bit "
+                         "on phase 3's frames and every track call of phases 4-6, vp_grid and "
                          "vp_score to the bit on phase 3's inputs and every lines frame of "
-                         "phases 5-6, K9 to the bit on every clahe call of phase 6, each "
-                         "timed beside this tree's")
+                         "phases 5-6, K9 to the bit on every clahe call of phase 6, K6 "
+                         "(fields, best cells, walks, detect_lines) and K7 to the bit on "
+                         "phase 3's frames and cases and every lines frame of phases 5-6, "
+                         "each timed beside this tree's")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -3613,10 +3893,12 @@ def main(argv=None):
     with recording_klt([]) as klt4, recording_pyramids([]) as pyr4:
         launches4, sl, prof_points = phase_slice(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
-    with recording_vp([]) as vp5, recording_klt([]) as klt5, recording_pyramids([]) as pyr5:
+    with (recording_vp([]) as vp5, recording_klt([]) as klt5, recording_pyramids([]) as pyr5,
+          recording_lines({"detect": [], "vote": []}) as ln5):
         launches5, ll, prof_lines = phase_lines(SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
-    with recording_vp([]) as vp6, recording_clahe([]) as cl6, recording_pyramids([]) as pyr6:
+    with (recording_vp([]) as vp6, recording_clahe([]) as cl6, recording_pyramids([]) as pyr6,
+          recording_lines({"detect": [], "vote": []}) as ln6):
         launches, cs = phase_cold_start(C, profile=args.profile)
     for where, counted, pyrs in (("phase 4", launches4, pyr4), ("phase 5", launches5, pyr5),
                                  ("phase 6", launches, pyr6)):
@@ -3626,6 +3908,8 @@ def main(argv=None):
     klt_frames_check(klt5, "phase 5")
     vp_frames_check(rec, vp5, "phase 5")
     vp_frames_check(rec, vp6, "phase 6")
+    line_frames_check(rec, ln5, "phase 5")
+    line_frames_check(rec, ln6, "phase 6")
     clahe_frames_check(rec, cl6, "phase 6")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
     loop_launches, lc = phase_loop_circuit(dev)

@@ -188,7 +188,7 @@ def all_kernels():
 
     return [image.PYRAMIDS, klt.KLT_TRACK, corners.CORNER_RESPONSE,
             corners.CORNER_SELECT, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
-            lines.LINE_ANCHORS, lines.LINE_GROW, line_match.LINE_VOTE, vp.VP_GRID,
+            lines.LINE_ANCHORS, lines.LINE_SELECT_GROW, line_match.LINE_VOTE, vp.VP_GRID,
             vp.VP_SCORE, image.CLAHE, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
             marginalization.MARG_WINDOW, brief.FAST, brief.BRIEF, brief.HAMMING_MATCH,

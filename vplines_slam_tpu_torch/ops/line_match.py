@@ -9,9 +9,12 @@ of its tracked anchors (Point2Line), duplicate targets keep the source with
 the most votes, and pairs whose mutual sideness flips between frames are
 dropped (TopologicalFilter).
 
-Kernel K7 (``csrc/line_match.cu``, one block per frame) runs everything after
-the KLT: distances, votes, gates, duplicate resolution and the sideness
-filter.  ``line_vote_plain`` is its twin.
+Kernel K7 (``csrc/line_match.cu``, one launch of one 32-warp CTA a frame)
+runs everything after the KLT: distances (four lanes a live anchor, over
+the valid targets), votes, gates (a warp a source row), duplicate
+resolution and the sideness filter (a warp a source).  It reads the bool
+masks as their bytes and writes the int64 ``match`` itself.
+``line_vote_plain`` is its twin.
 """
 
 from __future__ import annotations
@@ -117,25 +120,26 @@ def line_vote_plain(tracked, ok, segs0, valid0, segs1, valid1, cfg: LineMatchCon
 def _line_vote_cuda(tracked, ok, segs0, valid0, segs1, valid1, cfg: LineMatchConfig):
     L0, A = ok.shape
     L1 = segs1.shape[0]
-    # the converted inputs stay referenced until the launch is enqueued
-    tracked, segs0, segs1 = tracked.contiguous(), segs0.contiguous(), segs1.contiguous()
-    ok8, v08, v18 = (x.to(torch.uint8).contiguous() for x in (ok, valid0, valid1))
-    match = torch.empty(L0, dtype=torch.int32, device=segs0.device)
+    # contiguous inputs are taken as they are (no copy, no launch); the
+    # masks are read as their bytes
+    tracked, ok, segs0, valid0, segs1, valid1 = (
+        x.contiguous() for x in (tracked, ok, segs0, valid0, segs1, valid1))
+    match = torch.empty(L0, dtype=torch.int64, device=segs0.device)
     n_votes = torch.empty(L0, dtype=segs0.dtype, device=segs0.device)
     LINE_VOTE(kernels.check(tracked, "tracked", shape=(L0, A, 2)),
-              kernels.check(ok8, "ok", torch.uint8, shape=(L0, A)),
+              kernels.check(ok, "ok", torch.bool, shape=(L0, A)),
               kernels.check(segs0, "segs0", shape=(L0, 4)),
-              kernels.check(v08, "valid0", torch.uint8, shape=(L0,)),
+              kernels.check(valid0, "valid0", torch.bool, shape=(L0,)),
               kernels.check(segs1, "segs1", shape=(L1, 4)),
-              kernels.check(v18, "valid1", torch.uint8, shape=(L1,)),
+              kernels.check(valid1, "valid1", torch.bool, shape=(L1,)),
               L0, A, L1, float(cfg.max_point_line_dist), float(cfg.vote_ratio),
-              int(cfg.min_votes), kernels.check(match, "match", torch.int32),
+              int(cfg.min_votes), kernels.check(match, "match", torch.int64),
               kernels.check(n_votes, "n_votes"))
-    return match.long(), n_votes
+    return match, n_votes
 
 
 def line_vote(tracked, ok, segs0, valid0, segs1, valid1, cfg: LineMatchConfig):
-    """K7.  CPU tensors: ``line_vote_plain``.  CUDA tensors: one block."""
+    """K7.  CPU tensors: ``line_vote_plain``.  CUDA tensors: one CTA of 32 warps."""
     fn = _line_vote_cuda if segs0.is_cuda else line_vote_plain
     return fn(tracked, ok, segs0, valid0, segs1, valid1, cfg)
 

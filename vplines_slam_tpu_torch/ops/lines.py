@@ -10,12 +10,16 @@ gradient/alignment gate; a 3-tap parabolic offset across the ray; a PCA line
 fit of the support with a fit-error gate; (θ, ρ) dedupe; and the merge of
 each winner with the good segments of its bin.
 
-Kernel K6 (``csrc/lines.cu``) is two launches, as K3: ``LINE_ANCHORS`` (blur,
-Scharr, anchor test and the per-cell argmax over 16x16 tiles, first index
-wins) and ``LINE_GROW`` (one warp per anchor: the walk, the tube offset, the
-moments and the fit).  The top-k over cells, the dedupe and the merge stay
-plain PyTorch with stable sorts (``torch.topk`` does not order ties as
-``lax.top_k``).
+Kernel K6 (``csrc/lines.cu``) is two launches: ``LINE_ANCHORS`` (blur,
+Scharr, anchor test and the per-cell argmax, a CTA a 32x32 tile, first index
+wins) and ``LINE_SELECT_GROW`` (the top ``max_anchors`` cells by rank in the
+stable descending order, which is ``lax.top_k``'s, then a warp a selected
+cell: the walk, the tube offset, the moments and the fit; slots of a cell
+scoring 0 are not walked and read zeros).  Its plain twins are
+``_anchors_plain`` and ``select_and_grow_plain``, which keeps the top-k as a
+stable sort and two gathers (``torch.topk`` does not order ties as
+``lax.top_k``).  The (θ, ρ) dedupe and the merge stay plain PyTorch on both
+routes.
 """
 
 from __future__ import annotations
@@ -34,11 +38,12 @@ LINE_ANCHORS = kernels.Kernel(
     [kernels.P, kernels.I, kernels.I, kernels.F, kernels.F,
      kernels.P, kernels.P, kernels.P, kernels.P, kernels.P],
 )
-LINE_GROW = kernels.Kernel(
-    "vp_line_grow", "vplines_slam_tpu_torch/csrc/lines.cu",
-    "vplines_slam_tpu/ops/lines.py:63",
-    [kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I,
-     kernels.I, kernels.I, kernels.F, kernels.F, kernels.P, kernels.P, kernels.P],
+LINE_SELECT_GROW = kernels.Kernel(
+    "vp_line_select_grow", "vplines_slam_tpu_torch/csrc/lines.cu",
+    "vplines_slam_tpu/ops/lines.py:96",
+    [kernels.P, kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.I,
+     kernels.I, kernels.I, kernels.I, kernels.F, kernels.F, kernels.P, kernels.P, kernels.P,
+     kernels.P],
 )
 
 CELL = 16  # anchor stratification cell (px)
@@ -70,7 +75,7 @@ def _level_line_dir(gx, gy):
 
 
 def _anchors_plain(img, cfg: LineDetectConfig):
-    """(mag, dx, dy [H, W], best value [ch, cw], best index in cell)."""
+    """(mag, dx, dy [H, W], best value [ch, cw], best index in cell (int32))."""
     H, W = img.shape
     gx, gy = scharr_gradients(gaussian_blur(img, 5, 1.0))
     dx, dy, mag = _level_line_dir(gx, gy)
@@ -88,7 +93,7 @@ def _anchors_plain(img, cfg: LineDetectConfig):
     cells = pad.reshape(ch, CELL, cw, CELL).permute(0, 2, 1, 3).reshape(ch, cw, CELL * CELL)
     best_in = torch.argmax(cells, dim=-1)  # first index on ties, as jnp.argmax
     best_val = torch.gather(cells, -1, best_in[..., None])[..., 0]
-    return mag, dx, dy, best_val, best_in
+    return mag, dx, dy, best_val, best_in.to(torch.int32)
 
 
 def _anchors_cuda(img, cfg: LineDetectConfig):
@@ -101,16 +106,16 @@ def _anchors_cuda(img, cfg: LineDetectConfig):
                  float(cfg.anchor_thresh), kernels.check(mag, "mag"), kernels.check(dx, "dx"),
                  kernels.check(dy, "dy"), kernels.check(best_val, "best_val"),
                  kernels.check(best_idx, "best_idx", torch.int32))
-    return mag, dx, dy, best_val, best_idx.long()
+    return mag, dx, dy, best_val, best_idx
 
 
 def line_anchors(img, cfg: LineDetectConfig):
-    """K6 stage 1.  CPU tensor: plain.  CUDA tensor: the tile kernel."""
+    """K6 stage 1.  CPU tensor: plain.  CUDA tensor: a CTA a 32x32 tile."""
     return (_anchors_cuda if img.is_cuda else _anchors_plain)(img, cfg)
 
 
 # ---------------------------------------------------------------------------
-# stage 2: ray walk + tube offset + PCA fit (K6 line_grow)
+# stage 2: top cells + ray walk + tube offset + PCA fit (K6 line_select_grow)
 # ---------------------------------------------------------------------------
 
 
@@ -175,24 +180,67 @@ def _grow_plain(ax, ay, mag, dx, dy, cfg: LineDetectConfig):
     return segs, t_hi - t_lo, fits, n
 
 
-def _grow_cuda(ax, ay, mag, dx, dy, cfg: LineDetectConfig):
+def select_cells_plain(best_val, best_idx, cfg: LineDetectConfig, dtype=None):
+    """The anchors of the top ``max_anchors`` cells of best_val [ch, cw], in
+    the stable descending order (lax.top_k's: the lower cell index first on
+    ties), best_idx giving each cell's pixel: (ax, ay, a_ok [max_anchors]).
+    a_ok is a score > 0; slots past the cell count are zeros, not ok."""
+    ch, cw = best_val.shape
+    dev = best_val.device
+    dtype = dtype or best_val.dtype
+    best_idx = best_idx.long()
+    by = torch.arange(ch, device=dev)[:, None] * CELL + best_idx // CELL
+    bx = torch.arange(cw, device=dev)[None, :] * CELL + best_idx % CELL
+    flat_val = best_val.reshape(-1)
+    k_cells = min(cfg.max_anchors, flat_val.shape[0])
+    top_score, top_cell = torch.sort(flat_val, descending=True, stable=True)
+    top_score, top_cell = top_score[:k_cells], top_cell[:k_cells]
+    ax = bx.reshape(-1)[top_cell].to(dtype)
+    ay = by.reshape(-1)[top_cell].to(dtype)
+    a_ok = top_score > 0.0
+    if k_cells < cfg.max_anchors:
+        padn = cfg.max_anchors - k_cells
+        ax = torch.cat([ax, ax.new_zeros(padn)])
+        ay = torch.cat([ay, ay.new_zeros(padn)])
+        a_ok = torch.cat([a_ok, a_ok.new_zeros(padn)])
+    return ax, ay, a_ok
+
+
+def select_and_grow_plain(best_val, best_idx, mag, dx, dy, cfg: LineDetectConfig):
+    """K6 stage 2's twin: the top cells (``select_cells_plain``) walked:
+    (segs [A, 4], lens, fits, supports, a_ok [A]).  A slot without a_ok
+    reads zeros, as the kernel writes it."""
+    dev, dtype = mag.device, mag.dtype
+    ax, ay, a_ok = select_cells_plain(best_val, best_idx, cfg, dtype)
+    segs, lens, fits, n = _grow_plain(ax, ay, mag, dx, dy, cfg)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    return (torch.where(a_ok[:, None], segs, zero), torch.where(a_ok, lens, zero),
+            torch.where(a_ok, fits, zero), torch.where(a_ok, n, zero), a_ok)
+
+
+def _select_grow_cuda(best_val, best_idx, mag, dx, dy, cfg: LineDetectConfig):
     H, W = mag.shape
-    A = ax.shape[0]
+    ch, cw = best_val.shape
+    A = cfg.max_anchors
     segs = torch.empty(A, 4, dtype=mag.dtype, device=mag.device)
     lens = torch.empty(A, dtype=mag.dtype, device=mag.device)
     fits_n = torch.empty(2, A, dtype=mag.dtype, device=mag.device)
-    LINE_GROW(kernels.check(ax, "ax", shape=(A,)), kernels.check(ay, "ay", shape=(A,)),
-              kernels.check(mag, "mag", ndim=2), kernels.check(dx, "dx", shape=(H, W)),
-              kernels.check(dy, "dy", shape=(H, W)), H, W, A, int(cfg.max_steps),
-              float(cfg.grad_thresh), float(math.cos(cfg.angle_tol)),
-              kernels.check(segs, "segs"), kernels.check(lens, "lens"),
-              kernels.check(fits_n, "fits_n"))
-    return segs, lens, fits_n[0], fits_n[1]
+    a_ok = torch.empty(A, dtype=torch.bool, device=mag.device)
+    LINE_SELECT_GROW(kernels.check(best_val, "best_val", shape=(ch, cw)),
+                     kernels.check(best_idx, "best_idx", torch.int32, shape=(ch, cw)), ch * cw, cw,
+                     kernels.check(mag, "mag", ndim=2), kernels.check(dx, "dx", shape=(H, W)),
+                     kernels.check(dy, "dy", shape=(H, W)), H, W, A, int(cfg.max_steps),
+                     float(cfg.grad_thresh), float(math.cos(cfg.angle_tol)),
+                     kernels.check(segs, "segs"), kernels.check(lens, "lens"),
+                     kernels.check(fits_n, "fits_n"), kernels.check(a_ok, "a_ok", torch.bool))
+    return segs, lens, fits_n[0], fits_n[1], a_ok
 
 
-def line_grow(ax, ay, mag, dx, dy, cfg: LineDetectConfig):
-    """K6 stage 2.  CPU tensors: plain.  CUDA tensors: one warp per anchor."""
-    return (_grow_cuda if mag.is_cuda else _grow_plain)(ax, ay, mag, dx, dy, cfg)
+def line_select_grow(best_val, best_idx, mag, dx, dy, cfg: LineDetectConfig):
+    """K6 stage 2.  CPU tensors: ``select_and_grow_plain``.  CUDA tensors: one
+    launch, the ranks and a warp a selected cell."""
+    fn = _select_grow_cuda if mag.is_cuda else select_and_grow_plain
+    return fn(best_val, best_idx, mag, dx, dy, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -204,26 +252,9 @@ def detect_lines(img, cfg: LineDetectConfig = LineDetectConfig()):
     """Detect line segments.  img: [H, W] float in [0, 1].
     Returns (segments [max_lines, 4] = (x1, y1, x2, y2), lengths, valid)."""
     H, W = img.shape
-    dtype, dev = img.dtype, img.device
-    mag, dx, dy, best_val, best_in = line_anchors(img, cfg)
-    ch, cw = best_val.shape
-    by = torch.arange(ch, device=dev)[:, None] * CELL + best_in // CELL
-    bx = torch.arange(cw, device=dev)[None, :] * CELL + best_in % CELL
-    flat_val = best_val.reshape(-1)
-    k_cells = min(cfg.max_anchors, flat_val.shape[0])
-    # stable descending sort == lax.top_k's lower-index-first tie order
-    top_score, top_cell = torch.sort(flat_val, descending=True, stable=True)
-    top_score, top_cell = top_score[:k_cells], top_cell[:k_cells]
-    ax = bx.reshape(-1)[top_cell].to(dtype)
-    ay = by.reshape(-1)[top_cell].to(dtype)
-    a_ok = top_score > 0.0
-    if k_cells < cfg.max_anchors:
-        padn = cfg.max_anchors - k_cells
-        ax = torch.cat([ax, ax.new_zeros(padn)])
-        ay = torch.cat([ay, ay.new_zeros(padn)])
-        a_ok = torch.cat([a_ok, a_ok.new_zeros(padn)])
-
-    segs, lens, fits, supports = line_grow(ax, ay, mag, dx, dy, cfg)
+    dev = img.device
+    mag, dx, dy, best_val, best_idx = line_anchors(img, cfg)
+    segs, lens, fits, supports, a_ok = line_select_grow(best_val, best_idx, mag, dx, dy, cfg)
     good = (a_ok & (lens >= cfg.min_len) & (fits <= cfg.fit_err)
             & (supports >= cfg.min_len * 0.6))
 

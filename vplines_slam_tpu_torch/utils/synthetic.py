@@ -322,6 +322,152 @@ def klt_cases(seed=0, H=96, W=128):
     return cases
 
 
+def line_vote_cases(seed=0, A=8):
+    """Inputs of the line matcher's vote (K7), by name: (tracked [L0, A, 2],
+    ok [L0, A] bool, segs0 [L0, 4], valid0 [L0], segs1 [L1, 4], valid1 [L1])
+    as numpy f64.  The designed cases use dyadic coordinates, so their
+    distances, projections and ratios are exact in f32 and f64 alike:
+
+    - "frame": 40 of 64 lines, the current frame's the same lines moved by
+      (3, -2) px in another order, anchors tracked with 0.3 px noise and a
+      tenth of them lost;
+    - "distance ties": anchors midway between two parallel targets, and
+      next to a target that appears twice (the lower index must win);
+    - "vote ties": a source whose anchors split 4 / 4 between two targets,
+      two sources with equal votes for one target, and one with fewer votes
+      at a lower index than its rival;
+    - "all targets invalid": the frame with no valid current segment;
+    - "L1 = 32": the frame matched into 32 current segments;
+    - "single valid": one valid source (its consistency is 0 / 1);
+    - "collinear midpoints": segments along one line, so sideness reads 0,
+      and one of them lifted 2 px off it in the current frame;
+    - "zero-length targets": current segments with both ends on an anchor;
+    - "gate": anchors exactly max_point_line_dist (4 px) from their target
+      (rejected: the gate is strict) and 3.75 px (accepted);
+    - "vote ratio": 2 votes of 5 tracked anchors (0.4: accepted) and of 6
+      (rejected)."""
+    rng = np.random.default_rng(seed)
+    t_a = (np.arange(A) + 0.5) / A
+
+    def anchors(segs):  # ops/line_match.sample_anchors' points
+        return segs[:, None, :2] + (segs[:, None, 2:] - segs[:, None, :2]) * t_a[None, :, None]
+
+    def padded(segs, n):
+        out = np.zeros((n, 4))
+        out[:len(segs)] = segs
+        return out, np.arange(n) < len(segs)
+
+    def all_ok(L):
+        return np.ones((L, A), bool)
+
+    L, nv = 64, 40
+    p0 = rng.uniform([20.0, 20.0], [732.0, 460.0], (nv, 2))
+    ang, ln = rng.uniform(0.0, np.pi, nv), rng.uniform(40.0, 200.0, nv)
+    lines = np.concatenate([p0, p0 + ln[:, None] * np.stack([np.cos(ang), np.sin(ang)], 1)], 1)
+    s0, v0 = padded(lines, L)
+    shift = np.array([3.0, -2.0, 3.0, -2.0])
+
+    def frame(L1):
+        slots = rng.permutation(L1)[:min(nv, L1)]
+        s1, v1 = np.zeros((L1, 4)), np.zeros(L1, bool)
+        s1[slots], v1[slots] = lines[:len(slots)] + shift, True
+        tracked = anchors(s0) + shift[:2] + rng.normal(0.0, 0.3, (L, A, 2))
+        n_anchor = np.clip(np.ceil(np.hypot(*(s0[:, 2:] - s0[:, :2]).T) / 10.0), 2, A)
+        ok = (np.arange(A)[None, :] < n_anchor[:, None]) & v0[:, None] & (rng.random((L, A)) > 0.1)
+        return tracked, ok, s0, v0, s1, v1
+
+    # horizontal segments 128 px long from x = 64: anchors at 72, 88, ..., 184
+    def hline(y, x0=64.0):
+        return [x0, y, x0 + 128.0, y]
+
+    cases = {"frame": frame(L)}
+    # distance ties: source 0 at y = 102 between targets at 100 and 104;
+    # source 1 at y = 106 next to target 1 and its copy, target 2
+    d0 = np.array([hline(102.0), hline(106.0), hline(300.0)])
+    d1 = np.array([hline(100.0), hline(104.0), hline(104.0), hline(301.0)])
+    s, v = padded(d0, L)
+    t, w = padded(d1, L)
+    cases["distance ties"] = (anchors(s), all_ok(L) & v[:, None], s, v, t, w)
+    # vote ties: source 0's anchors split between targets 0 (y 100) and 1
+    # (y 110); sources 1 and 2 give target 2 eight votes each; source 3 gives
+    # target 3 six votes, source 4 eight
+    g0 = np.array([hline(105.0), hline(200.0), hline(200.0, 65.0), hline(260.0, 300.0),
+                   hline(262.0, 300.0), hline(400.0)])
+    g1 = np.array([hline(100.0), hline(110.0), hline(200.0), hline(261.0, 300.0),
+                   hline(401.0)])
+    s, v = padded(g0, L)
+    t, w = padded(g1, L)
+    tr = anchors(s)
+    tr[0, :4, 1], tr[0, 4:, 1] = 100.5, 109.5
+    ok = all_ok(L) & v[:, None]
+    ok[3, 6:] = False  # six tracked anchors, all on target 3
+    cases["vote ties"] = (tr, ok, s, v, t, w)
+    tracked, ok, s, v, s1, v1 = frame(L)
+    cases["all targets invalid"] = (tracked, ok, s, v, s1, np.zeros(L, bool))
+    cases["L1 = 32"] = frame(32)
+    tracked, ok, s, v, s1, v1 = frame(L)
+    one = np.arange(L) == int(np.flatnonzero(v)[3])
+    cases["single valid"] = (tracked, ok & one[:, None], s, one, s1, v1)
+    # collinear midpoints: three segments on y = 100 and two vertical ones;
+    # in the current frame the third is lifted to y = 102
+    c0 = np.array([[8.0, 100.0, 56.0, 100.0], [72.0, 100.0, 120.0, 100.0],
+                   [136.0, 100.0, 184.0, 100.0], [300.0, 20.0, 300.0, 180.0],
+                   [340.0, 20.0, 340.0, 180.0]])
+    c1 = c0.copy()
+    c1[2, [1, 3]] = 102.0
+    s, v = padded(c0, L)
+    t, w = padded(c1, L)
+    cases["collinear midpoints"] = (anchors(s), all_ok(L) & v[:, None], s, v, t, w)
+    # zero-length targets on source 0's anchors 0 and 1, beside a segment
+    # through all of them
+    z0 = np.array([hline(150.0), hline(250.0)])
+    a0 = anchors(z0[:1])[0]
+    z1 = np.array([[*a0[0], *a0[0]], hline(150.0), [*a0[1], *a0[1]], hline(250.0)])
+    s, v = padded(z0, L)
+    t, w = padded(z1, L)
+    cases["zero-length targets"] = (anchors(s), all_ok(L) & v[:, None], s, v, t, w)
+    # the gate: source 0's anchors 4 px below its target, source 1's 3.75
+    # (two more matches keep source 1 through the sideness filter)
+    q0 = np.array([hline(104.0), hline(196.25), hline(300.0), hline(400.0)])
+    q1 = np.array([hline(100.0), hline(200.0), hline(300.0), hline(400.0)])
+    s, v = padded(q0, L)
+    t, w = padded(q1, L)
+    cases["gate"] = (anchors(s), all_ok(L) & v[:, None], s, v, t, w)
+    # the vote ratio: two of five / six tracked anchors on the target, the
+    # others tracked off every segment
+    r0 = np.array([hline(100.0), hline(200.0), hline(300.0), hline(302.0)])
+    r1 = np.array([hline(100.0), hline(200.0), hline(300.0)])
+    s, v = padded(r0, L)
+    t, w = padded(r1, L)
+    tr = anchors(s)
+    ok = all_ok(L) & v[:, None]
+    ok[0, 5:], ok[1, 6:] = False, False
+    tr[0, 2:5, 1], tr[1, 2:6, 1] = 150.0, 250.0
+    cases["vote ratio"] = (tr, ok, s, v, t, w)
+    return cases
+
+
+def line_detect_cases(seed=0):
+    """Images for the line detector (K6), by name, numpy f64:
+
+    - "constant": 0.5 everywhere at 480 x 752 (only the zero padding makes
+      gradients: anchors on the border);
+    - "zero": 480 x 752 of zeros (every cell scores 0: the top-k falls back
+      to cell order, and no anchor is ok);
+    - "61x97": a textured crop, 28 cells (fewer than max_anchors);
+    - "stripes": 480 x 752 of bright 2 px stripes 16 px apart, so every
+      cell of a row holds the same values (ties across cells)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:480, 0:752]
+    stripes = np.where((xx % 16 < 2) | (yy % 64 < 2), 0.8, 0.2)
+    return {
+        "constant": np.full((480, 752), 0.5),
+        "zero": np.zeros((480, 752)),
+        "61x97": _textured(rng, 61, 97, n_blobs=12),
+        "stripes": stripes,
+    }
+
+
 def clahe_cases(seed=0):
     """Images for CLAHE, by name, numpy f64:
 
