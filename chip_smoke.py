@@ -134,6 +134,16 @@ Phases (any failure exits nonzero; there is no CPU path):
   supports 15 and 45 timed on the device beside it), pnp_refine on the
   initializer's 11 x 128 and a verification's 1 x 64 batches (f64 twin
   1e-9, f32 twin 1e-5).
+  Phase 3 holds K3 (detect: two launches, corner_cells and corner_topk)
+  against its plain twin (the same valid positions, scores 1e-6) on frame 1
+  with frame 0's tracks, on frame 0 and on the cases of
+  utils/synthetic.corner_cases, each call repeated to the bit; and K16
+  (one launch for a keyframe's 500 corners and 64 window points) against
+  its twin, every bit, also on the cases of utils/synthetic.brief_cases,
+  each set alone, twice and split in two.
+  Every detect call of phases 4-6 and 8 and every keyframe's descriptors of
+  phases 6-8 run again, equal to the bit, with one launch of each kernel a
+  call, against the twins (K3 as above, K16 every bit).
   Phases 6-8 assert that no plain twin of K15-K21 ran.
   Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
@@ -161,8 +171,13 @@ Phases (any failure exits nonzero; there is no CPU path):
   call of phase 6, its track beside this tree's on phase 3's tracks, its
   K6 (fields, best values and indices, the walks on the a_ok slots,
   detect_lines' outputs) and K7 (match, n_votes) to the bit on phase 3's
-  frames and K7 cases and on every lines frame of phases 5 and 6; each is
-  timed on the same inputs.
+  frames and K7 cases and on every lines frame of phases 5 and 6, its K3
+  (the previous design: its response and cell-select launches behind
+  _occupied, the sort and the gathers) to the bit on phase 3's calls and
+  cases and every detect call of phases 4-6 and 8, and its K16 (the
+  previous design: a full-frame blur and a descriptor launch, twice a
+  keyframe) to the bit on phase 3's keyframe and cases and every keyframe
+  of phases 6-8; each is timed on the same inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -172,8 +187,10 @@ Phases (any failure exits nonzero; there is no CPU path):
   within 0.01 m of the kernels').  Every profiler session (those and the
   kernels' device times) runs
   after phase 8: once the profiler has run, each later launch of the
-  process costs more (so do the launch counts of one loop verification and
-  one selector call, taken under torch.profiler at the end).
+  process costs more (so do the launch counts of one loop verification,
+  one selector call, one detect call and one extract_keyframe_features
+  call, each beside the other tree's, taken under torch.profiler at the
+  end).
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -293,9 +310,12 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
                      library_label=library_label)
 
 
-# device time per call of the designs the current K1, K2, K9, K8 vp_grid
-# and vp_score, K10, K11, K12, K13, K14, K17 signature, K20 greedy pass, K6
-# and K7 replaced (a launch a level and image, a thread per output pixel: the four
+# device time per call of the designs the current K3, K16, K1, K2, K9, K8
+# vp_grid and vp_score, K10, K11, K12, K13, K14, K17 signature, K20 greedy
+# pass, K6 and K7 replaced (K3's response over 16x16 tiles and a CTA a cell
+# for the selection, both kernels alone; K16's full-frame blur and
+# descriptor launches, twice a keyframe; a launch a level and image, a
+# thread per output pixel: the four
 # launches of a track call's two 3-level pyramids; a launch of
 # a 256-thread CTA per feature for each of three levels; a CTA per tile
 # with shared atomics, then a thread per pixel; one CTA holding
@@ -308,7 +328,8 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
 # anchor slot after detect_lines' sort and gathers, its kernel alone; one
 # 512-thread CTA with a thread per anchor slot), on phase 3's inputs, on an
 # NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
-PREVIOUS_DEVICE_MS = {"pyramids": 0.0089, "klt_track": 3 * 0.0167,
+PREVIOUS_DEVICE_MS = {"corner_cells": 0.0089 + 0.0036, "brief_patch": 2 * 0.0098,
+                      "pyramids": 0.0089, "klt_track": 3 * 0.0167,
                       "klt_track_gain_bias": 3 * 0.0247, "clahe": 0.0068 + 0.0048,
                       "vp_grid": 0.1962, "vp_score": 0.0202, "preintegrate": 0.1431, "window_lin": 0.1340,
                       "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
@@ -351,9 +372,12 @@ def device_times(rec):
                 f"({r['solve_bound_by']})")
 
 
-# --against: another tree's K1, K8 (vp_grid, vp_score), K2, K9, K6 and K7,
-# as functions of this tree's arguments (OtherTree)
+# --against: another tree's K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3 and
+# K16, as functions of this tree's arguments (OtherTree)
 AGAINST = None
+# calls whose launches main counts under torch.profiler at the end:
+# {"detect": (this tree's, the other tree's or None), "extract": ...}
+PROBES = {}
 
 
 class OtherTree:
@@ -383,7 +407,8 @@ class OtherTree:
 
         self.tree = Path(tree).resolve()
         srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
-                for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match")}
+                for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match", "corners",
+                          "brief")}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -400,7 +425,7 @@ class OtherTree:
                 fail(f"nvcc failed on {srcs[n]}:\n{out}")
         self.lib = {n: ctypes.CDLL(str(so)) for n, so in libs.items()}
         self.fns = {}
-        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6 and K7: {self.tree}")
+        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3 and K16: {self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -621,6 +646,67 @@ class OtherTree:
     def grow_kernel(self):
         """The symbol of the other tree's walk kernel (device time)."""
         return "line_select_grow_kernel" if self.new_lines() else "line_grow_kernel"
+
+    def detect(self, img, max_corners, min_dist=30, quality=0.01, existing_xy=None,
+               existing_mask=None, border=5):
+        """The other tree's ``detect``: its two K3 launches (this design), or
+        the previous design's response and cell-select launches behind this
+        tree's ``_occupied``, the stable sort and the gathers (``_top_cells``),
+        as that design's ``detect`` ran them."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import corners
+
+        if self.has("corners", "vp_corner_cells"):
+            run = lambda: corners._detect_cuda(img, max_corners, min_dist, quality, existing_xy,
+                                               existing_mask, border)
+            return self._swapped(corners.CORNER_CELLS, "corners", lambda: self._swapped(
+                corners.CORNER_TOPK, "corners", run))
+        H, W = img.shape
+        ch, cw = -(-H // min_dist), -(-W // min_dist)
+        occ = corners._occupied(existing_xy, existing_mask, min_dist, ch, cw, img.device)
+        nms = torch.empty_like(img)
+        gmax = torch.full((1,), -2**31, dtype=torch.int32, device=img.device)
+        P, I, F = kmod.P, kmod.I, kmod.F
+        self._call("corners", "vp_corner_response", [P, I, I, P, P], img.data_ptr(), H, W,
+                   nms.data_ptr(), gmax.data_ptr())
+        occ8 = occ.to(torch.uint8).contiguous()
+        best_val = torch.empty(ch, cw, dtype=img.dtype, device=img.device)
+        best_idx = torch.empty(ch, cw, dtype=torch.int32, device=img.device)
+        self._call("corners", "vp_corner_select", [P, P, P, I, I, I, I, F, I, I, P, P],
+                   nms.data_ptr(), gmax.data_ptr(), occ8.data_ptr(), H, W, ch, cw,
+                   float(quality), int(min_dist), int(border), best_val.data_ptr(),
+                   best_idx.data_ptr())
+        return corners._top_cells(best_val, best_idx.long(), min_dist, max_corners, img.dtype)
+
+    def brief_pair(self, img, xy, valid, xy2, valid2):
+        """The other tree's K16 at two point sets: its one launch (this
+        design), or two calls of the previous design's ``vp_brief`` (a
+        full-frame blur launch and a descriptor launch each)."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import brief
+
+        if self.has("brief", "vp_brief_patch"):
+            return self._swapped(brief.BRIEF, "brief", lambda: brief.describe_brief_pair(
+                img, xy, valid, xy2, valid2))
+        H, W = img.shape
+        pa, pb = brief._pattern_tensors(img.dtype, img.device)
+        taps = torch.tensor(brief.gaussian_kernel1d(7, 2.0), dtype=torch.float32,
+                            device=img.device)
+        P, I = kmod.P, kmod.I
+        out = []
+        for p, v in ((xy, valid), (xy2, valid2)):
+            p, v8 = p.contiguous(), v.to(torch.uint8).contiguous()
+            blur = torch.empty_like(img)
+            desc = torch.empty(p.shape[0], 8, dtype=torch.int32, device=img.device)
+            self._call("brief", "vp_brief", [P, I, I, P, P, P, P, P, I, P, P], img.data_ptr(),
+                       H, W, taps.data_ptr(), pa.data_ptr(), pb.data_ptr(), p.data_ptr(),
+                       v8.data_ptr(), p.shape[0], blur.data_ptr(), desc.data_ptr())
+            out.append(desc)
+        return tuple(out)
 
 
 @contextlib.contextmanager
@@ -990,6 +1076,157 @@ def one_pyramid_launch_a_track(launches, where):
     log(f"{where}: K1 launches {n1}, K2 launches {n2} (one K1 launch a track call)")
     if n1 is None or n1 != n2:
         fail(f"{where}: K1 launched {n1} times for {n2} track calls")
+
+
+def same_corners(a, b, tol=1e-6):
+    """(agree, max |score diff|) of two ``detect`` outputs: the same valid
+    slots' positions (as a set: near-equal scores may swap places) and their
+    scores within tol at each position."""
+    (xa, sa, va), (xb, sb, vb) = a, b
+    ka = dict(zip(map(tuple, xa[va].tolist()), sa[va].tolist()))
+    kb = dict(zip(map(tuple, xb[vb].tolist()), sb[vb].tolist()))
+    if ka.keys() != kb.keys():
+        return False, math.inf
+    err = max((abs(ka[k] - kb[k]) for k in ka), default=0.0)
+    return err <= tol, err
+
+
+def k3_check(label, args, kwargs=None):
+    """K3 on one ``detect`` call's inputs: two launches a call, a second call
+    equal to the bit, the plain twin as ``same_corners`` (positions
+    identical, scores 1e-6); with --against the other tree's detect equal to
+    the bit.  Returns (ok, max |score diff| to the twin, log text)."""
+    from vplines_slam_tpu_torch.ops import corners
+
+    kwargs = kwargs or {}
+    n0 = (corners.CORNER_CELLS.launches, corners.CORNER_TOPK.launches)
+    out = corners.detect(*args, **kwargs)
+    two = (corners.CORNER_CELLS.launches - n0[0], corners.CORNER_TOPK.launches - n0[1]) == (1, 1)
+    again = _equal(corners.detect(*args, **kwargs), out)
+    agree, err = same_corners(out, corners.detect_plain(*args, **kwargs))
+    same = AGAINST is None or _equal(AGAINST.detect(*args, **kwargs), out)
+    text = (f"{label}: {int(out[2].sum())} valid, two launches {two}, again equal {again}, "
+            f"plain twin: positions identical {agree} (max |score diff| {err:.3e}, tol 1e-6)"
+            + ("" if AGAINST is None else f", the other tree's detect equal to the bit {same}"))
+    return two and again and agree and same, err, text
+
+
+@contextlib.contextmanager
+def recording_detect(store):
+    """Keep every ``corners.detect`` call of the block in store, as
+    references to its inputs and outputs with the K3 launches it made (no
+    copy, no sync), for ``detect_frames_check``."""
+    from vplines_slam_tpu_torch.ops import corners
+
+    detect = corners.detect
+
+    def rec(*args, **kwargs):
+        n0 = (corners.CORNER_CELLS.launches, corners.CORNER_TOPK.launches)
+        out = detect(*args, **kwargs)
+        n = (corners.CORNER_CELLS.launches - n0[0], corners.CORNER_TOPK.launches - n0[1])
+        store.append(((args, kwargs), out, n))
+        return out
+
+    corners.detect = rec
+    try:
+        yield store
+    finally:
+        corners.detect = detect
+
+
+def detect_frames_check(rec, store, where):
+    """Every recorded detect call: one launch of each K3 kernel, K3 again on
+    its inputs equal to the bit, the plain twin as ``same_corners``; with
+    --against the other tree's detect (the previous design: its kernels
+    behind its glue) equal to the bit.  Adds K3's device time per call over
+    these calls to its record, and the other tree's beside it."""
+    from vplines_slam_tpu_torch.ops import corners
+
+    if not store:
+        fail(f"{where}: no detect call recorded")
+    launches = all(n == (1, 1) for _, _, n in store)
+    again = all(_equal(corners.detect(*a, **kw), out) for (a, kw), out, _ in store)
+    err, agree = 0.0, True
+    for (a, kw), out, _ in store:
+        ok, e = same_corners(out, corners.detect_plain(*a, **kw))
+        agree, err = agree and ok, max(err, e)
+    ok, other = launches and again and agree, ""
+    if AGAINST is not None:
+        same = all(_equal(AGAINST.detect(*a, **kw), out) for (a, kw), out, _ in store)
+        other = f"; the other tree's detect equal to the bit on every call: {same}"
+        ok = ok and same
+    log(f"K3 detect on {where}'s {len(store)} calls: one launch of each kernel a call "
+        f"{launches}; again on each call's inputs, equal to the bit: {again}; plain twin: "
+        f"positions identical {agree}, max |score diff| {err:.3e} (tol 1e-6){other}")
+    if not ok:
+        fail(f"K3 detect on {where}'s calls")
+    calls = [(a, kw) for (a, kw), _, _ in store]
+    extra = rec["corner_cells"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} detect calls, both kernels, per call"] = (
+        lambda: [corners.detect(*a, **kw) for a, kw in calls], len(store), "corner_")
+    if AGAINST is not None:
+        extra[f"the other tree's kernels on {where}'s detect calls, per call"] = (
+            lambda: [AGAINST.detect(*a, **kw) for a, kw in calls], len(store), "corner_")
+        extra[f"the other tree's whole detect (kernels and glue) on {where}'s calls, per call"] = (
+            lambda: [AGAINST.detect(*a, **kw) for a, kw in calls], len(store))
+
+
+@contextlib.contextmanager
+def recording_brief(store):
+    """Keep every ``brief.describe_brief_pair`` call of the block (one a
+    keyframe extraction) in store, as references to its inputs and outputs
+    with the K16 launches it made, for ``brief_frames_check``."""
+    from vplines_slam_tpu_torch.ops import brief
+
+    pair = brief.describe_brief_pair
+
+    def rec(*args):
+        n0 = brief.BRIEF.launches
+        out = pair(*args)
+        store.append((args, out, brief.BRIEF.launches - n0))
+        return out
+
+    brief.describe_brief_pair = rec
+    try:
+        yield store
+    finally:
+        brief.describe_brief_pair = pair
+
+
+def brief_frames_check(rec, store, where):
+    """Every recorded keyframe's descriptors (both point sets): one K16
+    launch, K16 again equal to the bit, the plain twin equal to the bit;
+    with --against the other tree's K16 (the previous design: two calls of
+    a blur and a descriptor launch) equal to the bit.  Adds K16's device
+    time per keyframe over these calls to its record, the other tree's
+    beside it."""
+    from vplines_slam_tpu_torch.ops import brief
+
+    if not store:
+        fail(f"{where}: no keyframe described")
+    launches = all(n == 1 for _, _, n in store)
+    again = all(_equal(brief.describe_brief_pair(*a), out) for a, out, _ in store)
+    plain = all(_equal((brief.describe_brief_plain(a[0], a[1], a[2]),
+                        brief.describe_brief_plain(a[0], a[3], a[4])), out)
+                for a, out, _ in store)
+    n_desc = sum(int(o[0].shape[0] + o[1].shape[0]) for _, o, _ in store)
+    ok, other = launches and again and plain, ""
+    if AGAINST is not None:
+        same = all(_equal(AGAINST.brief_pair(*a), out) for a, out, _ in store)
+        other = f"; the other tree's K16 equal to the bit {same}"
+        ok = ok and same
+    log(f"K16 brief on {where}'s {len(store)} keyframes ({n_desc} descriptors): one launch a "
+        f"keyframe {launches}; again on each keyframe's inputs, equal to the bit: {again}; "
+        f"every bit equal to the plain twin {plain}{other}")
+    if not ok:
+        fail(f"K16 brief on {where}'s keyframes")
+    calls = [a for a, _, _ in store]
+    extra = rec["brief_patch"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} keyframes, per keyframe"] = (
+        lambda: [brief.describe_brief_pair(*a) for a in calls], len(store), "brief_")
+    if AGAINST is not None:
+        extra[f"the other tree's K16 on {where}'s keyframes, per keyframe"] = (
+            lambda: [AGAINST.brief_pair(*a) for a in calls], len(store), "brief_")
 
 
 # ---------------------------------------------------------------------------
@@ -1407,43 +1644,49 @@ def phase_kernels(S, SL):
                                    klt_cost(xy0.shape[0], cfg.klt, img0.shape, cfg.klt.levels,
                                             io=21))
 
-    # K3 corner response + cell selection, with the tracked features of frame 1
+    # K3: detect on frame 1 with frame 0's tracks as the tracked features
+    # (the front end's call), on frame 0 alone, and on the cases of
+    # utils/synthetic.corner_cases (each image as float32 on the card)
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
     ok1 = ok1 & valid0
+    det_args = (img1, cfg.max_features, cfg.min_dist, cfg.quality)
+    det_kw = dict(existing_xy=pts1, existing_mask=ok1)
+    checks = [k3_check("frame 1 with frame 0's tracks", det_args, det_kw),
+              k3_check("frame 0", (img0, cfg.max_features, cfg.min_dist, cfg.quality))]
+    for name, c in syn.corner_cases(seed=SEED).items():
+        T = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(img0.device)
+        checks.append(k3_check(f"case {name!r}", (
+            T(c["img"]).float(), c["max_corners"], c["min_dist"], c["quality"]), dict(
+            existing_xy=None if c["existing_xy"] is None else T(c["existing_xy"]).float(),
+            existing_mask=T(c["existing_mask"]))))
+    for ok, _, text in checks:
+        log(f"K3 detect, {text}")
+    if not all(ok for ok, _, _ in checks):
+        fail("K3 detect disagrees with its plain twin, across calls or with the other tree's "
+             "detect")
+    err3 = max(e for _, e, _ in checks)
     ch, cw = -(-H // cfg.min_dist), -(-W // cfg.min_dist)
-    occ = corners._occupied(pts1, ok1, cfg.min_dist, ch, cw, img1.device)
-    resp_p = corners._nms(corners.min_eig_response(img1))
-    nms = torch.empty_like(img1)
-    gmax = torch.full((1,), -2**31, dtype=torch.int32, device=img1.device)
-
-    def k3_response():
-        gmax.fill_(-2**31)
-        corners.CORNER_RESPONSE(kmod.check(img1, "img"), H, W, kmod.check(nms, "nms"),
-                                kmod.check(gmax, "gmax", torch.int32))
-
-    k3_response()
-    err_r = float((nms - resp_p).abs().max())
-    # response scale: min-eig of [0,1] images, ~1e-2 at blob peaks; f32 sums of
-    # 9 products reorder, so compare absolutely at 1e-6
-    tol_r = 1e-6
-    log(f"K3 corner_response: max |kernel - plain| = {err_r:.3e} (tol {tol_r})")
-    if not err_r <= tol_r:
-        fail("K3 corner_response disagrees with its plain version")
-    bv_k, bi_k = corners._cell_best_cuda(img1, cfg.min_dist, cfg.quality, occ, 5)
-    bv_p, bi_p = corners._cell_best_plain(img1, cfg.min_dist, cfg.quality, occ, 5)
-    above = bv_p > 0
-    pos_same = bool((bi_k[above] == bi_p[above]).all())
-    err_s = float((bv_k - bv_p).abs().max())
-    log(f"K3 corner_select: {int(above.sum())} cells above threshold, positions identical: "
-        f"{pos_same}, max |best value diff| = {err_s:.3e} (tol 1e-6)")
-    if not (pos_same and err_s <= 1e-6):
-        fail("K3 corner_select disagrees with its plain version")
-    record(rec, "corner_response", err_r, k3_response,
-           lambda: corners._nms(corners.min_eig_response(img1)), "corner_response_kernel",
-           4 * 2 * n_px, 60 * n_px)
-    record(rec, "corner_select", err_s,
-           lambda: corners._cell_best_cuda(img1, cfg.min_dist, cfg.quality, occ, 5),
-           lambda: corners._cell_best_plain(img1, cfg.min_dist, cfg.quality, occ, 5),
-           "corner_select_kernel", 4 * n_px + 9 * ch * cw, 4 * n_px)
+    n_exist = pts1.shape[0]
+    detect_k = lambda: corners.detect(*det_args, **det_kw)
+    detect_p = lambda: corners.detect_plain(*det_args, **det_kw)
+    # pass 1: the image read once and one 8-byte key a cell (response ~60
+    # operations a pixel); pass 2: the keys, the tracked features and the
+    # outputs once
+    record(rec, "corner_cells", err3, detect_k, detect_p, "corner_cells_kernel",
+           4 * n_px + 8 * ch * cw, 60 * n_px)
+    record(rec, "corner_topk", err3, detect_k, detect_p, "corner_topk_kernel",
+           8 * ch * cw + 9 * n_exist + 13 * cfg.max_features, ch * cw)
+    extra = rec["corner_cells"]["extra_device_of"] = {
+        "this tree's whole detect, per call": (detect_k, 1)}
+    if AGAINST is not None:
+        other_k = lambda: AGAINST.detect(*det_args, **det_kw)
+        extra["the other tree's kernels, the same call"] = (other_k, 1, "corner_")
+        extra["the other tree's whole detect (kernels and glue), the same call"] = (other_k, 1)
+        rec["corner_cells"]["other_ms"] = time_ms(other_k)
+        log(f"K3 detect per call (CUDA events): {rec['corner_cells']['ms']:.4f} ms, the other "
+            f"tree's detect {rec['corner_cells']['other_ms']:.4f} ms")
+    PROBES["detect"] = (detect_k, AGAINST and (lambda: AGAINST.detect(*det_args, **det_kw)))
 
     # K4 Sampson scoring: 32 hypotheses over the 150 tracks of frame 0 -> 1
     cam = S["cam"]
@@ -2321,6 +2564,7 @@ def phase_loop_kernels(rec, S):
     import torch
 
     from vplines_slam_tpu_torch.kernels import TWIN_CALLS
+    from vplines_slam_tpu_torch.models import camera as cam_mod
     from vplines_slam_tpu_torch.models import pose_graph as pg_mod
     from vplines_slam_tpu_torch.ops import brief, mvg
     from vplines_slam_tpu_torch.solver import lm
@@ -2344,22 +2588,69 @@ def phase_loop_kernels(rec, S):
            lambda: brief._nms_plain(brief.fast_score_plain(img0), 3), "fast_",
            4 * 2 * n_px, n_px * (16 * 8 + 40 + 49))
 
-    # K16 blur + BRIEF at the 500 corners and at 64 window points (corners
-    # moved by up to 2 px, so most fall between pixels)
+    # K16 BRIEF at the 500 corners and at 64 window points (corners moved by
+    # up to 2 px, so most fall between pixels) in one launch, as a keyframe's
+    # extraction calls it; then the cases of utils/synthetic.brief_cases
+    # (each as float32 on the card), each set alone and split in two
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     wxy = xy_k[:Wp] + 4.0 * torch.rand(Wp, 2, generator=gen, device=dev) - 2.0
     wv = torch.rand(Wp, generator=gen, device=dev) < 0.9
-    d_k, d_p = brief.describe_brief(img0, xy_k, v_k), brief.describe_brief_plain(img0, xy_k, v_k)
-    w_k, w_p = brief.describe_brief(img0, wxy, wv), brief.describe_brief_plain(img0, wxy, wv)
-    same16 = bool(torch.equal(d_k, d_p)) and bool(torch.equal(w_k, w_p))
+    pair_args = (img0, xy_k, v_k, wxy, wv)
+    n0 = brief.BRIEF.launches
+    d_k, w_k = brief.describe_brief_pair(*pair_args)
+    one = brief.BRIEF.launches - n0 == 1
+    d_p, w_p = brief.describe_brief_plain(img0, xy_k, v_k), brief.describe_brief_plain(img0, wxy, wv)
     n_diff = int((d_k != d_p).sum()) + int((w_k != w_p).sum())
-    log(f"K16 brief: 500 corners and 64 window points, every bit equal: {same16} "
-        f"({n_diff} words differ; tol: exact)")
+    again = _equal(brief.describe_brief_pair(*pair_args), (d_k, w_k))
+    cases_ok, n_cases = True, 0
+    for name, (img_c, xy_c, v_c) in syn.brief_cases(seed=SEED).items():
+        T = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        img_c, xy_c, v_c = T(img_c).float(), T(xy_c).float(), T(v_c)
+        ref = brief.describe_brief_plain(img_c, xy_c, v_c)
+        got = brief.describe_brief(img_c, xy_c, v_c)
+        h = xy_c.shape[0] // 2
+        halves = brief.describe_brief_pair(img_c, xy_c[:h], v_c[:h], xy_c[h:], v_c[h:])
+        cases_ok &= (torch.equal(got, ref) and torch.equal(brief.describe_brief(img_c, xy_c, v_c),
+                                                           got)
+                     and torch.equal(torch.cat(halves), ref))
+        if AGAINST is not None:
+            cases_ok &= torch.equal(torch.cat(AGAINST.brief_pair(img_c, xy_c[:h], v_c[:h],
+                                                                 xy_c[h:], v_c[h:])), ref)
+        n_cases += 1
+    same16 = n_diff == 0 and one and again and cases_ok
+    other = ""
+    if AGAINST is not None:
+        same_o = _equal(AGAINST.brief_pair(*pair_args), (d_k, w_k))
+        other = f"; the other tree's K16 equal to the bit on the keyframe and the cases {same_o}"
+        same16 &= same_o
+    log(f"K16 brief: 500 corners and 64 window points in one launch {one}, every bit equal to "
+        f"the plain twin ({n_diff} words differ; tol: exact), again equal {again}; the "
+        f"{n_cases} brief_cases, each set alone, twice and split in two, equal to the plain "
+        f"twin: {cases_ok}{other}")
     if not same16:
-        fail("K16 brief disagrees with its plain version")
-    record(rec, "brief", float(n_diff), lambda: brief.describe_brief(img0, xy_k, v_k),
-           lambda: brief.describe_brief_plain(img0, xy_k, v_k), "brief_",
-           4 * n_px + F_ * (8 + 1 + 32), n_px * 28 + F_ * 256 * 2 * 14)
+        fail("K16 brief disagrees with its plain version, across calls or with the other "
+             "tree's K16")
+    # the frame read once and each descriptor's keypoint, flag and 32 bytes;
+    # a full-frame blur's 28 operations a pixel and 14 a bilinear sample
+    K16 = F_ + Wp
+    record(rec, "brief_patch", float(n_diff), lambda: brief.describe_brief_pair(*pair_args),
+           lambda: (brief.describe_brief_plain(img0, xy_k, v_k),
+                    brief.describe_brief_plain(img0, wxy, wv)), "brief_",
+           4 * n_px + K16 * (8 + 1 + 32), n_px * 28 + K16 * 256 * 2 * 14)
+    if AGAINST is not None:
+        rec["brief_patch"]["extra_device_of"] = {
+            "the other tree's K16 on the same keyframe": (lambda: AGAINST.brief_pair(*pair_args),
+                                                          1, "brief_")}
+        rec["brief_patch"]["other_ms"] = time_ms(lambda: AGAINST.brief_pair(*pair_args))
+        log(f"K16 per keyframe (CUDA events): {rec['brief_patch']['ms']:.4f} ms, the other "
+            f"tree's {rec['brief_patch']['other_ms']:.4f} ms")
+    lift = lambda xy: cam_mod.lift(S["cam"], xy)
+    pg_cfg = euroc_pose_graph()
+    PROBES["extract"] = (
+        lambda: pg_mod.extract_keyframe_features(img0, lift, pg_cfg, window_xy=(wxy, wv)),
+        AGAINST and (lambda: AGAINST.brief_pair(*pair_args)))
 
     # K17 (a) match 64 x 500, the verification's gates and the default ones
     outs = {}
@@ -3836,14 +4127,17 @@ def main(argv=None):
                          "alone moves)")
     ap.add_argument("--against", "--vp-grid-against", dest="against", metavar="TREE",
                     help="another checkout (e.g. the parent commit unpacked with git "
-                         "archive): build its K1, K8 (vp_grid, vp_score), K2, K9, K6 and K7 "
-                         "and run them on this tree's inputs in this process: K1 to the bit "
-                         "on phase 3's frames and every track call of phases 4-6, vp_grid and "
-                         "vp_score to the bit on phase 3's inputs and every lines frame of "
-                         "phases 5-6, K9 to the bit on every clahe call of phase 6, K6 "
-                         "(fields, best cells, walks, detect_lines) and K7 to the bit on "
-                         "phase 3's frames and cases and every lines frame of phases 5-6, "
-                         "each timed beside this tree's")
+                         "archive): build its K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3 "
+                         "and K16 and run them on this tree's inputs in this process: K1 to "
+                         "the bit on phase 3's frames and every track call of phases 4-6, "
+                         "vp_grid and vp_score to the bit on phase 3's inputs and every lines "
+                         "frame of phases 5-6, K9 to the bit on every clahe call of phase 6, "
+                         "K6 (fields, best cells, walks, detect_lines) and K7 to the bit on "
+                         "phase 3's frames and cases and every lines frame of phases 5-6, K3 "
+                         "(detect) to the bit on phase 3's calls and cases and every detect "
+                         "call of phases 4-6 and 8, K16 to the bit on phase 3's keyframe and "
+                         "cases and every keyframe of phases 6-8, each timed beside this "
+                         "tree's")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -3890,15 +4184,17 @@ def main(argv=None):
         device_times(rec)
         return
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: points slice")
-    with recording_klt([]) as klt4, recording_pyramids([]) as pyr4:
+    with (recording_klt([]) as klt4, recording_pyramids([]) as pyr4,
+          recording_detect([]) as det4):
         launches4, sl, prof_points = phase_slice(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
     with (recording_vp([]) as vp5, recording_klt([]) as klt5, recording_pyramids([]) as pyr5,
-          recording_lines({"detect": [], "vote": []}) as ln5):
+          recording_lines({"detect": [], "vote": []}) as ln5, recording_detect([]) as det5):
         launches5, ll, prof_lines = phase_lines(SL)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
     with (recording_vp([]) as vp6, recording_clahe([]) as cl6, recording_pyramids([]) as pyr6,
-          recording_lines({"detect": [], "vote": []}) as ln6):
+          recording_lines({"detect": [], "vote": []}) as ln6, recording_detect([]) as det6,
+          recording_brief([]) as br6):
         launches, cs = phase_cold_start(C, profile=args.profile)
     for where, counted, pyrs in (("phase 4", launches4, pyr4), ("phase 5", launches5, pyr5),
                                  ("phase 6", launches, pyr6)):
@@ -3911,14 +4207,25 @@ def main(argv=None):
     line_frames_check(rec, ln5, "phase 5")
     line_frames_check(rec, ln6, "phase 6")
     clahe_frames_check(rec, cl6, "phase 6")
+    for where, store in (("phase 4", det4), ("phase 5", det5), ("phase 6", det6)):
+        detect_frames_check(rec, store, where)
+    brief_frames_check(rec, br6, "phase 6")
+    del det4, det5, det6, br6
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
-    loop_launches, lc = phase_loop_circuit(dev)
+    with recording_brief([]) as br7:
+        loop_launches, lc = phase_loop_circuit(dev)
+    brief_frames_check(rec, br7, "phase 7")
+    del br7
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
     from vplines_slam_tpu_torch.utils.config import load_profile
 
     sel_cfg = load_profile(str(ROOT / "configs" / "euroc.yaml"), dtype=torch.float32,
                            device=dev).selector
-    launches8, s8 = phase_cold_start(C, selector=sel_cfg)
+    with recording_detect([]) as det8, recording_brief([]) as br8:
+        launches8, s8 = phase_cold_start(C, selector=sel_cfg)
+    detect_frames_check(rec, det8, "phase 8")
+    brief_frames_check(rec, br8, "phase 8")
+    del det8, br8
     sel_launches = {k.name: launches8[k.name] for k in selector_kernels()}
     if args.cold_witness:
         log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
@@ -3936,6 +4243,14 @@ def main(argv=None):
         count_launches(lc["probe"], 3, "phase 7, one loop verification", table=args.profile)
     count_launches(s8["selector_probe"], 3, "phase 8, one selector call (_select_impl)",
                    table=args.profile)
+    for key, label in (("detect", "one detect call (phase 3's frame 1 with its tracks)"),
+                       ("extract", "one extract_keyframe_features call (phase 3's frame 0, "
+                                   "500 corners, 64 window points)")):
+        this, other = PROBES[key]
+        count_launches(this, 3, label, table=args.profile)
+        if other is not None:
+            count_launches(other, 3, "the other tree's " + (
+                "detect, the same call" if key == "detect" else "K16 on that keyframe"))
     if args.profile:
         log(f"[{time.perf_counter() - t_start:.0f} s] profile of the points slice:")
         phase_profile(*prof_points)
@@ -3965,7 +4280,7 @@ def main(argv=None):
             library_device_ms=r["library_device_ms"],
             device_split=r["device_split"],
             **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms", "bound_45_ms",
-                                 "extra_device_ms") if k in r}))
+                                 "extra_device_ms", "other_ms") if k in r}))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")

@@ -186,8 +186,8 @@ def all_kernels():
     from .ops import brief, corners, image, klt, line_match, lines, mvg, vp
     from .solver import lm, marginalization
 
-    return [image.PYRAMIDS, klt.KLT_TRACK, corners.CORNER_RESPONSE,
-            corners.CORNER_SELECT, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
+    return [image.PYRAMIDS, klt.KLT_TRACK, corners.CORNER_CELLS,
+            corners.CORNER_TOPK, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
             lines.LINE_ANCHORS, lines.LINE_SELECT_GROW, line_match.LINE_VOTE, vp.VP_GRID,
             vp.VP_SCORE, image.CLAHE, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,

@@ -129,18 +129,23 @@ def extract_keyframe_features(img, cam_lift, cfg: PoseGraphConfig, window_xy=Non
     the old keyframe's corner-centred one).  cam_lift: pixel -> normalized.
     Returns the feature block add_keyframe takes."""
     xy, valid = brief_mod.detect_fast(img, cfg.n_features)
-    desc = brief_mod.describe_brief(img, xy, valid)
-    norm = cam_lift(xy)[..., 0:2]
-    sig = brief_mod.global_signature(desc, valid, xy=xy, img_hw=tuple(img.shape))
-    out = {"desc": desc, "kp_norm": norm, "kp_valid": valid, "sig": sig}
-    if window_xy is not None:
+    wdesc = None
+    if window_xy is None:
+        desc = brief_mod.describe_brief(img, xy, valid)
+    else:
         wxy, wvalid = window_xy
         d2 = torch.sum((wxy[:, None, :] - xy[None, :, :]) ** 2, dim=-1)
         d2 = torch.where(valid[None, :], d2, torch.full_like(d2, float("inf")))
         dmin, nn = torch.min(d2, dim=1)
         near = dmin < 9.0
         snapped = torch.where(near[:, None], xy[nn], wxy)
-        out["wdesc"] = brief_mod.describe_brief(img, snapped, wvalid)
+        # both sets in one K16 launch
+        desc, wdesc = brief_mod.describe_brief_pair(img, xy, valid, snapped, wvalid)
+    norm = cam_lift(xy)[..., 0:2]
+    sig = brief_mod.global_signature(desc, valid, xy=xy, img_hw=tuple(img.shape))
+    out = {"desc": desc, "kp_norm": norm, "kp_valid": valid, "sig": sig}
+    if wdesc is not None:
+        out["wdesc"] = wdesc
     return out
 
 

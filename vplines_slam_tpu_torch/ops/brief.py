@@ -19,8 +19,10 @@ tensor and runs its ``*_plain`` twin on a CPU tensor:
 - K15 (``csrc/fast.cu``): the FAST-9 score and the 7x7 max-NMS of
   ``detect_fast``; the top-``max_corners`` stays a stable descending sort
   (the order of ``lax.top_k``: the lower index first among equal scores);
-- K16 (``csrc/brief.cu``): the 7-tap sigma-2 blur and the 256 bilinear
-  pair tests of ``describe_brief``;
+- K16 (``csrc/brief.cu``): the 256 bilinear pair tests of
+  ``describe_brief``, each keypoint blurring (7 taps, sigma 2) only the
+  patch they read, one launch for the two point sets of a keyframe
+  (``describe_brief_pair``);
 - K17 (``csrc/hamming.cu``): ``match_descriptors`` (and ``hamming_matrix``)
   and the SimHash codes + 2x2 cell pooling + L2 norm of
   ``global_signature``.
@@ -43,9 +45,9 @@ FAST = kernels.Kernel(
     [kernels.P, kernels.I, kernels.I, kernels.F, kernels.I, kernels.P, kernels.P],
 )
 BRIEF = kernels.Kernel(
-    "vp_brief", "vplines_slam_tpu_torch/csrc/brief.cu", "vplines_slam_tpu/ops/brief.py:94",
+    "vp_brief_patch", "vplines_slam_tpu_torch/csrc/brief.cu", "vplines_slam_tpu/ops/brief.py:94",
     [kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
-     kernels.I, kernels.P, kernels.P],
+     kernels.I, kernels.P, kernels.P, kernels.I, kernels.P],
 )
 HAMMING_MATCH = kernels.Kernel(
     "vp_hamming_match", "vplines_slam_tpu_torch/csrc/hamming.cu",
@@ -219,15 +221,10 @@ def describe_brief_plain(img, xy, valid):
 _TAPS_CACHE = {}
 
 
-def describe_brief(img, xy, valid):
-    """K16.  CPU tensors: ``describe_brief_plain``.  CUDA tensors: one launch
-    blurs (vertical then horizontal, taps in the twin's order), one warp per
-    keypoint packs its 8 words with a ballot."""
-    if not img.is_cuda:
-        return describe_brief_plain(img, xy, valid)
+def _brief_cuda(img, xy, valid, xy2, valid2):
+    """K16's launch over one point set, or two (xy2 not None): [K (+ K2), 8]."""
     _f32_only("img", img)
     H, W = img.shape
-    K = xy.shape[0]
     dev = img.device
     pa, pb = _pattern_tensors(img.dtype, dev)
     if str(dev) not in _TAPS_CACHE:
@@ -235,16 +232,45 @@ def describe_brief(img, xy, valid):
                                              device=dev)
     taps = _TAPS_CACHE[str(dev)]
     img = img.contiguous()
-    xy = xy.contiguous()
-    v8 = valid.to(torch.uint8).contiguous()
-    blur = torch.empty_like(img)
-    desc = torch.empty(K, 8, dtype=torch.int32, device=dev)
+    sets = [(xy.contiguous(), kernels.as_u8(valid))]
+    if xy2 is not None:
+        sets.append((xy2.contiguous(), kernels.as_u8(valid2)))
+    args = []
+    for p, v in sets:
+        K = p.shape[0]
+        args += [kernels.check(p, "xy", shape=(K, 2)),
+                 kernels.check(v, "valid", torch.uint8, shape=(K,)), K]
+    args += [None, None, 0] * (2 - len(sets))
+    desc = torch.empty(args[2] + args[5], 8, dtype=torch.int32, device=dev)
+    if desc.shape[0] == 0:
+        return desc
     BRIEF(kernels.check(img, "img", ndim=2), H, W, kernels.check(taps, "taps", shape=(7,)),
           kernels.check(pa, "pa", shape=(256, 2)), kernels.check(pb, "pb", shape=(256, 2)),
-          kernels.check(xy, "xy", shape=(K, 2)), kernels.check(v8, "valid", torch.uint8,
-                                                               shape=(K,)),
-          K, kernels.check(blur, "blur"), kernels.check(desc, "desc", torch.int32))
+          *args, kernels.check(desc, "desc", torch.int32))
     return desc
+
+
+def describe_brief(img, xy, valid):
+    """K16.  CPU tensors: ``describe_brief_plain``.  CUDA tensors: one launch,
+    a CTA a keypoint blurring its patch, a warp a word packed with a
+    ballot."""
+    if not img.is_cuda:
+        return describe_brief_plain(img, xy, valid)
+    return _brief_cuda(img, xy, valid, None, None)
+
+
+def describe_brief_pair(img, xy, valid, xy2, valid2):
+    """``describe_brief`` at two point sets: (desc [K, 8], desc2 [K2, 8]).
+    Row k depends on xy[k] and valid[k] alone, so this equals two calls.
+    CPU tensors: one plain call on the concatenated sets.  CUDA tensors: one
+    launch of K16 over both sets (no concatenation)."""
+    K = xy.shape[0]
+    if not img.is_cuda:
+        d = describe_brief_plain(img, torch.cat([xy, xy2.to(xy.dtype)]),
+                                 torch.cat([valid, valid2]))
+    else:
+        d = _brief_cuda(img, xy, valid, xy2, valid2)
+    return d[:K], d[K:]
 
 
 # ---------------------------------------------------------------------------

@@ -5,14 +5,23 @@ Port of ``vplines_slam_tpu/ops/corners.py``: min-eigenvalue response
 border kill, then one argmax per ``min_dist`` cell, cells owned by tracked
 features suppressed, and the top ``max_corners`` cells.
 
-Kernel K3 (``csrc/corners.cu``) is two launches: ``CORNER_RESPONSE`` fuses
-Sobel -> box sums -> min eig -> NMS over 16x16 tiles and keeps the global
-maximum; ``CORNER_SELECT`` runs one block per cell with the threshold, the
-border kill, the occupied mask and a first-index-wins argmax.  The top-k over
-the few hundred cells stays a stable sort.
+Kernel K3 (``csrc/corners.cu``) is the whole of ``detect`` on a CUDA tensor,
+in two launches and nothing else: ``CORNER_CELLS`` fuses Sobel -> box sums
+-> min eig -> NMS over 32x32 tiles, keeps the image maximum and folds each
+positive in-border value into its cell's best (first index wins);
+``CORNER_TOPK`` (a CTA per 16 cells) thresholds the cells, suppresses the
+occupied ones (the last tracked feature of a cell wins, as the reference's
+scatter), ranks its cells in ``lax.top_k``'s order and writes their slots of
+``xy``, ``score`` and ``valid``.  The two keep their cell bests and the
+maximum in a scratch of the device and stream that the second launch leaves
+cleared for the next call.  On a
+CPU tensor ``detect`` runs the plain twin: ``_occupied``,
+``_cell_best_plain``, a stable sort and gathers.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -20,17 +29,22 @@ import torch.nn.functional as F
 from .. import kernels
 from .image import _conv2d_same, sobel_gradients
 
-CORNER_RESPONSE = kernels.Kernel(
-    "vp_corner_response", "vplines_slam_tpu_torch/csrc/corners.cu",
-    "vplines_slam_tpu/ops/corners.py:25",
-    [kernels.P, kernels.I, kernels.I, kernels.P, kernels.P],
+# csrc/corners.cu CornerArgs
+_CORNER_ARGS = kernels.args_struct(
+    "CornerArgs",
+    ["img", "map", "state", "keys", "exist_xy", "exist_mask", "xy", "score", "valid"],
+    ["H", "W", "md", "ch", "cw", "border", "n_exist", "max_corners", "keep_map"],
+    ["quality"],
 )
-CORNER_SELECT = kernels.Kernel(
-    "vp_corner_select", "vplines_slam_tpu_torch/csrc/corners.cu",
-    "vplines_slam_tpu/ops/corners.py:43",
-    [kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I,
-     kernels.I, kernels.F, kernels.I, kernels.I, kernels.P, kernels.P],
+CORNER_CELLS = kernels.Kernel(
+    "vp_corner_cells", "vplines_slam_tpu_torch/csrc/corners.cu",
+    "vplines_slam_tpu/ops/corners.py:25", [kernels.P],
 )
+CORNER_TOPK = kernels.Kernel(
+    "vp_corner_topk", "vplines_slam_tpu_torch/csrc/corners.cu",
+    "vplines_slam_tpu/ops/corners.py:43", [kernels.P],
+)
+MAX_CELLS = 16384  # csrc/corners.cu kMaxCells: the top-k keeps 12 bytes a cell in shared memory
 
 def min_eig_response(img, block_size=3):
     """Per-pixel min eigenvalue of the structure tensor (cv::cornerMinEigenVal)."""
@@ -86,47 +100,87 @@ def _cell_best_plain(img, min_dist, quality, occupied, border):
     return best_val, best_in_cell
 
 
-def _cell_best_cuda(img, min_dist, quality, occupied, border):
+_SCRATCH = {}
+
+
+def _scratch(dev, n_cells, n_px):
+    """The device and stream's scratch of K3: the ordered image maximum and
+    the ticket counter ({INT_MIN, 0} between calls), the cells' keys (0
+    between calls) and the map of the exact path.  Made (one fill launch)
+    the first time, or larger, and left cleared by every call's top-k."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    s = _SCRATCH.get(key)
+    if s is None or s[1].numel() < n_cells or s[2].numel() < n_px:
+        if s is not None:
+            n_cells, n_px = max(n_cells, s[1].numel()), max(n_px, s[2].numel())
+        s = (torch.tensor([-2**31, 0], dtype=torch.int32, device=dev),
+             torch.zeros(n_cells, dtype=torch.int64, device=dev),
+             torch.empty(n_px, dtype=torch.float32, device=dev))
+        _SCRATCH[key] = s
+    return s
+
+
+def _detect_cuda(img, max_corners, min_dist, quality, existing_xy, existing_mask, border):
+    """K3's two launches; raises before any launch on what they do not take."""
+    if img.dtype != torch.float32 or img.dim() != 2:
+        raise ValueError(f"img: K3 takes a float32 [H, W] image, got {img.dtype} "
+                         f"{tuple(img.shape)}")
     H, W = img.shape
-    ch, cw = occupied.shape
-    nms = torch.empty_like(img)
-    # order-preserving int image of the NMS maximum, reduced with atomicMax
-    gmax = torch.full((1,), -2**31, dtype=torch.int32, device=img.device)
-    CORNER_RESPONSE(kernels.check(img, "img", ndim=2), H, W,
-                    kernels.check(nms, "nms"), kernels.check(gmax, "gmax", torch.int32))
-    occ = occupied.to(torch.uint8).contiguous()
-    best_val = torch.empty(ch, cw, dtype=img.dtype, device=img.device)
-    best_idx = torch.empty(ch, cw, dtype=torch.int32, device=img.device)
-    CORNER_SELECT(kernels.check(nms, "nms"), kernels.check(gmax, "gmax", torch.int32),
-                  kernels.check(occ, "occupied", torch.uint8, shape=(ch, cw)), H, W, ch, cw,
-                  float(quality), int(min_dist), int(border),
-                  kernels.check(best_val, "best_val"),
-                  kernels.check(best_idx, "best_idx", torch.int32))
-    return best_val, best_idx.long()
+    ch, cw = -(-H // min_dist), -(-W // min_dist)
+    if H < 1 or W < 1 or ch * cw > MAX_CELLS:
+        raise ValueError(f"K3 takes 1 to {MAX_CELLS} cells, got {ch} x {cw}")
+    dev = img.device
+    img = img.contiguous()
+    state, keys, mp = _scratch(dev, ch * cw, H * W)
+    xy = torch.empty(max_corners, 2, dtype=img.dtype, device=dev)
+    score = torch.empty(max_corners, dtype=img.dtype, device=dev)
+    valid = torch.empty(max_corners, dtype=torch.bool, device=dev)
+    n_exist, exy, emask = 0, None, None
+    if existing_xy is not None:
+        exy = existing_xy.contiguous()
+        n_exist = exy.shape[0]
+        kernels.check(exy, "existing_xy", shape=(n_exist, 2))
+        if existing_mask is not None:
+            emask = kernels.as_u8(existing_mask)
+            kernels.check(emask, "existing_mask", torch.uint8, shape=(n_exist,))
+    args = _CORNER_ARGS(
+        kernels.check(img, "img"), mp.data_ptr(), state.data_ptr(), keys.data_ptr(),
+        None if exy is None else exy.data_ptr(), None if emask is None else emask.data_ptr(),
+        xy.data_ptr(), score.data_ptr(), valid.data_ptr(), H, W, int(min_dist), ch, cw,
+        int(border), n_exist, int(max_corners), int(quality < 0), float(quality))
+    CORNER_CELLS(ctypes.byref(args))
+    CORNER_TOPK(ctypes.byref(args))
+    return xy, score, valid
 
 
-def detect(img, max_corners, min_dist=30, quality=0.01, existing_xy=None,
-           existing_mask=None, border=5):
-    """Top-``max_corners`` corners with >= min_dist spacing, avoiding cells of
-    existing ones.  Returns (xy [max_corners, 2], score, valid); unused slots
-    have valid=False.  K3 runs on CUDA tensors, its plain twin on CPU."""
+def detect_plain(img, max_corners, min_dist=30, quality=0.01, existing_xy=None,
+                 existing_mask=None, border=5):
+    """K3's twin: ``_occupied``, ``_cell_best_plain``, the stable top-k and
+    the gathers, on any device."""
     H, W = img.shape
     ch = -(-H // min_dist)
     cw = -(-W // min_dist)
     occupied = _occupied(existing_xy, existing_mask, min_dist, ch, cw, img.device)
-    cell_best = _cell_best_cuda if img.is_cuda else _cell_best_plain
-    best_val, best_in_cell = cell_best(img, min_dist, quality, occupied, border)
+    best_val, best_in_cell = _cell_best_plain(img, min_dist, quality, occupied, border)
+    return _top_cells(best_val, best_in_cell, min_dist, max_corners, img.dtype)
+
+
+def _top_cells(best_val, best_in_cell, min_dist, max_corners, dtype):
+    """The top ``max_corners`` cells of [ch, cw] bests (a stable descending
+    sort: lax.top_k's order), padded with zeros."""
+    ch, cw = best_val.shape
+    dev = best_val.device
     by = best_in_cell // min_dist
     bx = best_in_cell % min_dist
-    cy = torch.arange(ch, device=img.device)[:, None] * min_dist + by
-    cx = torch.arange(cw, device=img.device)[None, :] * min_dist + bx
+    cy = torch.arange(ch, device=dev)[:, None] * min_dist + by
+    cx = torch.arange(cw, device=dev)[None, :] * min_dist + bx
 
     flat_val = best_val.reshape(-1)
     k = min(max_corners, flat_val.shape[0])
     # stable descending sort == lax.top_k's lower-index-first tie order
     top_val, top_idx = torch.sort(flat_val, descending=True, stable=True)
     top_val, top_idx = top_val[:k], top_idx[:k]
-    xy = torch.stack([cx.reshape(-1)[top_idx], cy.reshape(-1)[top_idx]], -1).to(img.dtype)
+    xy = torch.stack([cx.reshape(-1)[top_idx], cy.reshape(-1)[top_idx]], -1).to(dtype)
     valid = top_val > 0.0
     if k < max_corners:
         pad = max_corners - k
@@ -134,3 +188,16 @@ def detect(img, max_corners, min_dist=30, quality=0.01, existing_xy=None,
         top_val = torch.cat([top_val, top_val.new_zeros(pad)])
         valid = torch.cat([valid, valid.new_zeros(pad)])
     return xy, top_val, valid
+
+
+def detect(img, max_corners, min_dist=30, quality=0.01, existing_xy=None,
+           existing_mask=None, border=5):
+    """Top-``max_corners`` corners with >= min_dist spacing, avoiding cells of
+    existing ones.  Returns (xy [max_corners, 2], score, valid); unused slots
+    have valid=False.  K3's two launches on a CUDA tensor (float32, at most
+    MAX_CELLS cells), ``detect_plain`` on a CPU tensor."""
+    if img.is_cuda:
+        return _detect_cuda(img, max_corners, min_dist, quality, existing_xy, existing_mask,
+                            border)
+    return detect_plain(img, max_corners, min_dist, quality, existing_xy, existing_mask,
+                        border)

@@ -483,3 +483,90 @@ def clahe_cases(seed=0):
         "crop": _textured(rng, 77, 101, n_blobs=20),
         "random": rng.uniform(0.0, 1.0, (96, 128)),
     }
+
+
+def corner_cases(seed=0):
+    """Inputs of Shi-Tomasi ``detect`` (K3), by name: dict(img [H, W] numpy
+    f64, max_corners, min_dist, quality, existing_xy [N, 2] or None,
+    existing_mask [N] bool or None):
+
+    - "constant", "zero": a 0.5 and an all-zero frame (only the zero padding
+      makes gradients; every cell is thresholded or border-killed to 0, so
+      the top-k falls back to cell order);
+    - "ramp": a linear ramp, a rank-1 structure tensor whose min eigenvalue
+      rounds to tiny values of either sign inside the image;
+    - "quality < 0": a textured frame at quality -0.01, so the threshold is
+      negative (K3's exact path);
+    - "ties": the same three dots in every 16 px cell at two brightnesses:
+      equal values within a cell (the first index wins) and across cells
+      (the lower cell first), max_corners cutting through a tie group;
+    - "tracked": tracked features several to a cell with mixed masks (the
+      last slot of a cell decides), on cell edges, outside the image;
+    - "min_dist 7" ... "min_dist 45": a 61 x 97 crop and a 120 x 160 frame,
+      H and W no multiples of min_dist, max_corners above and below the
+      cell count."""
+    rng = np.random.default_rng(seed)
+    case = lambda img, mc, md, q=0.01, exy=None, em=None: dict(
+        img=img, max_corners=mc, min_dist=md, quality=q, existing_xy=exy, existing_mask=em)
+    yy, xx = np.mgrid[0:96, 0:128].astype(np.float64)
+    dots = np.full((96, 128), 0.2)
+    for cy in range(6):
+        for cx in range(8):
+            amp = 0.5 if (cx + cy) % 3 == 0 else 0.8
+            for oy, ox in ((6, 6), (6, 11), (11, 6)):
+                dots[16 * cy + oy, 16 * cx + ox] = amp
+    tex = _textured(rng, 96, 128, n_blobs=30)
+    exy = np.array([[20.5, 20.5], [21.0, 22.0],            # one cell: set, then clear
+                    [50.0, 40.0], [52.0, 41.0],            # clear, then set
+                    [70.0, 70.0], [71.0, 72.0], [75.0, 73.0],  # set, clear, set
+                    [32.0, 16.0], [47.999996, 31.999998],  # on and just below cell edges
+                    [-3.0, 5.0], [200.0, 100.0], [100.0, -0.5]])  # outside the image
+    em = np.array([True, False, False, True, True, False, True, True, True, True, False, True])
+    cases = {
+        "constant": case(np.full((96, 128), 0.5), 40, 16),
+        "zero": case(np.zeros((61, 97)), 40, 16),
+        "ramp": case(0.002 * xx[:80, :120] + 0.003 * yy[:80, :120], 20, 16),
+        "quality < 0": case(tex, 30, 16, q=-0.01),
+        "ties": case(dots, 24, 16),
+        "tracked": case(tex, 30, 16, exy=exy, em=em),
+    }
+    crop = _textured(rng, 61, 97, n_blobs=14)
+    frame = _textured(rng, 120, 160, n_blobs=40)
+    for md, img, mc in ((7, crop, 64), (16, crop, 40), (30, frame, 40), (45, frame, 8)):
+        cases[f"min_dist {md}"] = case(img, mc, md)
+    return cases
+
+
+def brief_cases(seed=0, H=96, W=128):
+    """Keypoints of BRIEF (K16) on one textured [H, W] frame, by name: (img
+    numpy f64, xy [K, 2], valid [K] bool):
+
+    - "edge": on the image's edges and corners (taps in the zero pad);
+    - "beyond": outside the image, some far (every tap padded);
+    - "straddling": within the pattern's 17 px of an edge;
+    - "fractional": inside, at non-integer positions;
+    - "K 0", "K 1": no keypoint, one;
+    - "keyframe": 564 keypoints (a keyframe's 500 corners and 64 window
+      points) over the frame and 20 px past it, a tenth invalid."""
+    rng = np.random.default_rng(seed)
+    img = _textured(rng, H, W, n_blobs=30)
+    edge = np.array([[0.0, 0.0], [W - 1.0, H - 1.0], [0.0, H / 2], [W / 2, 0.0],
+                     [W - 0.5, 10.25], [37.75, H - 0.25], [W - 1.0, 0.0], [0.0, H - 1.0]])
+    beyond = np.array([[-20.0, 30.0], [W + 20.0, 10.0], [-100.0, -100.0],
+                       [W + 3.5, H + 2.25], [40.0, -16.5], [55.5, H + 16.75]])
+    straddle = np.concatenate([rng.uniform([1, 1], [16, H - 1], (6, 2)),
+                               rng.uniform([W - 16, 1], [W - 1, H - 1], (6, 2)),
+                               rng.uniform([1, 1], [W - 1, 16], (6, 2))])
+    frac = rng.uniform([18, 18], [W - 18, H - 18], (24, 2))
+    kf = rng.uniform([-20, -20], [W + 20, H + 20], (564, 2))
+    kf[:100] = np.round(kf[:100])  # corners sit on pixels
+    ones = lambda n: np.ones(n, bool)
+    return {
+        "edge": (img, edge, ones(len(edge))),
+        "beyond": (img, beyond, ones(len(beyond))),
+        "straddling": (img, straddle, ones(len(straddle))),
+        "fractional": (img, frac, ones(len(frac))),
+        "K 0": (img, np.zeros((0, 2)), ones(0)),
+        "K 1": (img, frac[:1], ones(1)),
+        "keyframe": (img, kf, rng.uniform(size=564) >= 0.1),
+    }
