@@ -122,9 +122,15 @@ Phases (any failure exits nonzero; there is no CPU path):
   K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
   signature at N = 0, 1, 37, 500 and 1,000 with and without xy (codes
   exact, signature 1e-6, two calls equal to the bit; the projection matmul
-  timed as its library call), K18's 256 PnP hypotheses against the f64 twin (full-rank
-  counts exact, R/t 1e-6), K19's residuals and normal equations at K = 256
-  (1e-12 of each one's largest entry, the dense f64 solve timed beside it),
+  timed as its library call), K18's 256 PnP hypotheses against the f64 twin
+  (full-rank counts and inliers exact, R/t 1e-6, the same chosen
+  hypothesis; eigh on the [256, 12, 12] A^T A batch timed as its library
+  call) and on the cases of utils/synthetic.pnp_cases, K19's residuals and
+  normal equations at K = 256, on the databases of
+  utils/synthetic.pgo_cases and at K = 1,024 (1e-12 of each one's largest
+  entry, two calls equal to the bit; J^T J on the dense f64 Jacobian timed
+  as its library call, the dense f64 solve beside it), every K19 call with
+  H and every K18 call of phase 7 again afterwards (kept by reference),
   and K20 and K21: selector_info on 150 candidates of a staged 752x480 frame
   with the horizon from the truth (1e-12 of each candidate's largest entry),
   selector_greedy at supports 12 (the main path's), 15 and 45, budgets 0,
@@ -326,15 +332,18 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
 # thread per entry of H1 over every slot; one CTA over all descriptors;
 # 2 x 30 + 1 launches of 45x45 LUs; a CTA per 16x16 cell; a warp per
 # anchor slot after detect_lines' sort and gathers, its kernel alone; one
-# 512-thread CTA with a thread per anchor slot), on phase 3's inputs, on an
-# NVIDIA H100 80GB HBM3 at 700 W, for the log beside the new ones
+# 512-thread CTA with a thread per anchor slot; a 128-thread CTA per PnP
+# hypothesis with one warp's cyclic Jacobi; a thread per 4x4 block of H,
+# both launches), on phase 3's inputs, on an NVIDIA H100 80GB HBM3 at 700 W,
+# for the log beside the new ones
 PREVIOUS_DEVICE_MS = {"corner_cells": 0.0089 + 0.0036, "brief_patch": 2 * 0.0098,
                       "pyramids": 0.0089, "klt_track": 3 * 0.0167,
                       "klt_track_gain_bias": 3 * 0.0247, "clahe": 0.0068 + 0.0048,
                       "vp_grid": 0.1962, "vp_score": 0.0202, "preintegrate": 0.1431, "window_lin": 0.1340,
                       "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
                       "simhash_signature": 0.1194, "selector_greedy": 4.8784,
-                      "line_anchors": 0.0106, "line_select_grow": 0.0054, "line_vote": 0.0151}
+                      "line_anchors": 0.0106, "line_select_grow": 0.0054, "line_vote": 0.0151,
+                      "pnp_hypotheses": 0.2588, "pgo4": 0.1707}
 
 
 def device_times(rec):
@@ -372,8 +381,8 @@ def device_times(rec):
                 f"({r['solve_bound_by']})")
 
 
-# --against: another tree's K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3 and
-# K16, as functions of this tree's arguments (OtherTree)
+# --against: another tree's K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3,
+# K16, K18 and K19, as functions of this tree's arguments (OtherTree)
 AGAINST = None
 # calls whose launches main counts under torch.profiler at the end:
 # {"detect": (this tree's, the other tree's or None), "extract": ...}
@@ -383,7 +392,8 @@ PROBES = {}
 class OtherTree:
     """Kernels of another checkout (the parent commit's, say, unpacked with
     ``git archive``): its ``csrc/pyr_down.cu``, ``vp.cu``, ``klt.cu``,
-    ``clahe.cu``, ``lines.cu`` and ``line_match.cu``, each built into a
+    ``clahe.cu``, ``lines.cu``, ``line_match.cu``, ``corners.cu``,
+    ``brief.cu``, ``pgo4.cu`` and ``pnp.cu``, each built into a
     library of its own beside this tree's
     build (one nvcc a source, all started together), called with this
     tree's arguments, so that the two designs run on the same inputs in one
@@ -397,7 +407,8 @@ class OtherTree:
     this tree's ``vp_line_select_grow`` or as the previous design's
     ``vp_line_grow`` behind ``detect_lines``' sort and gathers, and K7 with
     this tree's masks or behind the previous design's conversions (the two
-    changed together)."""
+    changed together); K3, K16, K18 and K19 through the same C entries and
+    arguments as this tree's."""
 
     def __init__(self, tree):
         import ctypes
@@ -408,7 +419,7 @@ class OtherTree:
         self.tree = Path(tree).resolve()
         srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
                 for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match", "corners",
-                          "brief")}
+                          "brief", "pgo4", "pnp")}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -425,7 +436,8 @@ class OtherTree:
                 fail(f"nvcc failed on {srcs[n]}:\n{out}")
         self.lib = {n: ctypes.CDLL(str(so)) for n, so in libs.items()}
         self.fns = {}
-        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3 and K16: {self.tree}")
+        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3, K16, K18 and K19: "
+            f"{self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -679,6 +691,21 @@ class OtherTree:
                    float(quality), int(min_dist), int(border), best_val.data_ptr(),
                    best_idx.data_ptr())
         return corners._top_cells(best_val, best_idx.long(), min_dist, max_corners, img.dtype)
+
+    def pgo_normal(self, x, db, ypr_vio, cfg):
+        """The other tree's K19 with H: (r, H, g), the same C entry and
+        argument struct."""
+        from vplines_slam_tpu_torch.models import pose_graph as pg
+
+        return self._swapped(pg.PGO4, "pgo4",
+                             lambda: pg._pgo_normal_cuda(x, db, ypr_vio, cfg, True))
+
+    def pnp_hypotheses(self, X_w, x, mask, idx, threshold):
+        """The other tree's K18: (Rs, ts, counts, inls), the same C entry."""
+        from vplines_slam_tpu_torch.ops import mvg
+
+        return self._swapped(mvg.PNP_HYPOTHESES, "pnp",
+                             lambda: mvg.pnp_hypotheses(X_w, x, mask, idx, threshold))
 
     def brief_pair(self, img, xy, valid, xy2, valid2):
         """The other tree's K16 at two point sets: its one launch (this
@@ -2556,6 +2583,246 @@ def pgo_database(dev, K=256, n=200, seed=SEED):
                        loop_to=t(loop_to, torch.int64), loop_t=t(loop_t), loop_yaw=t(loop_yaw))
 
 
+def pgo_case_db(case, dev):
+    """A case of ``utils/synthetic.pgo_cases`` as the card holds a database
+    (f32, grown by ``grow_db`` where the case says so)."""
+    import torch
+
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+
+    K = case["p_vio"].shape[0]
+    cfg = pg_mod.PoseGraphConfig(max_keyframes=K, n_features=4, n_window_pts=4)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    db = pg_mod.empty_db(cfg, torch.float32, dev)._replace(
+        count=torch.tensor(case["count"], device=dev), seq=t(case["seq"]),
+        loop_to=t(case["loop_to"]),
+        **{f: t(case[f]).float() for f in ("p_vio", "q_vio", "p_pgo", "yaw_pgo", "loop_t",
+                                           "loop_yaw")})
+    return pg_mod.grow_db(db) if case["grow"] else db
+
+
+def k19_check(label, x, db, cfg, ypr=None):
+    """K19 with H on (x, db): one launch a call, again equal to the bit, r
+    and H within 1e-12 of the f64 twin's largest entry and g within 1e-12 of
+    its largest summand (max |J|^T |r|: near the LM's optimum g is a sum
+    that cancels, and two orders of it differ by rounding of the summands,
+    not of the sum); with --against the other tree's K19 equal to the bit.
+    Logs whether H is symmetric to the bit (it is not where two loop edges
+    join one pair: the blocks (a, b) and (b, a) sum them in opposite orders,
+    as the previous design did).  Returns (ok, err, text)."""
+    import torch
+    from torch.func import jacfwd
+
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+
+    ypr = pg_mod._ypr_vio(db) if ypr is None else ypr
+    n0 = pg_mod.PGO4.launches
+    out = pg_mod.pgo_normal(x, db, ypr, cfg)
+    one = pg_mod.PGO4.launches - n0 == 1
+    again = _equal(pg_mod.pgo_normal(x, db, ypr, cfg), out)
+    r, H, g = pg_mod.pgo_normal_plain(x, db, ypr, cfg)
+    K = x.shape[0]
+    db64, y64 = pg_mod._f64_db(db), ypr.double()
+    J = jacfwd(lambda xf: pg_mod.pgo_residual(xf.reshape(K, 4), db64, y64, cfg))(
+        x.double().reshape(-1))
+    g_scale = float((J.abs().T @ r.abs()).max())
+    rel = lambda a, b, scale: float((a - b).abs().max()) / max(scale, 1e-300)
+    errs = dict(r=rel(out[0], r, float(r.abs().max())), H=rel(out[1], H, float(H.abs().max())),
+                g=rel(out[2], g, g_scale))
+    err = max(errs.values())
+    sym = bool(torch.equal(out[1], out[1].T))
+    ok = one and again and err <= 1e-12
+    scaled = ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+    text = (f"{label}: K {K}, {int(db.count)} keyframes, {int((db.loop_to >= 0).sum())} loop "
+            f"edges: max |kernel - plain| over the scale {scaled} (tol 1e-12), one launch "
+            f"{one}, again equal {again}, H symmetric {sym}")
+    if AGAINST is not None:
+        same = _equal(AGAINST.pgo_normal(x, db, ypr, cfg), out)
+        ok = ok and same
+        text += f", the other tree's r, H, g equal to the bit {same}"
+    return ok, err, text
+
+
+def pnp_determined(X_w, x, mask, idx):
+    """Per sample row of idx, whether its pose is determined by the data
+    rather than by an eigensolver's rounding: six distinct unmasked points
+    (``full``: full rank) whose 12x12 A^T A has a relative gap above 1e-10
+    between its two smallest eigenvalues (so eps / gap bounds the
+    eigenvector's error near 1e-6), whose sample depths under that vector
+    sum to more than 1e-4 of their magnitudes (the sign fix is not a coin
+    flip) and whose M = P[:, :3] has its smallest singular value above 1e-4
+    of its largest (the polar factor R is unique).  Returns (full,
+    determined)."""
+    import torch
+
+    srt = torch.sort(idx, dim=1).values
+    full = (srt[:, 1:] != srt[:, :-1]).all(1) & mask[idx].all(1)
+    Xh = torch.cat([X_w.double()[idx], torch.ones_like(X_w.double()[idx][..., :1])], -1)
+    u = x.double()[idx]
+    z = torch.zeros_like(Xh)
+    A = torch.cat([torch.cat([Xh, z, -u[..., :1] * Xh], -1),
+                   torch.cat([z, Xh, -u[..., 1:] * Xh], -1)], 1)
+    lam, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    gap = (lam[:, 1] - lam[:, 0]) / lam[:, -1]
+    P = V[:, :, 0].reshape(-1, 3, 4)
+    depths = (Xh * P[:, 2:3, :]).sum(-1)
+    sign_ok = depths.sum(-1).abs() > 1e-4 * depths.abs().sum(-1)
+    sv = torch.linalg.svdvals(P[:, :, :3])
+    return full, full & (gap > 1e-10) & sign_ok & (sv[:, 2] > 1e-4 * sv[:, 0])
+
+
+def pnp_normal_matrices(X_w, x, sm):
+    """The hypotheses' DLT normal matrices A^T A [n_hyp, 12, 12] over each
+    sample set sm [n_hyp, N], as the twin forms them."""
+    import torch
+
+    Xh = torch.cat([X_w, torch.ones_like(X_w[:, :1])], 1)
+    z = torch.zeros_like(Xh)
+    m = sm.to(X_w.dtype)[..., None]
+    r0 = torch.cat([Xh, z, -x[:, :1] * Xh], 1) * m
+    r1 = torch.cat([z, Xh, -x[:, 1:] * Xh], 1) * m
+    A = torch.cat([r0, r1], 1)
+    return A.transpose(-1, -2) @ A
+
+
+def k18_check(label, X, x, mask, idx, thr, chosen_bar):
+    """K18 on one call's inputs: one launch, again equal to the bit; on the
+    rows whose pose is determined (``pnp_determined``) the counts and
+    inlier masks equal to the f64 twin's and R, t within 1e-6 of them; with
+    --against the other tree's counts and inliers equal on those rows; with
+    chosen_bar the chosen hypothesis (the first with the most inliers) the
+    same as the other tree's, or as the twin's without --against, wherever
+    both chose a determined row.  Logs the full-rank rows left out and what
+    the kernels gave there.  Returns (ok, err, text)."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import mvg
+
+    n0 = mvg.PNP_HYPOTHESES.launches
+    out = mvg.pnp_hypotheses(X, x, mask, idx, thr)
+    one = mvg.PNP_HYPOTHESES.launches - n0 == 1
+    again = _equal(mvg.pnp_hypotheses(X, x, mask, idx, thr), out)
+    Rk, tk, ck, ik = out
+    Rp, tp, cp, ip_ = mvg.pnp_hypotheses_plain(X.double(), x.double(), mask, idx, thr)
+    distinct, full = pnp_determined(X, x, mask, idx)
+    rt_err = lambda R, t, rows: (max(float((R - Rp)[rows].abs().max()),
+                                     float((t - tp)[rows].abs().max()))
+                                 if bool(rows.any()) else 0.0)
+    err = rt_err(Rk, tk, full)
+    same_twin = bool(torch.equal(ck[full], cp[full]) and torch.equal(ik[full], ip_[full]))
+    left = distinct & ~full
+    chosen, ref = int(torch.argmax(ck)), int(torch.argmax(cp))
+    ok = one and again and same_twin and err <= 1e-6
+    text = (f"{label}: {int(full.sum())} determined of {idx.shape[0]} ({int(distinct.sum())} "
+            f"full-rank); counts and inliers equal to the twin's {same_twin}, R/t max |kernel - "
+            f"f64 twin| {err:.2e} (tol 1e-6), one launch {one}, again equal {again}, chosen "
+            f"{chosen} (the twin's {ref})")
+    if bool(left.any()):
+        text += (f"; on the {int(left.sum())} full-rank rows left out the counts equal the "
+                 f"twin's on {int((ck[left] == cp[left]).sum())}, R/t max diff "
+                 f"{rt_err(Rk, tk, left):.2e}")
+    if AGAINST is not None:
+        Ro, to_, co, io = AGAINST.pnp_hypotheses(X, x, mask, idx, thr)
+        same = bool(torch.equal(ck[full], co[full]) and torch.equal(ik[full], io[full]))
+        ref = int(torch.argmax(co))
+        ok = ok and same
+        text += (f", the other tree's counts and inliers equal {same}, its chosen {ref}, its R/t "
+                 f"max |diff| to the twin {rt_err(Ro, to_, full):.2e}")
+        if bool(left.any()):
+            text += f" ({rt_err(Ro, to_, left):.2e} on the rows left out)"
+    if chosen_bar:
+        both = bool(full[chosen]) and bool(full[ref])
+        ok = ok and (chosen == ref or not both)
+        if chosen != ref:
+            text += (f"; the chosen hypotheses differ: {chosen} "
+                     f"{'determined' if bool(full[chosen]) else 'not determined'}, {ref} "
+                     f"{'determined' if bool(full[ref]) else 'not determined'}")
+    return ok, err, text
+
+
+@contextlib.contextmanager
+def recording_loop(store):
+    """Keep every K19 call with H (``pose_graph.pgo_normal``, one an LM
+    iteration of ``optimize_4dof``) and every K18 call (``mvg.pnp_hypotheses``,
+    one a verification) of the block in store ({"pgo": [], "pnp": []}), as
+    references to their inputs and outputs, for ``loop_calls_check``."""
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+    from vplines_slam_tpu_torch.ops import mvg
+
+    pgo, pnp = pg_mod.pgo_normal, mvg.pnp_hypotheses
+
+    def rec_pgo(x, db, ypr_vio, cfg, with_h=True):
+        out = pgo(x, db, ypr_vio, cfg, with_h)
+        if with_h:
+            store["pgo"].append(((x, db, ypr_vio, cfg), out))
+        return out
+
+    def rec_pnp(*args):
+        out = pnp(*args)
+        store["pnp"].append((args, out))
+        return out
+
+    pg_mod.pgo_normal, mvg.pnp_hypotheses = rec_pgo, rec_pnp
+    try:
+        yield store
+    finally:
+        pg_mod.pgo_normal, mvg.pnp_hypotheses = pgo, pnp
+
+
+def loop_calls_check(rec, store, where):
+    """Every recorded K19 call with H: again equal to the bit to the run's
+    output, and ``k19_check``; every recorded K18 call: again equal to the
+    bit, and ``k18_check`` with the chosen-hypothesis bar.  Adds both kernels'
+    device times per call over these calls to their records, the other
+    tree's beside them."""
+    from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+    from vplines_slam_tpu_torch.ops import mvg
+
+    if not store["pgo"] or not store["pnp"]:
+        fail(f"{where}: no PGO iteration or no verification recorded")
+    ok19, err19, texts = True, 0.0, []
+    for (x, db, ypr, cfg), out in store["pgo"]:
+        again = _equal(pg_mod.pgo_normal(x, db, ypr, cfg), out)
+        ok, e, text = k19_check(f"  an iteration: equal to the run's output {again}; check", x,
+                                db, cfg, ypr)
+        ok19, err19 = ok19 and ok and again, max(err19, e)
+        texts.append(text)
+    log(f"K19 on {where}'s {len(store['pgo'])} PGO iterations with H: {ok19}\n"
+        + "\n".join(texts))
+    ok18, err18, n_full, n_det, notes = True, 0.0, 0, 0, []
+    for k, (args, out) in enumerate(store["pnp"]):
+        again = _equal(mvg.pnp_hypotheses(*args), out)
+        ok, e, text = k18_check(f"call {k}", *args, True)
+        distinct, full = pnp_determined(*args[:4])
+        n_full, n_det = n_full + int(distinct.sum()), n_det + int(full.sum())
+        ok18, err18 = ok18 and ok and again, max(err18, e)
+        if not (ok and again) or "left out" in text or "differ" in text:
+            notes.append(f"{text}; equal to the run's output {again}")
+    log(f"K18 on {where}'s {len(store['pnp'])} calls ({n_full} full-rank hypotheses, {n_det} "
+        f"determined): equal to the bit to the run's output and again, counts and inliers "
+        f"equal to the twin's" + ("" if AGAINST is None else " and the other tree's")
+        + " on the determined rows, the same chosen hypothesis" + (
+            "" if AGAINST is None else " as the other tree's")
+        + f" where both chose a determined row, R/t max |kernel - f64 twin| {err18:.2e} (tol "
+        f"1e-6): {ok18}" + "".join(f"\n    {b}" for b in notes))
+    if not (ok19 and ok18):
+        fail(f"K18 or K19 on {where}'s calls")
+    pgo_calls = [a for a, _ in store["pgo"]]
+    pnp_calls = [a for a, _ in store["pnp"]]
+    ex19 = rec["pgo4"].setdefault("extra_device_of", {})
+    ex18 = rec["pnp_hypotheses"].setdefault("extra_device_of", {})
+    ex19[f"{where}'s {len(pgo_calls)} calls with H, per call"] = (
+        lambda: [pg_mod.pgo_normal(*a) for a in pgo_calls], len(pgo_calls), "pgo4_")
+    ex18[f"{where}'s {len(pnp_calls)} calls, per call"] = (
+        lambda: [mvg.pnp_hypotheses(*a) for a in pnp_calls], len(pnp_calls), "pnp_kernel")
+    if AGAINST is not None:
+        ex19[f"the other tree's K19 on {where}'s calls with H, per call"] = (
+            lambda: [AGAINST.pgo_normal(*a) for a in pgo_calls], len(pgo_calls), "pgo4_")
+        ex18[f"the other tree's K18 on {where}'s calls, per call"] = (
+            lambda: [AGAINST.pnp_hypotheses(*a) for a in pnp_calls], len(pnp_calls),
+            "pnp_kernel")
+
+
 def phase_loop_kernels(rec, S):
     """K15-K19 at the profile's sizes: FAST + NMS on a 752x480 frame, BRIEF
     at its 500 corners and at 64 window points, the 64 x 500 Hamming match
@@ -2566,6 +2833,8 @@ def phase_loop_kernels(rec, S):
     from vplines_slam_tpu_torch.kernels import TWIN_CALLS
     from vplines_slam_tpu_torch.models import camera as cam_mod
     from vplines_slam_tpu_torch.models import pose_graph as pg_mod
+    from torch.func import jacfwd
+
     from vplines_slam_tpu_torch.ops import brief, mvg
     from vplines_slam_tpu_torch.solver import lm
 
@@ -2712,7 +2981,8 @@ def phase_loop_kernels(rec, S):
            library_fn=lambda: torch.sign(bits @ Wv))
 
     # K18: 256 six-point hypotheses over 64 points, ~40% outliers, against
-    # the twin at f64 on the same (f32) inputs
+    # the twin at f64 on the same (f32) inputs, then the cases of
+    # utils/synthetic.pnp_cases
     N, n_hyp = 64, 256
     g = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=torch.float64)
     from vplines_slam_tpu_torch.utils import geometry as geo
@@ -2743,15 +3013,42 @@ def phase_loop_kernels(rec, S):
     if not (counts_same and err18 <= 1e-6 and chosen[0] == chosen[1]
             and bool(full[chosen[0]])):
         fail("K18 pnp_hypotheses disagrees with its plain version")
+    ok18, e, text = k18_check("K18 on phase 3's input", X32, x32, mask, idx, thr, True)
+    log(text)
+    cases_ok, case_texts = True, []
+    for name, (Xc_, xc_, mc_, ic_, thr_c) in syn.pnp_cases(seed=SEED).items():
+        T = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        ok, e, text = k18_check(f"K18 on pnp_cases' {name!r}", T(Xc_).float(), T(xc_).float(),
+                                T(mc_), T(ic_), thr_c, False)
+        cases_ok, err18 = cases_ok and ok, max(err18, e)
+        case_texts.append(text)
+    log("\n".join(case_texts))
+    if not (ok18 and cases_ok):
+        fail("K18 pnp_hypotheses disagrees with its plain version, across calls or with the "
+             "other tree's K18")
     n_s = 6
+    sm = torch.zeros(n_hyp, N, dtype=torch.bool, device=dev).scatter(1, idx, True) & mask
+    S_dlt = pnp_normal_matrices(X32.double(), x32.double(), sm)
     record(rec, "pnp_hypotheses", err18, lambda: mvg.pnp_hypotheses(X32, x32, mask, idx, thr),
            lambda: mvg.pnp_hypotheses_plain(X32, x32, mask, idx, thr), "pnp_kernel",
            N * (20 + 1) + n_hyp * n_s * 8 + n_hyp * (12 * 8 + 4 + N),
            # per hypothesis: A^T A over the sample, a 12x12 symmetric eigen-
            # decomposition with vectors (~9 n^3), a 3x3 SVD, N reprojections
-           n_hyp * (n_s * 78 * 4 + 9 * 12 ** 3 + 400 + N * 30))
+           n_hyp * (n_s * 78 * 4 + 9 * 12 ** 3 + 400 + N * 30),
+           library_fn=lambda: torch.linalg.eigh(S_dlt),
+           library_label=f"torch.linalg.eigh on the [{n_hyp}, 12, 12] A^T A batch: the "
+                         f"eigensolve alone")
+    if AGAINST is not None:
+        pnp_args = (X32, x32, mask, idx, thr)
+        rec["pnp_hypotheses"]["extra_device_of"] = {
+            "the other tree's K18 on the same inputs": (
+                lambda: AGAINST.pnp_hypotheses(*pnp_args), 1, "pnp_kernel")}
+        rec["pnp_hypotheses"]["other_ms"] = time_ms(lambda: AGAINST.pnp_hypotheses(*pnp_args))
+        log(f"K18 per call (CUDA events): {rec['pnp_hypotheses']['ms']:.4f} ms, the other "
+            f"tree's {rec['pnp_hypotheses']['other_ms']:.4f} ms")
 
-    # K19 at K = 256: r, H and g against jacfwd + J^T J in f64
+    # K19 at K = 256: r, H and g against jacfwd + J^T J in f64, then the
+    # cases of utils/synthetic.pgo_cases and K = 1,024
     cfg = euroc_pose_graph()
     db = pgo_database(dev)
     K = db.p_vio.shape[0]
@@ -2767,6 +3064,27 @@ def phase_loop_kernels(rec, S):
         f"edges: max |kernel - plain| / max |plain| {errs19} (tol 1e-12, f64)")
     if not err19 <= 1e-12:
         fail("K19 pgo4 disagrees with its plain version")
+    ok19, e, text = k19_check("K19 on phase 3's database", xk, db, cfg)
+    log(text)
+    cases_ok, case_texts = True, []
+    for name, case in syn.pgo_cases(seed=SEED).items():
+        db_c = pgo_case_db(case, dev)
+        K_c = db_c.p_vio.shape[0]
+        x_c = (torch.cat([db_c.yaw_pgo[:, None], db_c.p_pgo], 1)
+               + 0.05 * (torch.rand(K_c, 4, generator=gen, device=dev) - 0.5))
+        ok, e, text = k19_check(f"K19 on pgo_cases' {name!r}", x_c, db_c, cfg)
+        cases_ok, err19 = cases_ok and ok, max(err19, e)
+        case_texts.append(text)
+    log("\n".join(case_texts))
+    db_big = pgo_database(dev, K=1024)
+    x_big = (torch.cat([db_big.yaw_pgo[:, None], db_big.p_pgo], 1)
+             + 0.05 * (torch.rand(1024, 4, generator=gen, device=dev) - 0.5))
+    ok_big, e, text = k19_check("K19 at K = 1,024", x_big, db_big, cfg)
+    log(text)
+    err19 = max(err19, e)
+    if not (ok19 and cases_ok and ok_big):
+        fail("K19 pgo4 disagrees with its plain version, across calls or with the other "
+             "tree's K19")
     spec = lm.SchurSpec(dense_dim=4 * K)
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
     solve = lambda: lm.schur_solve(Hk, gk, spec, lam)
@@ -2774,15 +3092,41 @@ def phase_loop_kernels(rec, S):
     log(f"  the dense {4 * K} x {4 * K} f64 solve beside it (solver/lm.schur_solve, "
         f"torch.linalg Cholesky): {solve_ms:.4f} ms/call")
     n_e = K * (cfg.seq_edges + 2)
+    db64, y64 = pg_mod._f64_db(db), ypr.double()
+    J19 = jacfwd(lambda xf: pg_mod.pgo_residual(xf.reshape(K, 4), db64, y64, cfg))(
+        xk.double().reshape(-1))
     record(rec, "pgo4", err19, lambda: pg_mod.pgo_normal(xk, db, ypr, cfg),
            lambda: pg_mod.pgo_normal_plain(xk, db, ypr, cfg), "pgo4_",
-           K * 8 * 20 + K * 4 * 3 + 8 * (16 * K * K + 4 * K + 4 * n_e), n_e * (150 + 4 * 2 * 64))
+           K * 8 * 20 + K * 4 * 3 + 8 * (16 * K * K + 4 * K + 4 * n_e), n_e * (150 + 4 * 2 * 64),
+           library_fn=lambda: J19.T @ J19,
+           library_label=f"J^T J in f64 on the dense [{J19.shape[0]}, {J19.shape[1]}] Jacobian: "
+                         f"H alone")
     # the solve's bound: H and g read, the delta written; a Cholesky (n^3 / 3)
     # and two triangular solves
     n4 = 4 * K
     s_ms, s_by = bound(8 * (n4 * n4 + 2 * n4), n4 ** 3 / 3 + 2 * n4 * n4)
     rec["pgo4"].update(solve_ms=solve_ms, solve_of=solve, solve_bound_ms=s_ms,
                        solve_bound_by=s_by)
+    big = (x_big, db_big, pg_mod._ypr_vio(db_big), cfg)
+    extra = rec["pgo4"].setdefault("extra_device_of", {})
+    extra["residual-only mode (the LM's cost pass), K = 256"] = (
+        lambda: pg_mod.pgo_normal(xk, db, ypr, cfg, with_h=False), 1, "pgo4_")
+    extra["K = 1,024, with H"] = (lambda: pg_mod.pgo_normal(*big), 1, "pgo4_")
+    b_big, _ = bound(1024 * 8 * 20 + 1024 * 4 * 3
+                     + 8 * (16 * 1024 ** 2 + 4 * 1024 + 4 * 1024 * 6), 0)
+    rec["pgo4"]["bound_1024_ms"] = b_big
+    log(f"K19 at K = 1,024 per call (CUDA events): "
+        f"{time_ms(lambda: pg_mod.pgo_normal(*big)):.4f} ms, bound {b_big:.5f} ms (bytes)")
+    if AGAINST is not None:
+        args19 = (xk, db, ypr, cfg)
+        extra["the other tree's K19 on the same inputs, K = 256"] = (
+            lambda: AGAINST.pgo_normal(*args19), 1, "pgo4_")
+        extra["the other tree's K19 at K = 1,024"] = (lambda: AGAINST.pgo_normal(*big), 1,
+                                                     "pgo4_")
+        rec["pgo4"]["other_ms"] = time_ms(lambda: AGAINST.pgo_normal(*args19))
+        log(f"K19 per call (CUDA events), K = 256: {rec['pgo4']['ms']:.4f} ms, the other "
+            f"tree's {rec['pgo4']['other_ms']:.4f} ms; K = 1,024: the other tree's "
+            f"{time_ms(lambda: AGAINST.pgo_normal(*big), n=5):.4f} ms")
     TWIN_CALLS.clear()
     return rec
 
@@ -4127,8 +4471,9 @@ def main(argv=None):
                          "alone moves)")
     ap.add_argument("--against", "--vp-grid-against", dest="against", metavar="TREE",
                     help="another checkout (e.g. the parent commit unpacked with git "
-                         "archive): build its K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3 "
-                         "and K16 and run them on this tree's inputs in this process: K1 to "
+                         "archive): build its K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3, "
+                         "K16, K18 and K19 and run them on this tree's inputs in this process: "
+                         "K1 to "
                          "the bit on phase 3's frames and every track call of phases 4-6, "
                          "vp_grid and vp_score to the bit on phase 3's inputs and every lines "
                          "frame of phases 5-6, K9 to the bit on every clahe call of phase 6, "
@@ -4136,8 +4481,12 @@ def main(argv=None):
                          "phase 3's frames and cases and every lines frame of phases 5-6, K3 "
                          "(detect) to the bit on phase 3's calls and cases and every detect "
                          "call of phases 4-6 and 8, K16 to the bit on phase 3's keyframe and "
-                         "cases and every keyframe of phases 6-8, each timed beside this "
-                         "tree's")
+                         "cases and every keyframe of phases 6-8, K19 to the bit on phase 3's "
+                         "database, the PGO cases, K = 1,024 and every PGO iteration of phase "
+                         "7, K18's counts and inliers on every hypothesis whose pose is "
+                         "determined and its chosen hypothesis where both choices are, on "
+                         "phase 3's input and every verification of phase 7 (the counts also "
+                         "on the PnP cases), each timed beside this tree's")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -4212,10 +4561,11 @@ def main(argv=None):
     brief_frames_check(rec, br6, "phase 6")
     del det4, det5, det6, br6
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
-    with recording_brief([]) as br7:
+    with recording_brief([]) as br7, recording_loop({"pgo": [], "pnp": []}) as lp7:
         loop_launches, lc = phase_loop_circuit(dev)
     brief_frames_check(rec, br7, "phase 7")
-    del br7
+    loop_calls_check(rec, lp7, "phase 7")
+    del br7, lp7
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
     from vplines_slam_tpu_torch.utils.config import load_profile
 
@@ -4280,7 +4630,7 @@ def main(argv=None):
             library_device_ms=r["library_device_ms"],
             device_split=r["device_split"],
             **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms", "bound_45_ms",
-                                 "extra_device_ms", "other_ms") if k in r}))
+                                 "bound_1024_ms", "extra_device_ms", "other_ms") if k in r}))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")

@@ -322,6 +322,13 @@ def _f64_db(db):
         "p_vio", "q_vio", "p_pgo", "yaw_pgo", "loop_t", "loop_yaw")})
 
 
+def _k19_db(db):
+    """The fields K19 reads as it reads them (floats f64, ints int32), so a
+    PGO converts its database once and not in each of its calls."""
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return _f64_db(db)._replace(seq=i32(db.seq), loop_to=i32(db.loop_to), count=i32(db.count))
+
+
 def pgo_normal_plain(x, db: KeyframeDB, ypr_vio, cfg: PoseGraphConfig, with_h=True):
     """K19's twin, in f64: (r, H = J^T J, g = -J^T r) with J from
     ``torch.func.jacfwd`` of ``pgo_residual``; (r, None, None) without H."""
@@ -338,6 +345,8 @@ def pgo_normal_plain(x, db: KeyframeDB, ypr_vio, cfg: PoseGraphConfig, with_h=Tr
 
 def _pgo_normal_cuda(x, db: KeyframeDB, ypr_vio, cfg: PoseGraphConfig, with_h):
     K, E = x.shape[0], cfg.seq_edges
+    if with_h and 2 * E + 2 > 256:
+        raise ValueError(f"K19 takes seq_edges <= 127, got {E}")
     dev = x.device
     n_e = K * E + 2 * K
     d = lambda t: t.to(torch.float64).contiguous()
@@ -364,8 +373,10 @@ def _pgo_normal_cuda(x, db: KeyframeDB, ypr_vio, cfg: PoseGraphConfig, with_h):
 
 def pgo_normal(x, db: KeyframeDB, ypr_vio, cfg: PoseGraphConfig, with_h=True):
     """K19.  CPU tensors: ``pgo_normal_plain``.  CUDA tensors: a thread per
-    edge for the residual and Jacobian blocks, a thread per 4x4 block of H in
-    a fixed order; with_h=False is the residual-only cost pass.  All f64."""
+    edge for the residual and Jacobian blocks, then a CTA per block row of H
+    that writes the row's zeros and computes only its nonzero blocks (the
+    band of sequential edges and the loop partners) in a fixed order;
+    with_h=False is the residual-only cost pass (one launch).  All f64."""
     if not x.is_cuda:
         return pgo_normal_plain(x, db, ypr_vio, cfg, with_h)
     return _pgo_normal_cuda(x, db, ypr_vio, cfg, with_h)
@@ -379,12 +390,12 @@ def optimize_4dof(db: KeyframeDB, cfg: PoseGraphConfig):
     stay f64 into the solve.  Returns (db with yaw_pgo/p_pgo, LMResult)."""
     K = db.p_vio.shape[0]
     dtype, dev = db.p_vio.dtype, db.p_vio.device
-    ypr_vio = _ypr_vio(db)
+    db_k, ypr_vio = _k19_db(db), _ypr_vio(db).double()
     config = lm_mod.LMConfig(num_iters=cfg.pgo_iters)
     spec = lm_mod.SchurSpec(dense_dim=4 * K)
 
     def cost_of(x):
-        r = pgo_normal(x, db, ypr_vio, cfg, with_h=False)[0].to(dtype)
+        r = pgo_normal(x, db_k, ypr_vio, cfg, with_h=False)[0].to(dtype)
         return 0.5 * torch.dot(r, r)
 
     x = torch.cat([db.yaw_pgo[:, None], db.p_pgo], dim=1)
@@ -393,7 +404,7 @@ def optimize_4dof(db: KeyframeDB, cfg: PoseGraphConfig):
     lam = torch.as_tensor(config.lambda_init, dtype=dtype, device=dev)
     gnorm = torch.zeros_like(cost0)
     for _ in range(config.num_iters):
-        _, H, g = pgo_normal(x, db, ypr_vio, cfg)
+        _, H, g = pgo_normal(x, db_k, ypr_vio, cfg)
         delta = lm_mod.schur_solve(H, g, spec, lam, config.diag_floor)
         x_new = x + delta.to(dtype).reshape(K, 4)
         cost_new = cost_of(x_new)

@@ -349,9 +349,10 @@ def pnp_hypotheses_plain(X_w, x, mask, idx, threshold):
 
 
 def pnp_hypotheses(X_w, x, mask, idx, threshold):
-    """K18.  CPU tensors: ``pnp_hypotheses_plain``.  CUDA tensors: one block
-    per hypothesis, in f64 inside; Rs and ts come back as f64 (the caller
-    casts), the inliers scored from them."""
+    """K18.  CPU tensors: ``pnp_hypotheses_plain``.  CUDA tensors: a warp
+    per hypothesis (a parallel-ordered Jacobi eigensolve in registers), in
+    f64 inside, at most 32 draws a sample; Rs and ts come back as f64 (the
+    caller casts), the inliers scored from them."""
     if not x.is_cuda:
         return pnp_hypotheses_plain(X_w, x, mask, idx, threshold)
     n_hyp, S = idx.shape
@@ -359,6 +360,8 @@ def pnp_hypotheses(X_w, x, mask, idx, threshold):
     dt, dev = x.dtype, x.device
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"K18 takes float32 or float64, got {dt}")
+    if S > 32:
+        raise ValueError(f"K18 takes at most 32 draws a sample, got {S}")
     X_w, x = X_w.contiguous(), x.contiguous()
     m8 = mask.to(torch.uint8).contiguous()
     idx = idx.to(torch.int64).contiguous()

@@ -570,3 +570,149 @@ def brief_cases(seed=0, H=96, W=128):
         "K 1": (img, frac[:1], ones(1)),
         "keyframe": (img, kf, rng.uniform(size=564) >= 0.1),
     }
+
+
+def _pgo_rows(rng, K, n, yaw0=0.0):
+    """n keyframes of a database of capacity K along a 3 m circle (64 a lap)
+    with a drifting yaw and translation, the rows beyond n as empty_db leaves
+    them: (p [K, 3], ypr [K, 3] deg)."""
+    a = 2 * np.pi * np.arange(n) / 64
+    yaw_d = np.cumsum(rng.normal(0, 0.3, n))
+    t_d = np.cumsum(rng.normal(0, 0.02, (n, 3)), axis=0)
+    p = np.zeros((K, 3))
+    ypr = np.zeros((K, 3))
+    p[:n] = np.stack([3 * np.cos(a), 3 * np.sin(a), 0.2 * np.sin(2 * a)], 1) + t_d
+    ypr[:n] = np.stack([np.degrees(a) + yaw0 + yaw_d, 4 * np.sin(a), 3 * np.cos(a)], 1)
+    ypr[:n, 0] = np.mod(ypr[:n, 0] + 180.0, 360.0) - 180.0
+    return p, ypr
+
+
+def pgo_cases(seed=0, K=64):
+    """Databases for the 4-DoF pose graph (K19), by name: dict(count, seq
+    [K], p_vio [K, 3], q_vio [K, 4], p_pgo, yaw_pgo, loop_to [K], loop_t
+    [K, 3], loop_yaw [K], numpy f64 / int64, and grow: whether the caller
+    doubles it with ``grow_db`` first); p_pgo and yaw_pgo start off the VIO
+    poses, as after an earlier PGO:
+
+    - "empty": count 0; "count 1": one keyframe;
+    - "full": count K, a loop edge every 9 keyframes from keyframe 34, onto
+      the keyframe half a lap back;
+    - "sequence change": a loaded map (seq 0, held fixed) of 8 keyframes,
+      then seq 1 and, from keyframe 30, seq 2: the sequential edges across
+      each change are cut; loops from seq 2 into seq 1 and seq 0;
+    - "loop into 0": three loop edges onto keyframe 0, one of them from
+      keyframe 2, inside the band of sequential edges;
+    - "two loops into one": keyframes 40 and 52 both onto keyframe 7, and a
+      pair of keyframes looping onto each other;
+    - "yaw wrap": yaws around +-180 deg and loop yaws of exactly +180 and
+      -180 between keyframes half a lap apart;
+    - "grown": a full database of capacity K / 2 with loops, grown to K."""
+    rng = np.random.default_rng(seed)
+
+    def case(n, loops=(), seq=None, cap=K, yaw0=180.0, grow=False):
+        p, ypr = _pgo_rows(rng, cap, n, yaw0)
+        q = rot_to_quat(ypr_to_rot(torch.from_numpy(ypr))).numpy()
+        q[n:] = 0.0
+        loop_to = np.full(cap, -1, np.int64)
+        loop_t, loop_yaw = np.zeros((cap, 3)), np.zeros(cap)
+        for j, c, yaw in loops:
+            loop_to[j] = c
+            loop_t[j] = rng.normal(0, 0.1, 3)
+            loop_yaw[j] = rng.normal(0, 2.0) if yaw is None else yaw
+        seq = np.ones(cap, np.int64) if seq is None else np.asarray(seq, np.int64)
+        drift = np.zeros((cap, 4))
+        drift[:n] = rng.normal(0, [1.0, 0.05, 0.05, 0.05], (n, 4))
+        return dict(count=n, seq=seq, p_vio=p, q_vio=q, p_pgo=p + drift[:, 1:],
+                    yaw_pgo=np.where(np.arange(cap) < n, ypr[:, 0] + drift[:, 0], 0.0),
+                    loop_to=loop_to, loop_t=loop_t, loop_yaw=loop_yaw, grow=grow)
+
+    free = [(j, j - 32, None) for j in range(34, K, 9)]
+    seq = np.ones(K, np.int64)
+    seq[:8] = 0
+    seq[30:] = 2
+    return {
+        "empty": case(0),
+        "count 1": case(1),
+        "full": case(K, free),
+        "sequence change": case(K - 4, [(34, 20, None), (40, 3, None), (50, 31, None)], seq),
+        "loop into 0": case(K - 6, [(2, 0, None), (33, 0, None), (45, 0, None)]),
+        "two loops into one": case(K, [(40, 7, None), (52, 7, None), (20, 47, None),
+                                       (47, 20, None)]),
+        "yaw wrap": case(K - 2, [(35, 3, 180.0), (45, 13, -180.0), (50, 18, 180.0)],
+                         yaw0=90.0),
+        "grown": case(K // 2, [(20, 2, None), (31, 12, None)], cap=K // 2, grow=True),
+    }
+
+
+def pnp_cases(seed=0, N=24, n_hyp=24):
+    """Inputs of the PnP hypotheses (K18), by name: (X_w [N, 3], x [N, 2]
+    normalized observations, mask [N] bool, idx [n_hyp, 6] int64 draws,
+    threshold), numpy f64.  A pose R = ypr(20, -5, 3), t = (0.2, -0.1, 0.3)
+    sees points 2-6 m ahead with 1e-3 noise, a quarter of them outliers:
+
+    - "repeated draws": rows that draw a point two or three times (a repeat
+      counts once);
+    - "masked samples": a fifth of the points masked, drawn anyway;
+    - "fewer than six": rows of 1-5 distinct points, and rows whose masked
+      draws leave fewer than six;
+    - "coplanar": every point on one plane (the DLT's null space is 4-dim:
+      no unique pose);
+    - "near coplanar": a plane with 1 cm of relief (a textured wall);
+    - "behind the camera": points at depth -2 m and 0.04 m whose
+      observations are their projections, some drawn;
+    - "on the threshold": no noise, and points whose reprojection error is
+      the threshold times 1 -+ 1e-7, either side of the strict test."""
+    rng = np.random.default_rng(seed)
+    R = ypr_to_rot(torch.tensor([20.0, -5.0, 3.0], dtype=torch.float64)).numpy()
+    t = np.array([0.2, -0.1, 0.3])
+    thr = 8.0 / 460.0
+
+    def scene(Xc, noise=1e-3, outliers=0.25):
+        x = Xc[:, :2] / Xc[:, 2:3] + rng.normal(0, noise, (len(Xc), 2))
+        bad = rng.random(len(Xc)) < outliers
+        x[bad] = rng.uniform(-0.6, 0.6, (bad.sum(), 2))
+        return (Xc - t) @ R, x
+
+    def ahead(n):
+        return np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                         rng.uniform(2, 6, n)], 1)
+
+    def draws(n_rows=n_hyp, k=6, pool=N):
+        return np.stack([rng.choice(pool, k, replace=False) for _ in range(n_rows)])
+
+    out = {}
+    X, x = scene(ahead(N))
+    idx = draws()
+    idx[::2, 1] = idx[::2, 0]
+    idx[1::4, 2:4] = idx[1::4, 0:2]
+    out["repeated draws"] = (X, x, np.ones(N, bool), idx, thr)
+    X, x = scene(ahead(N))
+    mask = rng.random(N) >= 0.2
+    out["masked samples"] = (X, x, mask, draws(), thr)
+    X, x = scene(ahead(N))
+    idx = draws()
+    for r in range(0, n_hyp, 2):
+        base = idx[r, :1 + (r // 2) % 5].copy()
+        idx[r] = rng.permutation(np.concatenate([base, rng.choice(base, 6 - len(base))]))
+    mask = np.ones(N, bool)
+    mask[idx[1::2, :2].reshape(-1)[:6]] = False
+    out["fewer than six"] = (X, x, mask, idx, thr)
+    Xc = ahead(N)
+    Xw = (Xc - t) @ R
+    Xw[:, 2] = 1.5 + 0.3 * Xw[:, 0] - 0.2 * Xw[:, 1]
+    out["coplanar"] = (Xw,) + scene(Xw @ R.T + t)[1:] + (np.ones(N, bool), draws(), thr)
+    Xw = Xw.copy()
+    Xw[:, 2] += rng.uniform(-0.01, 0.01, N)
+    out["near coplanar"] = (Xw,) + scene(Xw @ R.T + t)[1:] + (np.ones(N, bool), draws(), thr)
+    Xc = ahead(N)
+    Xc[:3, 2] = -2.0
+    Xc[3:5, 2] = 0.04
+    Xw, x = scene(Xc, outliers=0.0)
+    out["behind the camera"] = (Xw, x, np.ones(N, bool), draws(), thr)
+    Xc = ahead(N)
+    Xw, x = scene(Xc, noise=0.0, outliers=0.0)
+    ang = rng.uniform(0, 2 * np.pi, 8)
+    side = np.where(np.arange(8) % 2 == 0, 1 - 1e-7, 1 + 1e-7)
+    x[-8:] += thr * side[:, None] * np.stack([np.cos(ang), np.sin(ang)], 1)
+    out["on the threshold"] = (Xw, x, np.ones(N, bool), draws(pool=N - 8), thr)
+    return out
