@@ -119,7 +119,10 @@ Phases (any failure exits nonzero; there is no CPU path):
   reference) and run again afterwards: equal to the bit.
   Phase 3 also holds loop closure's kernels against their plain twins at the
   profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
-  K17's 64 x 500 Hamming match in both gate settings (exact) and SimHash
+  K17's 64 x 500 Hamming match in both gate settings and on the cases of
+  utils/synthetic.match_cases (exact, one launch a match, two calls equal;
+  the distance table as one f16 matmul of the +-1 bits timed as its library
+  call; every match of phase 7 again afterwards, exact) and SimHash
   signature at N = 0, 1, 37, 500 and 1,000 with and without xy (codes
   exact, signature 1e-6, two calls equal to the bit; the projection matmul
   timed as its library call), K18's 256 PnP hypotheses against the f64 twin
@@ -138,8 +141,11 @@ Phases (any failure exits nonzero; there is no CPU path):
   equal to the last bit; 30 rounds of batched slogdet on the 12x12 Schur
   form timed as its library call; one 45x45 slogdet round and the pass at
   supports 15 and 45 timed on the device beside it), pnp_refine on the
-  initializer's 11 x 128 and a verification's 1 x 64 batches (f64 twin
-  1e-9, f32 twin 1e-5).
+  initializer's 11 x 128 and a verification's 1 x 64 batches and on the
+  cases of utils/synthetic.pnp_refine_cases (f64 twin 1e-9, f32 twin 1e-5,
+  at one point the f64 twin on the f32 inputs 1e-6; two calls equal to the
+  bit; one 6x6 solve_ex timed as its library call; every call of phase 7
+  again afterwards, to the bit).
   Phase 3 holds K3 (detect: two launches, corner_cells and corner_topk)
   against its plain twin (the same valid positions, scores 1e-6) on frame 1
   with frame 0's tracks, on frame 0 and on the cases of
@@ -334,7 +340,8 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
 # anchor slot after detect_lines' sort and gathers, its kernel alone; one
 # 512-thread CTA with a thread per anchor slot; a 128-thread CTA per PnP
 # hypothesis with one warp's cyclic Jacobi; a thread per 4x4 block of H,
-# both launches), on phase 3's inputs, on an NVIDIA H100 80GB HBM3 at 700 W,
+# both launches; K17's match on one CTA, its kernel alone; K21 with jets in
+# every lane), on phase 3's inputs, on an NVIDIA H100 80GB HBM3 at 700 W,
 # for the log beside the new ones
 PREVIOUS_DEVICE_MS = {"corner_cells": 0.0089 + 0.0036, "brief_patch": 2 * 0.0098,
                       "pyramids": 0.0089, "klt_track": 3 * 0.0167,
@@ -343,7 +350,8 @@ PREVIOUS_DEVICE_MS = {"corner_cells": 0.0089 + 0.0036, "brief_patch": 2 * 0.0098
                       "window_blocks": 0.6102, "schur_solve": 1.0662, "marg_window": 0.2403,
                       "simhash_signature": 0.1194, "selector_greedy": 4.8784,
                       "line_anchors": 0.0106, "line_select_grow": 0.0054, "line_vote": 0.0151,
-                      "pnp_hypotheses": 0.2588, "pgo4": 0.1707}
+                      "pnp_hypotheses": 0.2588, "pgo4": 0.1707, "hamming_match_tiles": 0.1023,
+                      "pnp_refine": 0.0483}
 
 
 def device_times(rec):
@@ -419,7 +427,7 @@ class OtherTree:
         self.tree = Path(tree).resolve()
         srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
                 for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match", "corners",
-                          "brief", "pgo4", "pnp")}
+                          "brief", "pgo4", "pnp", "hamming", "pnp_refine")}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -436,8 +444,18 @@ class OtherTree:
                 fail(f"nvcc failed on {srcs[n]}:\n{out}")
         self.lib = {n: ctypes.CDLL(str(so)) for n, so in libs.items()}
         self.fns = {}
-        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3, K16, K18 and K19: "
-            f"{self.tree}")
+        # K17's match as vp_hamming_match_tiles, writing int64 indices from
+        # bool masks (this design), or as vp_hamming_match, int32 ones behind
+        # its wrapper's conversions (PR 5-15's).  K21's C entry kept its
+        # arguments; its wrapper, which changed with K17's, views a bool mask
+        # as bytes (this design) or converted it with a launch (PR 6-15's).
+        self.match_int64 = self.has("hamming", "vp_hamming_match_tiles")
+        self.refine_u8_launch = not self.match_int64
+        from vplines_slam_tpu_torch.ops import mvg
+
+        self._refine = mvg.pnp_refine
+        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3, K16, K17's match, K18, "
+            f"K19 and K21: {self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -707,6 +725,60 @@ class OtherTree:
         return self._swapped(mvg.PNP_HYPOTHESES, "pnp",
                              lambda: mvg.pnp_hypotheses(X_w, x, mask, idx, threshold))
 
+    def match(self, da, va, db, vb, max_dist=80, margin=0, mutual=False, want_d=False):
+        """The other tree's K17 match: (idx int64, dist, d or None), this
+        design's wrapper, or the previous design's C entry behind its
+        wrapper's conversions (masks to uint8, the int32 index to int64:
+        three more launches)."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import brief
+
+        if self.match_int64:
+            return self._swapped(brief.HAMMING_MATCH, "hamming", lambda: brief._hamming_cuda(
+                da, va, db, vb, max_dist, margin, mutual, want_d))
+        N, M = da.shape[0], db.shape[0]
+        da, db = da.to(torch.int32).contiguous(), db.to(torch.int32).contiguous()
+        va8, vb8 = va.to(torch.uint8).contiguous(), vb.to(torch.uint8).contiguous()
+        idx = torch.empty(N, dtype=torch.int32, device=da.device)
+        dist = torch.empty(N, dtype=torch.int32, device=da.device)
+        d = torch.empty(N, M, dtype=torch.int32, device=da.device) if want_d else None
+        P, I = kmod.P, kmod.I
+        self._call("hamming", "vp_hamming_match", [P, P, P, P, I, I, I, I, I, P, P, P],
+                   da.data_ptr(), va8.data_ptr(), db.data_ptr(), vb8.data_ptr(), N, M,
+                   int(max_dist), int(margin), int(bool(mutual)), idx.data_ptr(),
+                   dist.data_ptr(), None if d is None else d.data_ptr())
+        return idx.long(), dist, d
+
+    def match_descriptors(self, da, va, db, vb, max_dist=80, margin=0, mutual=False):
+        """``brief.match_descriptors`` on the other tree's K17."""
+        return self.match(da, va, db, vb, max_dist, margin, mutual)[:2]
+
+    def pnp_refine(self, R0, t0, X_w, x, mask, iters=5):
+        """The other tree's K21 through the same C entry and arguments (the
+        previous wrapper converted a bool mask with a launch)."""
+        import torch
+
+        from vplines_slam_tpu_torch.ops import mvg
+
+        m = mask.to(torch.uint8) if self.refine_u8_launch else mask
+        return self._swapped(mvg.PNP_REFINE, "pnp_refine",
+                             lambda: self._refine(R0, t0, X_w, x, m, iters))
+
+    @contextlib.contextmanager
+    def verification(self):
+        """Loop verifications inside the block run the other tree's K17 match
+        and K21 (K18 is the same design in both trees since PR 15)."""
+        from vplines_slam_tpu_torch.ops import brief, mvg
+
+        saved = brief.match_descriptors, mvg.pnp_refine
+        brief.match_descriptors, mvg.pnp_refine = self.match_descriptors, self.pnp_refine
+        try:
+            yield
+        finally:
+            brief.match_descriptors, mvg.pnp_refine = saved
+
     def brief_pair(self, img, xy, valid, xy2, valid2):
         """The other tree's K16 at two point sets: its one launch (this
         design), or two calls of the previous design's ``vp_brief`` (a
@@ -766,6 +838,16 @@ def _equal(a, b):
     import torch
 
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bits_equal(a, b):
+    """Tensors equal to the bit, NaN included."""
+    import torch
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return all(x.dtype == y.dtype and torch.equal(x.view(ints.get(x.dtype, x.dtype)),
+                                                  y.view(ints.get(y.dtype, y.dtype)))
+               for x, y in zip(a, b))
 
 
 def walks_equal(a, b):
@@ -2743,13 +2825,16 @@ def k18_check(label, X, x, mask, idx, thr, chosen_bar):
 @contextlib.contextmanager
 def recording_loop(store):
     """Keep every K19 call with H (``pose_graph.pgo_normal``, one an LM
-    iteration of ``optimize_4dof``) and every K18 call (``mvg.pnp_hypotheses``,
-    one a verification) of the block in store ({"pgo": [], "pnp": []}), as
-    references to their inputs and outputs, for ``loop_calls_check``."""
+    iteration of ``optimize_4dof``), every K18 call (``mvg.pnp_hypotheses``),
+    every K17 match (``brief.match_descriptors``) and every K21 call
+    (``mvg.pnp_refine``, each one a verification) of the block in store
+    ({"pgo": [], "pnp": [], "match": [], "refine": []}), as references to
+    their inputs and outputs, for ``loop_calls_check``."""
     from vplines_slam_tpu_torch.models import pose_graph as pg_mod
-    from vplines_slam_tpu_torch.ops import mvg
+    from vplines_slam_tpu_torch.ops import brief, mvg
 
     pgo, pnp = pg_mod.pgo_normal, mvg.pnp_hypotheses
+    match, refine = brief.match_descriptors, mvg.pnp_refine
 
     def rec_pgo(x, db, ypr_vio, cfg, with_h=True):
         out = pgo(x, db, ypr_vio, cfg, with_h)
@@ -2757,16 +2842,101 @@ def recording_loop(store):
             store["pgo"].append(((x, db, ypr_vio, cfg), out))
         return out
 
-    def rec_pnp(*args):
-        out = pnp(*args)
-        store["pnp"].append((args, out))
-        return out
+    def recorder(fn, key):
+        def rec(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            store[key].append(((args, kwargs), out))
+            return out
+        return rec
 
-    pg_mod.pgo_normal, mvg.pnp_hypotheses = rec_pgo, rec_pnp
+    pg_mod.pgo_normal, mvg.pnp_hypotheses = rec_pgo, recorder(pnp, "pnp")
+    brief.match_descriptors, mvg.pnp_refine = recorder(match, "match"), recorder(refine, "refine")
     try:
         yield store
     finally:
         pg_mod.pgo_normal, mvg.pnp_hypotheses = pgo, pnp
+        brief.match_descriptors, mvg.pnp_refine = match, refine
+
+
+def _pose_gap(R, t, R2, t2):
+    """The largest |R - R2| and |t - t2| entry, non-finite entries left out
+    (their positions are compared apart)."""
+    return max(float((R - R2).abs().nan_to_num(0.0).max()),
+               float((t - t2).abs().nan_to_num(0.0).max()))
+
+
+def loop_verification_check(rec, store, where):
+    """Every recorded K17 match: again equal to the bit to the run's output,
+    equal to the twin's and (with --against) the other tree's kernel's;
+    every recorded K21 call: again equal to the bit, non-finite where the
+    f64 twin and the other tree's kernel are, R/t within 1e-5 of the f64
+    twin on the same inputs and of the other tree's kernel (both f64
+    inside, the pose rounded to f32).  Adds both kernels' device times per
+    call over these calls to their records, the other tree's beside them."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import brief, mvg
+
+    ok17, n_match, n_pairs = True, 0, 0
+    for (args, kw), out in store["match"]:
+        ok = _equal(brief.match_descriptors(*args, **kw), out)
+        plain = brief.match_descriptors_plain(*args, **kw)
+        ok = ok and _equal(plain, out)
+        if AGAINST is not None:
+            ok = ok and _equal(AGAINST.match_descriptors(*args, **kw), out)
+        ok17 &= ok
+        n_match += int((out[0] >= 0).sum())
+        n_pairs = args[0].shape[0] * args[2].shape[0]
+    log(f"K17 match on {where}'s {len(store['match'])} verifications ({n_pairs} pairs each, "
+        f"{n_match} matches in all): equal to the bit to the run's output, again, to the twin"
+        + ("" if AGAINST is None else " and to the other tree's kernel") + f": {ok17}")
+    ok21, gap_o, gap_t, worst, n_nonfinite = True, 0.0, 0.0, "", 0
+    finite = lambda R, t: torch.cat([torch.isfinite(R).flatten(), torch.isfinite(t).flatten()])
+    for (args, kw), out in store["refine"]:
+        again = _bits_equal(mvg.pnp_refine(*args, **kw), out)
+        # the twin through the wrapper (a single problem) on the CPU, in f64
+        f64 = [a.cpu().double() if a.is_floating_point() else a.cpu() for a in args]
+        Rt, tt = mvg.pnp_refine(*f64, **kw)
+        fin = finite(*out)
+        same_fin = bool(torch.equal(fin.cpu(), finite(Rt, tt)))
+        e_t = _pose_gap(out[0].cpu().double(), out[1].cpu().double(), Rt, tt)
+        e_o = 0.0
+        if AGAINST is not None:
+            Ro, to_ = AGAINST.pnp_refine(*args, **kw)
+            e_o = _pose_gap(*out, Ro, to_)
+            same_fin = same_fin and bool(torch.equal(fin, finite(Ro, to_)))
+        if e_t > gap_t:
+            worst = f" (the twin's largest gap at {int(args[4].sum())} unmasked points)"
+        gap_o, gap_t = max(gap_o, e_o), max(gap_t, e_t)
+        n_nonfinite += int(not bool(fin.all()))
+        ok21 &= again and same_fin and e_t <= 1e-5 and e_o <= 1e-5
+    log(f"K21 on {where}'s {len(store['refine'])} calls: equal to the bit to the run's output "
+        f"again, non-finite where the f64 twin" + ("" if AGAINST is None else
+                                                    " and the other tree's kernel")
+        + f" are ({n_nonfinite} calls with a non-finite entry)"
+        + ("" if AGAINST is None else f", R/t max |kernel - the other tree's kernel| "
+           f"{gap_o:.3e} (tol 1e-5)")
+        + f"; max |kernel - f64 twin on the same inputs| {gap_t:.3e}{worst} (tol 1e-5): "
+        f"{ok21}")
+    if not (ok17 and ok21):
+        fail(f"K17's match or K21 on {where}'s verifications")
+    m_calls = store["match"]
+    r_calls = store["refine"]
+    ex17 = rec["hamming_match_tiles"].setdefault("extra_device_of", {})
+    ex21 = rec["pnp_refine"].setdefault("extra_device_of", {})
+    ex17[f"{where}'s {len(m_calls)} calls, per call"] = (
+        lambda: [brief.match_descriptors(*a, **k) for (a, k), _ in m_calls], len(m_calls),
+        "hamming_match")
+    ex21[f"{where}'s {len(r_calls)} calls, per call"] = (
+        lambda: [mvg.pnp_refine(*a, **k) for (a, k), _ in r_calls], len(r_calls),
+        "pnp_refine_kernel")
+    if AGAINST is not None:
+        ex17[f"the other tree's K17 match on {where}'s calls, per call (its kernel alone)"] = (
+            lambda: [AGAINST.match_descriptors(*a, **k) for (a, k), _ in m_calls],
+            len(m_calls), "hamming_match")
+        ex21[f"the other tree's K21 on {where}'s calls, per call"] = (
+            lambda: [AGAINST.pnp_refine(*a, **k) for (a, k), _ in r_calls], len(r_calls),
+            "pnp_refine_kernel")
 
 
 def loop_calls_check(rec, store, where):
@@ -2790,7 +2960,7 @@ def loop_calls_check(rec, store, where):
     log(f"K19 on {where}'s {len(store['pgo'])} PGO iterations with H: {ok19}\n"
         + "\n".join(texts))
     ok18, err18, n_full, n_det, notes = True, 0.0, 0, 0, []
-    for k, (args, out) in enumerate(store["pnp"]):
+    for k, ((args, _), out) in enumerate(store["pnp"]):
         again = _equal(mvg.pnp_hypotheses(*args), out)
         ok, e, text = k18_check(f"call {k}", *args, True)
         distinct, full = pnp_determined(*args[:4])
@@ -2808,7 +2978,7 @@ def loop_calls_check(rec, store, where):
     if not (ok19 and ok18):
         fail(f"K18 or K19 on {where}'s calls")
     pgo_calls = [a for a, _ in store["pgo"]]
-    pnp_calls = [a for a, _ in store["pnp"]]
+    pnp_calls = [a for (a, _), _ in store["pnp"]]
     ex19 = rec["pgo4"].setdefault("extra_device_of", {})
     ex18 = rec["pnp_hypotheses"].setdefault("extra_device_of", {})
     ex19[f"{where}'s {len(pgo_calls)} calls with H, per call"] = (
@@ -2921,23 +3091,75 @@ def phase_loop_kernels(rec, S):
         lambda: pg_mod.extract_keyframe_features(img0, lift, pg_cfg, window_xy=(wxy, wv)),
         AGAINST and (lambda: AGAINST.brief_pair(*pair_args)))
 
-    # K17 (a) match 64 x 500, the verification's gates and the default ones
-    outs = {}
+    # K17 (a) match 64 x 500, the verification's gates and the default ones,
+    # then the cases of utils/synthetic.match_cases: indices and distances
+    # exact against the twin (and the other tree's kernel), one launch a
+    # match, two calls equal, the distance table exact
+    ok17a, outs = True, {}
     for margin, mutual in ((16, True), (0, False)):
+        n0 = brief.HAMMING_MATCH.launches
         ik, dk = brief.match_descriptors(w_k, wv, d_k, v_k, 80, margin, mutual)
+        one = brief.HAMMING_MATCH.launches - n0 == 1
         ip, dp = brief.match_descriptors_plain(w_k, wv, d_k, v_k, 80, margin, mutual)
-        outs[(margin, mutual)] = (bool(torch.equal(ik, ip)) and bool(torch.equal(dk, dp)),
-                                  int((ik >= 0).sum()))
-    log(f"K17 hamming_match: (margin, mutual) -> (equal, matches): {outs} (tol: exact)")
-    if not all(ok for ok, _ in outs.values()):
-        fail("K17 hamming_match disagrees with its plain version")
+        same = _equal((ik, dk), (ip, dp)) and ik.dtype == torch.int64
+        again = _equal(brief.match_descriptors(w_k, wv, d_k, v_k, 80, margin, mutual), (ik, dk))
+        other = (AGAINST is None
+                 or _equal(AGAINST.match_descriptors(w_k, wv, d_k, v_k, 80, margin, mutual),
+                           (ik, dk)))
+        outs[(margin, mutual)] = (same, one, again, other, int((ik >= 0).sum()))
+        ok17a &= same and one and again and other
+    log(f"K17 hamming_match 64 x 500: (margin, mutual) -> (equal to the twin, one launch, again "
+        f"equal, equal to the other tree's, matches): {outs} (tol: exact)")
+    case_out, mcases = [], syn.match_cases(seed=SEED)
+    for name, arrs in mcases.items():
+        da_c, va_c, db_c, vb_c = (torch.from_numpy(a).to(dev) for a in arrs)
+        for margin, mutual in ((16, True), (0, False)):
+            got = brief.match_descriptors(da_c, va_c, db_c, vb_c, 80, margin, mutual)
+            ok = (_equal(got, brief.match_descriptors_plain(da_c, va_c, db_c, vb_c, 80, margin,
+                                                            mutual))
+                  and _equal(brief.match_descriptors(da_c, va_c, db_c, vb_c, 80, margin,
+                                                     mutual), got))
+            if AGAINST is not None:
+                ok = ok and _equal(AGAINST.match_descriptors(da_c, va_c, db_c, vb_c, 80, margin,
+                                                             mutual), got)
+            ok17a &= ok
+            if not ok:
+                case_out.append(f"{name} ({margin}, {mutual})")
+        table = brief.hamming_matrix(da_c, db_c)
+        if not torch.equal(table, brief.hamming_matrix_plain(da_c, db_c)):
+            ok17a = False
+            case_out.append(f"{name}: the distance table")
+    log(f"K17 hamming_match on the {len(mcases)} match_cases, both gate "
+        f"settings, equal to the twin" + ("" if AGAINST is None else " and the other tree's")
+        + f", twice, and the distance table: {ok17a and not case_out} (tol: exact)"
+        + (f"; differ: {case_out}" if case_out else ""))
+    if not ok17a:
+        fail("K17 hamming_match disagrees with its plain version, across calls or with the "
+             "other tree's")
     hd = brief.hamming_matrix(w_k, d_k)
     if not torch.equal(hd, brief.hamming_matrix_plain(w_k, d_k)):
         fail("K17's distance table disagrees with hamming_matrix_plain")
-    record(rec, "hamming_match", 0.0,
-           lambda: brief.match_descriptors(w_k, wv, d_k, v_k, 80, 16, True),
-           lambda: brief.match_descriptors_plain(w_k, wv, d_k, v_k, 80, 16, True),
-           "hamming_match", (Wp + F_) * 33 + Wp * 8, 2 * Wp * F_ * 8 * 3)
+    # the yardstick: the distance table alone, 128 - (a . b) / 2 for the +-1
+    # bits, as one f16 product (exact: entries <= 256, f32 accumulation)
+    pm = lambda d: (2.0 * brief._unpack_bits(d) - 1.0).to(torch.float16)
+    A16, B16 = pm(w_k), pm(d_k).T.contiguous()
+    match_args = (w_k, wv, d_k, v_k, 80, 16, True)
+    record(rec, "hamming_match_tiles", 0.0, lambda: brief.match_descriptors(*match_args),
+           lambda: brief.match_descriptors_plain(*match_args),
+           "hamming_match", (Wp + F_) * 33 + Wp * 12, 2 * Wp * F_ * 8 * 3,
+           library_fn=lambda: A16 @ B16,
+           library_label=f"the distance table alone: one f16 matmul of the +-1 bits, [{Wp}, "
+                         f"256] @ [256, {F_}]")
+    if not torch.equal((128.0 - (A16 @ B16).float() / 2).to(torch.int32), hd):
+        fail("the f16 yardstick's distance table is not exact")
+    if AGAINST is not None:
+        rec["hamming_match_tiles"]["extra_device_of"] = {
+            "the other tree's K17 match on the same input (with its wrapper's conversions)": (
+                lambda: AGAINST.match_descriptors(*match_args), 1)}
+        r17 = rec["hamming_match_tiles"]
+        r17["other_ms"] = time_ms(lambda: AGAINST.match_descriptors(*match_args))
+        log(f"K17 match per call (CUDA events): {r17['ms']:.4f} ms, the other tree's "
+            f"{r17['other_ms']:.4f} ms")
 
     # K17 (b) the signature at N = 0, 1, 37, 500 (the 500 corners) and 1,000
     # (the corners and 500 random descriptors, one at distance exactly 128
@@ -3234,6 +3456,7 @@ def phase_selector_kernels(rec, S):
     from vplines_slam_tpu_torch.kernels import TWIN_CALLS
     from vplines_slam_tpu_torch.models import selector as sel
     from vplines_slam_tpu_torch.ops import mvg
+    from vplines_slam_tpu_torch.utils import synthetic as syn
 
     f64 = torch.float64
     I = selector_inputs(S)
@@ -3325,34 +3548,105 @@ def phase_selector_kernels(rec, S):
         f"bound's work; on the 45x45 LUs of the previous design the bound is "
         f"{rec['selector_greedy']['bound_45_ms']:.5f} ms)")
 
-    # K21 at the initializer's and a verification's batches, f64 and f32
+    # K21 at the initializer's and a verification's batches, f64 and f32, then
+    # the cases of utils/synthetic.pnp_refine_cases
+    def k21_errs(a64):
+        """(f64 error, f32 error, bit-repeating, the other tree's f64 gap or
+        None, finite pattern equal) of one input against the twins."""
+        a32 = [x.float() if x.is_floating_point() else x for x in a64]
+        Rk, tk = mvg.pnp_refine(*a64)
+        Rp, tp = mvg.pnp_refine_plain(*a64)
+        fin = bool(torch.equal(torch.isfinite(Rk), torch.isfinite(Rp))
+                   and torch.equal(torch.isfinite(tk), torch.isfinite(tp)))
+        e64 = _pose_gap(Rk, tk, Rp, tp)
+        again = _bits_equal(mvg.pnp_refine(*a64), (Rk, tk))
+        Rk32, tk32 = mvg.pnp_refine(*a32)
+        again &= _bits_equal(mvg.pnp_refine(*a32), (Rk32, tk32))
+        Rp32, tp32 = mvg.pnp_refine_plain(*a32)
+        e32 = _pose_gap(Rk32, tk32, Rp32, tp32)
+        # the kernel rounds only its inputs and outputs to f32: against the
+        # f64 twin on the same f32 inputs
+        Rq, tq = mvg.pnp_refine_plain(*[x.double() if x.is_floating_point() else x
+                                        for x in a32])
+        e32q = _pose_gap(Rk32.double(), tk32.double(), Rq, tq)
+        other = None
+        if AGAINST is not None:
+            Ro, to_ = AGAINST.pnp_refine(*a64)
+            other = _pose_gap(Rk, tk, Ro, to_)
+        return e64, e32, e32q, again, other, fin
+
     out = {}
     for B, Np in ((11, 128), (1, 64)):
         a64 = pnp_batch(dev, B, Np, f64, SEED + 21 + B)
         a32 = [x.float() if x.is_floating_point() else x for x in a64]
-        Rk, tk = mvg.pnp_refine(*a64)
-        Rp, tp = mvg.pnp_refine_plain(*a64)
-        e64 = max(float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
-        Rk, tk = mvg.pnp_refine(*a32)
-        Rp, tp = mvg.pnp_refine_plain(*a32)
-        e32 = max(float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
+        e64, e32, _, again, other, fin = k21_errs(a64)
+        n0 = mvg.PNP_REFINE.launches
+        Rp, _ = mvg.pnp_refine_plain(*a64)
+        mvg.pnp_refine(*a32)
+        one = mvg.PNP_REFINE.launches - n0 == 1
         moved = float((Rp.double() - a64[0]).abs().max())
         out[(B, Np)] = (e64, e32, a64, a32)
         # f32: the twin rounds every step of its jacfwd Gauss-Newton to f32
         # (~1e-7 of the pose), the kernel only its inputs and outputs
         log(f"K21 pnp_refine {B} x {Np}: R/t max |kernel - f64 twin| = {e64:.3e} (tol 1e-9); "
-            f"at f32 against the f32 twin {e32:.3e} (tol 1e-5); the refinement moved R by "
-            f"{moved:.3e}")
-        if not (e64 <= 1e-9 and e32 <= 1e-5):
-            fail(f"K21 pnp_refine ({B} x {Np}) disagrees with its plain version")
+            f"at f32 against the f32 twin {e32:.3e} (tol 1e-5); one launch {one}, two calls "
+            f"equal to the bit {again}; the refinement moved R by {moved:.3e}"
+            + ("" if other is None else f"; max |kernel - the other tree's kernel| at f64 "
+               f"{other:.3e}"))
+        if not (e64 <= 1e-9 and e32 <= 1e-5 and again and one and fin):
+            fail(f"K21 pnp_refine ({B} x {Np}) disagrees with its plain version or does not "
+                 f"repeat")
         if B == 11:
             log(f"  the initializer's batch: kernel {time_ms(lambda: mvg.pnp_refine(*a32)):.4f} "
                 f"ms/call, plain {time_ms(lambda: mvg.pnp_refine_plain(*a32), n=5):.4f} ms, "
-                f"bound {bound(0, pnp_refine_flops(B, Np))[0]:.5f} ms (operations)")
+                f"bound {bound(0, pnp_refine_flops(B, Np))[0]:.5f} ms (operations)"
+                + ("" if AGAINST is None else
+                   f", the other tree's kernel {time_ms(lambda: AGAINST.pnp_refine(*a32)):.4f} "
+                   f"ms/call"))
+    # the cases: f64 within 1e-9 of the f64 twin, f32 within 1e-5 of the f32
+    # twin, except at one point ("N 1"): J^T J has rank 2 there, and the f32
+    # twin's null-space steps are its f32 rounding over the 1e-8 damping, so
+    # the f32 kernel (f64 inside) is held within 1e-6 of the f64 twin on the
+    # same f32 inputs; non-finite where the twin is (all masked)
+    rows, ok21c, worst = [], True, 0.0
+    for name, arrs in syn.pnp_refine_cases(seed=SEED).items():
+        a64 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+        e64, e32, e32q, again, other, fin = k21_errs(a64)
+        ok = e64 <= 1e-9 and again and fin and (e32q <= 1e-6 if name == "N 1" else e32 <= 1e-5)
+        ok21c &= ok
+        worst = max(worst, e64)
+        rows.append(f"{name}: {e64:.1e}/{e32:.1e}/{e32q:.1e}/{again}"
+                    + ("" if other is None else f"/{other:.1e}") + ("" if ok else " FAILED"))
+    log(f"K21 on the pnp_refine_cases (f64 |kernel - twin| / f32 |kernel - f32 twin| / f32 "
+        f"|kernel - f64 twin on the f32 inputs| / two calls equal"
+        + ("" if AGAINST is None else " / f64 |kernel - the other tree's|") + "): "
+        + "; ".join(rows) + f" (tol 1e-9 / 1e-5, at N 1 the third 1e-6): {ok21c}")
+    if not ok21c:
+        fail("K21 pnp_refine disagrees with its plain version on a case")
     e64, e32, _, a32 = out[(1, 64)]
+    R1 = torch.linalg.matrix_exp(0.1 * torch.randn(1, 6, 6, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 21), device=dev, dtype=f64))
+    H1, g1 = R1 @ R1.transpose(-1, -2), torch.ones(1, 6, device=dev, dtype=f64)
     record(rec, "pnp_refine", max(e64, e32), lambda: mvg.pnp_refine(*a32),
            lambda: mvg.pnp_refine_plain(*a32), "pnp_refine_kernel",
-           4 * (12 + 64 * 3 + 64 * 2 + 12) + 64, pnp_refine_flops(1, 64))
+           4 * (12 + 64 * 3 + 64 * 2 + 12) + 64, pnp_refine_flops(1, 64),
+           library_fn=lambda: torch.linalg.solve_ex(H1, g1),
+           library_label="one Gauss-Newton step's solve alone: torch.linalg.solve_ex on the "
+                         "[1, 6, 6] f64 system")
+    a11 = out[(11, 128)][3]
+    ex21 = rec["pnp_refine"].setdefault("extra_device_of", {})
+    ex21["the initializer's batch, 11 x 128"] = (lambda: mvg.pnp_refine(*a11), 1,
+                                                  "pnp_refine_kernel")
+    ex21["solve_ex on the initializer's [11, 6, 6] systems"] = (
+        lambda: torch.linalg.solve_ex(H1.expand(11, 6, 6).contiguous(), g1.expand(11, 6)), 1)
+    if AGAINST is not None:
+        ex21["the other tree's K21 on the same input"] = (lambda: AGAINST.pnp_refine(*a32), 1,
+                                                          "pnp_refine_kernel")
+        ex21["the other tree's K21 on the initializer's batch"] = (
+            lambda: AGAINST.pnp_refine(*a11), 1, "pnp_refine_kernel")
+        rec["pnp_refine"]["other_ms"] = time_ms(lambda: AGAINST.pnp_refine(*a32))
+        log(f"K21 per call at 1 x 64 (CUDA events): {rec['pnp_refine']['ms']:.4f} ms, the other "
+            f"tree's {rec['pnp_refine']['other_ms']:.4f} ms")
     TWIN_CALLS.clear()
     return rec
 
@@ -4486,7 +4780,11 @@ def main(argv=None):
                          "7, K18's counts and inliers on every hypothesis whose pose is "
                          "determined and its chosen hypothesis where both choices are, on "
                          "phase 3's input and every verification of phase 7 (the counts also "
-                         "on the PnP cases), each timed beside this tree's")
+                         "on the PnP cases), K17's match to the bit on phase 3's input, the "
+                         "match cases and every verification of phase 7, K21 on phase 3's "
+                         "batches, the PnP refinement cases (its f64 gap logged) and every "
+                         "verification of phase 7 (1e-5), each timed beside this tree's, and "
+                         "one verification's launches and device time with both")
     args = ap.parse_args(argv)
     if not (ROOT / "vplines_slam_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: vplines_slam_tpu_torch/ is missing beside chip_smoke.py")
@@ -4561,10 +4859,12 @@ def main(argv=None):
     brief_frames_check(rec, br6, "phase 6")
     del det4, det5, det6, br6
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
-    with recording_brief([]) as br7, recording_loop({"pgo": [], "pnp": []}) as lp7:
+    with recording_brief([]) as br7, recording_loop({"pgo": [], "pnp": [], "match": [],
+                                                     "refine": []}) as lp7:
         loop_launches, lc = phase_loop_circuit(dev)
     brief_frames_check(rec, br7, "phase 7")
     loop_calls_check(rec, lp7, "phase 7")
+    loop_verification_check(rec, lp7, "phase 7")
     del br7, lp7
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
     from vplines_slam_tpu_torch.utils.config import load_profile
@@ -4591,6 +4891,13 @@ def main(argv=None):
     device_times(rec)
     if lc["probe"] is not None:
         count_launches(lc["probe"], 3, "phase 7, one loop verification", table=args.profile)
+        if AGAINST is not None:
+            def probe_other():
+                with AGAINST.verification():
+                    return lc["probe"]()
+
+            count_launches(probe_other, 3, "the other tree's K17 match and K21 in the same "
+                                           "verification")
     count_launches(s8["selector_probe"], 3, "phase 8, one selector call (_select_impl)",
                    table=args.profile)
     for key, label in (("detect", "one detect call (phase 3's frame 1 with its tracks)"),

@@ -128,8 +128,9 @@ __device__ __forceinline__ float ordered_to_float(int i) {
 // ---------------------------------------------------------------------------
 // Forward-mode jets: Jet<T, N> is a value and N tangents (Ceres' Jet), with
 // the arithmetic, the math functions, and 3-vectors and quaternions of jets
-// that follow utils/geometry.  K11 (window_lin.cu) and K21 (pnp_refine.cu)
-// differentiate their residuals with them.
+// that follow utils/geometry.  K11 (window_lin.cu) differentiates its
+// residuals with them; K21 (pnp_refine.cu) takes the quaternion rotation on
+// constants (Jet<T, 0>).
 // ---------------------------------------------------------------------------
 
 namespace {

@@ -1,7 +1,7 @@
 // K17 hamming: two modes on one XOR + __popc core over 256-bit descriptors
 // held as 8 x 32-bit words.
 //
-// (a) vp_hamming_match replaces vplines_slam_tpu/ops/brief.py:128
+// (a) vp_hamming_match_tiles replaces vplines_slam_tpu/ops/brief.py:128
 //   match_descriptors with :122 hamming_matrix.  On the TPU it was the full
 //   [N, M, 8] XOR tensor, a SWAR popcount, a one-hot exclusion for the
 //   second best and a masked column argmin.
@@ -14,11 +14,22 @@
 // Bound on the H100: launch latency.  (a) at 64 x 500 is 256k word
 //   XOR-popcounts, (b) at 500 x 256 is 1M: microseconds of the integer
 //   pipes; the inputs are 18 KB and 16 KB.
-// Design.  (a), one block: a warp per query row finds the
-//   first argmin over the valid columns and, with only that column excluded,
-//   the second best; a thread per column the first argmin over the valid
-//   rows; then a thread per row applies the distance, margin and mutual
-//   gates.  Every output is an integer, equal to the plain version's.
+// Design.  (a), one launch of a cluster of up to 16 CTAs over column tiles
+//   of at most ceil(M / 16) columns (32 at M = 500).  Each CTA stages every
+//   query row and computes its N x tile block of distances once, a lane a
+//   column and a warp a row at a time: each column's first argmin over the
+//   valid rows (complete, since every CTA holds every row: a packed
+//   (distance, row) key, min-folded across the CTA's warps with shared
+//   atomics) and each row's (best, column, second) over the tile (two
+//   redux.sync minima of packed (distance, column) keys).  Then each row's
+//   tiles merge through distributed shared memory, a warp a row and a lane
+//   a tile: best = the (value, index) minimum, second = the min of the
+//   winning tile's second and every other tile's best, which for integers
+//   is exactly the minimum with only the best column excluded, ties
+//   included; lane 0 applies the valid, distance, margin and mutual gates
+//   (the winning column's best row read from its owner CTA) and writes the
+//   int64 index from the bool masks it reads as bytes, so a match is one
+//   launch.  Every output is an integer, equal to the plain version's.
 //   (b): two launches.  A grid of CTAs, one per 16 descriptors (32 at
 //   N = 500), stages its descriptors and their cells in shared memory; a
 //   thread per vocabulary word codes the 16 (coalesced int8 stores) and sums
@@ -30,12 +41,18 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBig = 10000;
 constexpr int kSigChunk = 16;  // descriptors a CTA of the signature (ops/brief.SIG_CHUNK)
+constexpr int kMatchThreads = 512;
+constexpr int kMatchCluster = 16;   // CTAs at most (a non-portable cluster size)
+constexpr int kMaxRows = 4096;      // query rows: 45 bytes of shared memory each
+constexpr int kMaxCols = 65535;     // a column index fits 16 bits of a key
 
 __device__ __forceinline__ int ham(const int* __restrict__ a, const int* __restrict__ b) {
   int s = 0;
@@ -44,85 +61,93 @@ __device__ __forceinline__ int ham(const int* __restrict__ a, const int* __restr
   return s;
 }
 
-// lexicographic (value, index) minimum over the warp: the first index wins ties
-__device__ __forceinline__ void warp_argmin(int& v, int& j) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int v2 = __shfl_xor_sync(0xffffffffu, v, o);
-    const int j2 = __shfl_xor_sync(0xffffffffu, j, o);
-    if (v2 < v || (v2 == v && j2 < j)) {
-      v = v2;
-      j = j2;
-    }
-  }
-}
+// A (value, index) pair as one int: value < 2^15, index < 2^16, so the int
+// order is the lexicographic order, the lower index first among ties.
+__device__ __forceinline__ int key(int value, int index) { return (value << 16) | index; }
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kMatchThreads)
 hamming_match_kernel(const int* __restrict__ da, const unsigned char* __restrict__ va,
                      const int* __restrict__ db, const unsigned char* __restrict__ vb, int N,
-                     int M, int max_dist, int margin, int mutual, int* __restrict__ idx_out,
-                     int* __restrict__ dist_out, int* __restrict__ d_out) {
-  VP_DYN_SMEM(int, smem);
-  int* s_col = smem;          // [M] best row of each column
-  int* s_best = smem + M;     // [N]
-  int* s_dist = s_best + N;   // [N]
-  int* s_second = s_dist + N; // [N]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-
-  for (int i = warp; i < N; i += nwarps) {
-    int q[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) q[k] = da[8 * i + k];
-    int bv = 2 * kBig, bj = M;  // above any entry: a row always finds column 0..M-1
-    for (int j = lane; j < M; j += 32) {
-      const int h = ham(q, db + 8 * j);
-      if (d_out) d_out[(size_t)i * M + j] = h;
-      const int d = vb[j] ? h : kBig;
-      if (d < bv) {  // strict: the lane's first j wins
-        bv = d;
-        bj = j;
-      }
-    }
-    warp_argmin(bv, bj);
-    int sv = 2 * kBig, sj = M;
-    if (margin > 0) {
-      for (int j = lane; j < M; j += 32) {
-        const int d = (j == bj || !vb[j]) ? kBig : ham(q, db + 8 * j);
-        if (d < sv) {
-          sv = d;
-          sj = j;
-        }
-      }
-      warp_argmin(sv, sj);
-    }
-    if (lane == 0) {
-      s_best[i] = bj;
-      s_dist[i] = bv;
-      s_second[i] = sv;
-    }
+                     int M, int T, int max_dist, int margin, int mutual,
+                     long long* __restrict__ idx_out, int* __restrict__ dist_out,
+                     int* __restrict__ d_out) {
+  VP_DYN_SMEM(int, sm);
+  int* s_q = sm;              // [N][8] the query descriptors
+  int* s_best = s_q + 8 * N;  // [N] key of each row's best over this tile
+  int* s_second = s_best + N; // [N] its second over this tile
+  int* s_col = s_second + N;  // [T] key of each column's best row
+  unsigned char* s_va = reinterpret_cast<unsigned char*>(s_col + T);  // [N]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int rank = VP_CLUSTER_RANK(), C = gridDim.x;
+  const int c0 = rank * T, nc = max(0, min(T, M - c0));
+  for (int e = tid; e < 8 * N; e += blockDim.x) s_q[e] = da[e];
+  for (int i = tid; i < N; i += blockDim.x) {
+    s_va[i] = va[i];
+    s_best[i] = key(2 * kBig, 0xffff);  // above any column's key
+    s_second[i] = kBig;
   }
-  if (mutual) {
-    for (int j = threadIdx.x; j < M; j += blockDim.x) {
-      int bv = 2 * kBig, bi = 0;
-      for (int i = 0; i < N; ++i) {
-        const int d = (va[i] && vb[j]) ? ham(da + 8 * i, db + 8 * j) : kBig;
-        if (d < bv) {
-          bv = d;
-          bi = i;
+  for (int j = tid; j < T; j += blockDim.x) s_col[j] = 0x7fffffff;
+  __syncthreads();
+  for (int k0 = 0; k0 < nc; k0 += 32) {
+    // a lane a column of this 32-column slice of the tile, its descriptor in
+    // registers; a warp a row at a time, rows in increasing order
+    const int jl = k0 + lane, j = c0 + jl;
+    const bool live = jl < nc;
+    int w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = live ? db[8 * j + k] : 0;
+    const bool cvalid = live && vb[j];
+    int ck = 0x7fffffff;  // this lane's (distance, row) minimum over its rows
+    for (int i = warp; i < N; i += nwarps) {
+      const int4 q0 = reinterpret_cast<const int4*>(s_q + 8 * i)[0];
+      const int4 q1 = reinterpret_cast<const int4*>(s_q + 8 * i)[1];
+      const int h = __popc((unsigned)(q0.x ^ w[0])) + __popc((unsigned)(q0.y ^ w[1])) +
+                    __popc((unsigned)(q0.z ^ w[2])) + __popc((unsigned)(q0.w ^ w[3])) +
+                    __popc((unsigned)(q1.x ^ w[4])) + __popc((unsigned)(q1.y ^ w[5])) +
+                    __popc((unsigned)(q1.z ^ w[6])) + __popc((unsigned)(q1.w ^ w[7]));
+      if (d_out && live) d_out[(size_t)i * M + j] = h;
+      // the row's best and second over the slice: the key minimum, then the
+      // minimum distance of the other columns (kBig for an invalid one)
+      const int d = cvalid ? h : kBig;
+      const int rk = live ? key(d, j) : key(2 * kBig, 0xffff);
+      const int bk = VP_REDUX_MIN(rk);
+      const int sv = VP_REDUX_MIN(rk == bk ? kBig : (live ? d : kBig));
+      ck = min(ck, key(s_va[i] && cvalid ? h : kBig, i));
+      if (lane == 0) {  // merge into the row's running (best, second) over the tile
+        const int ob = s_best[i], os = s_second[i];
+        if (bk < ob) {
+          s_best[i] = bk;
+          s_second[i] = min(sv, ob >> 16);
+        } else {
+          s_second[i] = min(os, bk >> 16);
         }
       }
-      s_col[j] = bi;
     }
+    if (live) atomicMin(s_col + jl, ck);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const int best = s_best[i], dist = s_dist[i];
-    bool ok = va[i] && dist < max_dist;
-    if (margin > 0) ok = ok && (s_second[i] - dist >= margin);
-    if (mutual) ok = ok && (s_col[best] == i);
-    idx_out[i] = ok ? best : -1;
-    dist_out[i] = dist;
+  VP_CLUSTER_SYNC();  // every CTA's row and column results are in place
+  // a warp a row, rows dealt round-robin over the cluster's warps: lane r
+  // reads tile r's (best, second) from CTA r's shared memory, so the row's
+  // remote loads are in flight together; the best is the key minimum, the
+  // second the minimum over the winning tile's second and every other
+  // tile's best (keys name distinct columns, so one lane holds the best)
+  for (int i = rank + C * warp; i < N; i += C * nwarps) {
+    const bool has = lane < C;
+    const int ob = has ? *VP_DSMEM(s_best + i, lane) : 0x7fffffff;
+    const int os = has ? *VP_DSMEM(s_second + i, lane) : kBig;
+    const int bk = VP_REDUX_MIN(ob);
+    const int sv = VP_REDUX_MIN(ob == bk ? os : (has ? ob >> 16 : kBig));
+    if (lane == 0) {
+      const int dist = bk >> 16, best = bk & 0xffff;
+      bool ok = s_va[i] && dist < max_dist;
+      if (margin > 0) ok = ok && (sv - dist >= margin);
+      if (mutual) ok = ok && ((*VP_DSMEM(s_col + best % T, best / T) & 0xffff) == i);
+      idx_out[i] = ok ? best : -1;
+      dist_out[i] = dist;
+    }
   }
+  VP_CLUSTER_SYNC();  // no CTA leaves while another reads its shared memory
 }
 
 // signature launch 1: a CTA per SIG_CHUNK descriptors, a thread per
@@ -198,23 +223,44 @@ hamming_simhash_norm_kernel(const int* __restrict__ partial, int n_chunks, int n
   for (int e = threadIdx.x; e < n; e += blockDim.x) sig[e] = __fdiv_rn(sig[e], nrm);
 }
 
+// hamming_match_kernel's cluster of 16, allowed on the first launch on each
+// device and not again
+cudaError_t match_attributes(size_t smem) {
+  static std::atomic<unsigned> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024) {  // per launch: N sets it
+    e = cudaFuncSetAttribute(hamming_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (done.load() >> dev & 1u) return cudaSuccess;
+  e = cudaFuncSetAttribute(hamming_match_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1);
+  if (e == cudaSuccess) done.fetch_or(1u << dev);
+  return e;
+}
+
 }  // namespace
 
-// d_out (nullable) receives the raw [N, M] distance table.
-extern "C" int vp_hamming_match(const int* da, const unsigned char* va, const int* db,
-                                const unsigned char* vb, int N, int M, int max_dist,
-                                int margin, int mutual, int* idx_out, int* dist_out,
-                                int* d_out, cudaStream_t stream) {
+// da [N, 8], va [N] (bool bytes), db [M, 8], vb [M]; idx_out [N] int64 (-1:
+// no match), dist_out [N]; d_out (nullable) receives the raw [N, M]
+// distance table.  1 <= M <= 65,535 and N <= 4,096, else an error code.
+extern "C" int vp_hamming_match_tiles(const int* da, const unsigned char* va, const int* db,
+                                      const unsigned char* vb, int N, int M, int max_dist,
+                                      int margin, int mutual, long long* idx_out,
+                                      int* dist_out, int* d_out, cudaStream_t stream) {
   if (N <= 0) return 0;
-  const size_t smem = (size_t)(M + 3 * N) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hamming_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  VP_LAUNCH(hamming_match_kernel, 1, 1024, smem, stream, da, va, db, vb, N, M, max_dist, margin,
-            mutual, idx_out, dist_out, d_out);
-  return (int)cudaGetLastError();
+  if (M < 1 || M > kMaxCols || N > kMaxRows) return (int)cudaErrorInvalidValue;
+  const int C = (M + 31) / 32 < kMatchCluster ? (M + 31) / 32 : kMatchCluster;
+  const int T = (M + C - 1) / C;
+  const size_t smem = (size_t)(10 * N + T) * sizeof(int) + N;
+  cudaError_t e = match_attributes(smem);
+  if (e == cudaSuccess)
+    e = VP_LAUNCH_CLUSTER(hamming_match_kernel, C, C, kMatchThreads, smem, stream, da, va, db,
+                          vb, N, M, T, max_dist, margin, mutual, idx_out, dist_out, d_out);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // xy (nullable): pixel coordinates [N, 2]; sy = 2/H, sx = 2/W.  partial:

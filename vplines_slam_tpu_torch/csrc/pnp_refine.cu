@@ -6,20 +6,35 @@
 //   (w, t) with R = exp(w) R0, the 6x6 normal equations and a solve; the
 //   initializer vmaps it over the window's frames.  In plain PyTorch every
 //   step is ~350 launches, 1,700 per loop verification.
-// Bound on the H100: operations, and latency: per problem and step ~N x 600
-//   f64 FLOP of jets and sums (N <= 128), then a 6x6 solve whose result the
-//   next step needs, so a problem is a chain of `iters` dependent reductions.
-// Design: one warp per problem (a block of 32 threads).  Each lane builds
-//   R = exp(w) R0 and t as jets in the 6 parameters (forward mode, Jet<double,
-//   6> of common.cuh, the so3_exp_quat formula with its small-angle branch:
-//   w is not reset between steps, so from the second step on the Jacobian is
-//   taken at w != 0), then strides over the points: r = (proj(R X + t) - x)
-//   times the mask (a masked point's NaN stays the twin's NaN), its 2x6
-//   Jacobian from the tangents, and the lane's share of J^T J (upper 21) and
-//   J^T r.  A butterfly of shuffles sums the 27 values in a fixed order;
-//   lane 0's totals go to every lane, which solve (J^T J + 1e-8 I) d = J^T r
-//   by Gaussian elimination with partial pivoting (a singular system gives
-//   non-finite values, as the twin's solve_ex) and step the parameters.
+// Bound on the H100: latency.  Per problem and step ~N x 100 f64 FLOP of
+//   Jacobians and sums (N <= 128), then a 6x6 solve whose result the next
+//   step needs, so a problem is a chain of `iters` dependent reductions.
+// Design: one warp per problem (a block of 32 threads).  Each step:
+//   - every lane forms R = exp(w) R0 (the so3_exp_quat formula with its
+//     small-angle branch, as the reference; w is not reset between steps)
+//     and SO(3)'s left Jacobian J_l(w) = I + A [w]x + B [w]x^2 in plain f64
+//     from the same half-angle sine and cosine: A = 2 k^2, B = (1 - 2 k qw) /
+//     |w|^2 (1/6 in the small-angle branch), k = sin(|w|/2) / |w|;
+//   - strides over the points with each point's Jacobian in closed form:
+//     p = R X, Xc = p + t, a_i = d proj_i / d Xc = (1/z, 0, -u/z) or
+//     (0, 1/z, -v/z), J_t = a_i and J_w = (p x a_i)^T J_l(w), which is
+//     a_i^T (-[p]x J_l(w)), since exp(w + e) = exp(J_l(w) e) exp(w) to first
+//     order: in exact arithmetic jacfwd of the reference's residual.  A
+//     masked point's residual and Jacobian are multiplied by 0 (a padded
+//     point's NaN stays the twin's NaN);
+//   - sums its share of the upper 21 of J^T J and the 6 of J^T r, then a
+//     reduce-scatter butterfly (each of 5 rounds halves the values a lane
+//     carries: 31 shuffles) leaves sum s in lane s, in a fixed order;
+//   - gathers the 27 sums into every lane (27 shuffles) and solves
+//     (J^T J + 1e-8 I) d = J^T r there by Gaussian elimination with partial
+//     pivoting: the pivot is the first of the largest |a| (LAPACK's rule;
+//     NaN counts as the largest), rows swapped by selects so that the system
+//     stays in registers, the rows below scaled by one reciprocal of the
+//     pivot (__drcp_rn), reused by the back substitution.  A singular system
+//     gives non-finite values, as the twin's solve_ex.  (A row a lane, the
+//     pivot found by shuffles, measured slower: by clock64() stamps on the
+//     H100 a step took 4,940 cycles against 4,150, its elimination and back
+//     substitution 2,430 against 1,550.)
 //   Inputs are f32 or f64; the arithmetic is f64 and the pose is written in
 //   the input type.
 
@@ -32,34 +47,62 @@ namespace {
 
 constexpr int kThreads = 32;
 constexpr int kP = 6;          // parameters: w (3), t (3)
-constexpr int kSums = 21 + 6;  // upper J^T J, then J^T r
-using J6 = Jet<double, kP>;
+constexpr int kSums = 21 + 6;  // upper J^T J, then J^T r: one lane each
+static_assert(kSums <= 32, "a sum a lane");
 
-__device__ __forceinline__ void solve6(double (&A)[kP][kP], double (&b)[kP], double (&x)[kP]) {
-  for (int k = 0; k < kP; ++k) {
-    int p = k;
-    for (int i = k + 1; i < kP; ++i)
-      if (fabs(A[i][k]) > fabs(A[p][k])) p = i;
-    if (p != k) {
-      for (int j = 0; j < kP; ++j) {
-        const double t = A[k][j];
-        A[k][j] = A[p][j];
-        A[p][j] = t;
-      }
-      const double t = b[k];
-      b[k] = b[p];
-      b[p] = t;
-    }
-    for (int i = k + 1; i < kP; ++i) {
-      const double l = A[i][k] / A[k][k];
-      for (int j = k; j < kP; ++j) A[i][j] -= l * A[k][j];
-      b[i] -= l * b[k];
-    }
+// R = exp(w) (so3_exp_quat then quat_to_rot, as utils/geometry) and the
+// left Jacobian J_l(w), in plain f64
+__device__ __forceinline__ void exp_and_jacobian(const double (&w)[3], double (&Rw)[3][3],
+                                                 double (&Jl)[3][3]) {
+  const double th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const bool small = th2 < 1e-12;
+  double k, qw, B;
+  if (small) {
+    k = 0.5 - th2 / 48.0;
+    qw = 1.0 - th2 / 8.0;
+    B = 1.0 / 6.0;
+  } else {
+    const double th = sqrt(th2);
+    double s, c;
+    sincos(th * 0.5, &s, &c);
+    k = s / th;
+    qw = c;
+    B = (1.0 - 2.0 * k * qw) / th2;
   }
-  for (int k = kP - 1; k >= 0; --k) {
-    double s = b[k];
-    for (int j = k + 1; j < kP; ++j) s -= A[k][j] * x[j];
-    x[k] = s / A[k][k];
+  const Q4<double, 0> q = {cst<double, 0>(qw), cst<double, 0>(k * w[0]),
+                           cst<double, 0>(k * w[1]), cst<double, 0>(k * w[2])};
+  Jet<double, 0> R[3][3];
+  qtorot(q, R);
+  const double A = 2.0 * k * k;
+  // [w]x and [w]x^2 = w w^T - |w|^2 I
+  const double W[3][3] = {{0.0, -w[2], w[1]}, {w[2], 0.0, -w[0]}, {-w[1], w[0], 0.0}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      Rw[i][j] = R[i][j].a;
+      Jl[i][j] = (i == j ? 1.0 : 0.0) + A * W[i][j] + B * (w[i] * w[j] - (i == j ? th2 : 0.0));
+    }
+}
+
+// |a| with NaN above every number (the pivot order's key)
+__device__ __forceinline__ double magnitude(double a) {
+  const double m = fabs(a);
+  return m != m ? INFINITY : m;
+}
+
+// one round of the reduce-scatter butterfly: a lane keeps the half of its
+// 2H values that its bit H selects and adds its partner's copy of that half
+// (H a template argument, so every index is a constant and v stays in
+// registers)
+template <int H>
+__device__ __forceinline__ void scatter_round(double (&v)[32], int lane) {
+  const bool up = lane & H;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const double send = up ? v[k] : v[k + H];
+    const double keep = up ? v[k + H] : v[k];
+    v[k] = keep + VP_SHFL_XOR(send, H);
   }
 }
 
@@ -69,8 +112,9 @@ pnp_refine_kernel(const T* __restrict__ R0, const T* __restrict__ t0, const T* _
                   long long x_batch_stride, const T* __restrict__ x,
                   const uint8_t* __restrict__ mask, int N, int iters, T* __restrict__ R_out,
                   T* __restrict__ t_out) {
-  const int b = blockIdx.x, lane = threadIdx.x, nl = blockDim.x;
+  const int b = blockIdx.x, lane = threadIdx.x & 31;
   double r0[9];
+#pragma unroll
   for (int e = 0; e < 9; ++e) r0[e] = (double)R0[9 * b + e];
   double prm[kP] = {0.0, 0.0, 0.0, (double)t0[3 * b], (double)t0[3 * b + 1],
                     (double)t0[3 * b + 2]};
@@ -78,54 +122,126 @@ pnp_refine_kernel(const T* __restrict__ R0, const T* __restrict__ t0, const T* _
   const T* xb = x + (size_t)b * N * 2;
   const uint8_t* mb = mask + (size_t)b * N;
   for (int it = 0; it < iters; ++it) {
-    const V3<double, kP> w = {seed<double, kP>(prm[0], 0), seed<double, kP>(prm[1], 1),
-                              seed<double, kP>(prm[2], 2)};
-    J6 Rw[3][3], R[3][3];
-    qtorot(so3_exp(w), Rw);
+    const double w[3] = {prm[0], prm[1], prm[2]};
+    double Rw[3][3], Jl[3][3], R[3][3];
+    exp_and_jacobian(w, Rw, Jl);
+#pragma unroll
     for (int i = 0; i < 3; ++i)
+#pragma unroll
       for (int j = 0; j < 3; ++j)
         R[i][j] = Rw[i][0] * r0[j] + Rw[i][1] * r0[3 + j] + Rw[i][2] * r0[6 + j];
-    const J6 t[3] = {seed<double, kP>(prm[3], 3), seed<double, kP>(prm[4], 4),
-                     seed<double, kP>(prm[5], 5)};
-    double acc[kSums];
-    for (int s = 0; s < kSums; ++s) acc[s] = 0.0;
-    for (int n = lane; n < N; n += nl) {
+    double v[32];
+#pragma unroll
+    for (int s = 0; s < 32; ++s) v[s] = 0.0;
+    for (int n = lane; n < N; n += 32) {
       const double X0 = (double)Xb[3 * n], X1 = (double)Xb[3 * n + 1], X2 = (double)Xb[3 * n + 2];
-      J6 Xc[3];
-      for (int i = 0; i < 3; ++i) Xc[i] = R[i][0] * X0 + R[i][1] * X1 + R[i][2] * X2 + t[i];
       const double m = mb[n] ? 1.0 : 0.0;
-      const J6 e0 = (Xc[0] / Xc[2] - (double)xb[2 * n]) * m;
-      const J6 e1 = (Xc[1] / Xc[2] - (double)xb[2 * n + 1]) * m;
+      double p[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) p[i] = R[i][0] * X0 + R[i][1] * X1 + R[i][2] * X2;
+      const double xc = p[0] + prm[3], yc = p[1] + prm[4], z = p[2] + prm[5];
+      const double iz = 1.0 / z, u = xc * iz, vv = yc * iz;
+      const double e[2] = {(u - (double)xb[2 * n]) * m, (vv - (double)xb[2 * n + 1]) * m};
+      double J[2][kP];
+      const double a[2][3] = {{iz * m, 0.0, -u * iz * m}, {0.0, iz * m, -vv * iz * m}};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // (p x a)^T J_l
+        const double c[3] = {p[1] * a[r][2] - p[2] * a[r][1], p[2] * a[r][0] - p[0] * a[r][2],
+                             p[0] * a[r][1] - p[1] * a[r][0]};
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          J[r][j] = c[0] * Jl[0][j] + c[1] * Jl[1][j] + c[2] * Jl[2][j];
+          J[r][3 + j] = a[r][j];
+        }
+      }
       int s = 0;
-      for (int a = 0; a < kP; ++a)
-        for (int c = a; c < kP; ++c) acc[s++] += e0.v[a] * e0.v[c] + e1.v[a] * e1.v[c];
-      for (int a = 0; a < kP; ++a) acc[s++] += e0.v[a] * e0.a + e1.v[a] * e1.a;
+#pragma unroll
+      for (int i = 0; i < kP; ++i)
+#pragma unroll
+        for (int j = i; j < kP; ++j) v[s++] += J[0][i] * J[0][j] + J[1][i] * J[1][j];
+#pragma unroll
+      for (int i = 0; i < kP; ++i) v[s++] += J[0][i] * e[0] + J[1][i] * e[1];
     }
-    for (int s = 0; s < kSums; ++s) {
-      double v = acc[s];
-      for (int o = 16; o > 0; o >>= 1) v += VP_SHFL_XOR(v, o);
-      acc[s] = VP_SHFL_IDX(v, 0);
+    // reduce-scatter: lane s ends with sum s
+    scatter_round<16>(v, lane);
+    scatter_round<8>(v, lane);
+    scatter_round<4>(v, lane);
+    scatter_round<2>(v, lane);
+    scatter_round<1>(v, lane);
+    const double tot = v[0];
+    // the system in every lane, then its elimination
+    double A[kP][kP], g[kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+#pragma unroll
+      for (int j = i; j < kP; ++j) {
+        A[i][j] = VP_SHFL_IDX(tot, 6 * i - i * (i - 1) / 2 + j - i);
+        A[j][i] = A[i][j];
+      }
+      A[i][i] += 1e-8;
+      g[i] = VP_SHFL_IDX(tot, 21 + i);
     }
-    double H[kP][kP], g[kP], d[kP];
-    int s = 0;
-    for (int a = 0; a < kP; ++a)
-      for (int c = a; c < kP; ++c, ++s) H[a][c] = H[c][a] = acc[s];
-    for (int a = 0; a < kP; ++a) {
-      g[a] = acc[s++];
-      H[a][a] += 1e-8;
+    double rinv[kP];
+#pragma unroll
+    for (int k = 0; k < kP; ++k) {
+      int p = k;
+      double best = magnitude(A[k][k]);
+#pragma unroll
+      for (int i = k + 1; i < kP; ++i) {
+        const double m = magnitude(A[i][k]);
+        if (m > best) {
+          best = m;
+          p = i;
+        }
+      }
+#pragma unroll
+      for (int j = k; j < kP; ++j) {
+        const double ak = A[k][j];
+        double ap = ak;
+#pragma unroll
+        for (int i = k + 1; i < kP; ++i) ap = p == i ? A[i][j] : ap;
+        A[k][j] = ap;
+#pragma unroll
+        for (int i = k + 1; i < kP; ++i) A[i][j] = p == i ? ak : A[i][j];
+      }
+      {
+        const double gk = g[k];
+        double gp = gk;
+#pragma unroll
+        for (int i = k + 1; i < kP; ++i) gp = p == i ? g[i] : gp;
+        g[k] = gp;
+#pragma unroll
+        for (int i = k + 1; i < kP; ++i) g[i] = p == i ? gk : g[i];
+      }
+      rinv[k] = __drcp_rn(A[k][k]);
+#pragma unroll
+      for (int i = k + 1; i < kP; ++i) {
+        const double l = A[i][k] * rinv[k];
+#pragma unroll
+        for (int j = k + 1; j < kP; ++j) A[i][j] -= l * A[k][j];
+        g[i] -= l * g[k];
+      }
     }
-    solve6(H, g, d);
-    for (int a = 0; a < kP; ++a) prm[a] -= d[a];
+    double xs[kP];  // back substitution
+#pragma unroll
+    for (int k = kP - 1; k >= 0; --k) {
+      double r = g[k];
+#pragma unroll
+      for (int j = k + 1; j < kP; ++j) r -= A[k][j] * xs[j];
+      xs[k] = r * rinv[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kP; ++k) prm[k] -= xs[k];
   }
   if (lane == 0) {
-    const V3<double, 0> w = {cst<double, 0>(prm[0]), cst<double, 0>(prm[1]),
-                             cst<double, 0>(prm[2])};
-    Jet<double, 0> Rw[3][3];
-    qtorot(so3_exp(w), Rw);
+    const double w[3] = {prm[0], prm[1], prm[2]};
+    double Rw[3][3], Jl[3][3];
+    exp_and_jacobian(w, Rw, Jl);
     for (int i = 0; i < 3; ++i) {
       for (int j = 0; j < 3; ++j)
         R_out[9 * b + 3 * i + j] =
-            (T)(Rw[i][0].a * r0[j] + Rw[i][1].a * r0[3 + j] + Rw[i][2].a * r0[6 + j]);
+            (T)(Rw[i][0] * r0[j] + Rw[i][1] * r0[3 + j] + Rw[i][2] * r0[6 + j]);
       t_out[3 * b + i] = (T)prm[3 + i];
     }
   }

@@ -50,7 +50,7 @@ BRIEF = kernels.Kernel(
      kernels.I, kernels.P, kernels.P, kernels.I, kernels.P],
 )
 HAMMING_MATCH = kernels.Kernel(
-    "vp_hamming_match", "vplines_slam_tpu_torch/csrc/hamming.cu",
+    "vp_hamming_match_tiles", "vplines_slam_tpu_torch/csrc/hamming.cu",
     "vplines_slam_tpu/ops/brief.py:128",
     [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I,
      kernels.I, kernels.P, kernels.P, kernels.P],
@@ -314,21 +314,28 @@ def match_descriptors_plain(da, va, db, vb, max_dist=80, margin=0, mutual=False)
 
 
 def _hamming_cuda(da, va, db, vb, max_dist, margin, mutual, want_d):
+    """K17's match: one launch that reads the bool masks as bytes and writes
+    the int64 index itself (N = 0 launches nothing)."""
     N, M = da.shape[0], db.shape[0]
     dev = da.device
+    if M < 1 or M > 65535 or N > 4096:
+        raise ValueError(f"K17's match takes 1 <= M <= 65,535 columns and N <= 4,096 rows, "
+                         f"got N {N}, M {M}")
     da, db = da.to(torch.int32).contiguous(), db.to(torch.int32).contiguous()
-    va8, vb8 = va.to(torch.uint8).contiguous(), vb.to(torch.uint8).contiguous()
-    idx = torch.empty(N, dtype=torch.int32, device=dev)
+    va8, vb8 = kernels.as_u8(va), kernels.as_u8(vb)
+    idx = torch.empty(N, dtype=torch.int64, device=dev)
     dist = torch.empty(N, dtype=torch.int32, device=dev)
     d = torch.empty(N, M, dtype=torch.int32, device=dev) if want_d else None
+    if N == 0:
+        return idx, dist, d
     HAMMING_MATCH(kernels.check(da, "da", torch.int32, shape=(N, 8)),
                   kernels.check(va8, "va", torch.uint8, shape=(N,)),
                   kernels.check(db, "db", torch.int32, shape=(M, 8)),
                   kernels.check(vb8, "vb", torch.uint8, shape=(M,)), N, M, int(max_dist),
-                  int(margin), int(bool(mutual)), kernels.check(idx, "idx", torch.int32),
+                  int(margin), int(bool(mutual)), kernels.check(idx, "idx", torch.int64),
                   kernels.check(dist, "dist", torch.int32),
                   None if d is None else kernels.check(d, "d", torch.int32))
-    return idx.long(), dist, d
+    return idx, dist, d
 
 
 def hamming_matrix(da, db):
@@ -343,8 +350,10 @@ def hamming_matrix(da, db):
 
 def match_descriptors(da, va, db, vb, max_dist=80, margin=0, mutual=False):
     """K17's match mode.  CPU tensors: ``match_descriptors_plain``.  CUDA
-    tensors: one block; a warp per row finds the best and second-best
-    column, a thread per column its best row, then the gates."""
+    tensors: one launch of a cluster of CTAs over column tiles, each
+    computing its block of distances once (each column's best row, each
+    row's best and second over the tile), the tiles merged exactly, then
+    the gates."""
     if not da.is_cuda:
         return match_descriptors_plain(da, va, db, vb, max_dist, margin, mutual)
     idx, dist, _ = _hamming_cuda(da, va, db, vb, max_dist, margin, mutual, False)

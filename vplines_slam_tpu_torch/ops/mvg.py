@@ -273,7 +273,10 @@ def pnp_refine(R0, t0, X_w, x, mask, iters=5):
     Batched: R0 [B, 3, 3], t0 [B, 3], X_w [N, 3] or [B, N, 3], x [B, N, 2],
     mask [B, N]; a single problem ([3, 3], [3], [N, 3], [N, 2], [N]) is a
     batch of one.  CPU tensors: ``pnp_refine_plain``.  CUDA tensors: one
-    warp per problem, f64 inside, the pose returned in x's dtype."""
+    launch, a warp per problem, f64 inside (closed-form Jacobians, a
+    reduce-scatter of the normal equations, every lane solving the 6x6
+    system in registers by LU with partial pivoting), the pose returned in
+    x's dtype."""
     single = R0.dim() == 2
     if single:
         R0, t0, x, mask = R0[None], t0[None], x[None], mask[None]
@@ -285,7 +288,7 @@ def pnp_refine(R0, t0, X_w, x, mask, iters=5):
         if dt not in (torch.float32, torch.float64):
             raise ValueError(f"K21 takes float32 or float64, got {dt}")
         R0, t0, X_w, x = (a.to(dt).contiguous() for a in (R0, t0, X_w, x))
-        m8 = mask.to(torch.uint8).contiguous()
+        m8 = kernels.as_u8(mask)
         R = torch.empty(B, 3, 3, dtype=dt, device=x.device)
         t = torch.empty(B, 3, dtype=dt, device=x.device)
         x_batched = X_w.dim() == 3

@@ -716,3 +716,142 @@ def pnp_cases(seed=0, N=24, n_hyp=24):
     x[-8:] += thr * side[:, None] * np.stack([np.cos(ang), np.sin(ang)], 1)
     out["on the threshold"] = (Xw, x, np.ones(N, bool), draws(pool=N - 8), thr)
     return out
+
+
+def _flip_bits(rng, desc, n_bits, avoid=None):
+    """desc [8] int32 with n_bits distinct bits flipped (none of those in
+    avoid, a set of bit positions), and the flipped positions."""
+    pool = np.setdiff1d(np.arange(256), np.fromiter(avoid or (), int, len(avoid or ())))
+    bits = rng.choice(pool, n_bits, replace=False)
+    out = desc.view(np.uint32).copy()
+    for b in bits:
+        out[b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return out.view(np.int32), set(bits.tolist())
+
+
+def _hamming_np(da, db):
+    x = da.view(np.uint32)[:, None, :] ^ db.view(np.uint32)[None, :, :]
+    return np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+
+
+def match_cases(seed=0):
+    """Inputs of the Hamming match (K17's ``match_descriptors``), by name:
+    (da [N, 8] int32, va [N] bool, db [M, 8] int32, vb [M] bool), numpy.
+    Queries are copies of database columns with 0-40 bits flipped (a tenth
+    of them random), columns random, a tenth of each invalid, unless a
+    case says otherwise:
+
+    - "M 1", "M 17" (under a warp), "M 1100" (over 1,024; several column
+      slices a CTA), "N 1", "N 64 x M 500" (a verification's shape), "N 1100"
+      (over 32 x 32 rows);
+    - "columns invalid", "rows invalid": every column / every row invalid;
+    - "ties": rows with their best at two equal columns (the lower index
+      wins), columns whose best row is two equal rows (the lower wins, so the
+      other fails the mutual check), and a second column at the best's value
+      (second - dist = 0);
+    - "margin 16 / 15": rows whose second is exactly 16 and 15 above the
+      best;
+    - "dist 80 / 79": rows whose best is exactly 80 and 79, the second far
+      above."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return rng.integers(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64).astype(np.int32)
+
+    def case(N, M, p_valid=0.9):
+        db = rand(M)
+        src = rng.integers(0, M, N)
+        da = np.stack([_flip_bits(rng, db[j], int(rng.integers(0, 41)))[0] for j in src])
+        bad = rng.random(N) < 0.1
+        da[bad] = rand(int(bad.sum()))
+        return da, rng.random(N) < p_valid, db, rng.random(M) < p_valid
+
+    out = {"M 1": case(64, 1), "M 17": case(64, 17), "M 1100": case(64, 1100),
+           "N 1": case(1, 500), "N 64 x M 500": case(64, 500), "N 1100": case(1100, 500)}
+    da, va, db, vb = case(64, 500)
+    out["columns invalid"] = (da, va, db, np.zeros(500, bool))
+    out["rows invalid"] = (da, np.zeros(64, bool), db, vb)
+    # ties: rows 0-7 see two identical columns; rows 8-9 and 10-11 are equal
+    # pairs of rows; row 12's second column sits at its best's value
+    da, va, db, vb = case(64, 500, p_valid=1.0)
+    for r in range(8):
+        j1, j2 = 20 * r + 3, 20 * r + 11
+        db[j2] = db[j1]
+        da[r] = _flip_bits(rng, db[j1], 5 + r)[0]
+    da[8], da[10] = _flip_bits(rng, db[400], 1)[0], _flip_bits(rng, db[450], 2)[0]
+    da[9], da[11] = da[8], da[10]
+    da[12], used = _flip_bits(rng, db[300], 12)
+    db[301] = _flip_bits(rng, da[12], 12, avoid=used)[0]
+    out["ties"] = (da, va, db, vb)
+    # the second exactly 16 / 15 above a best of 10 (rows 0-3), and a best of
+    # exactly 80 / 79 (rows 4-7)
+    da, va, db, vb = case(64, 500, p_valid=1.0)
+    for r, (best, gap) in enumerate(((10, 16), (10, 15), (20, 16), (20, 15))):
+        j = 40 * r + 7
+        da[r] = _flip_bits(rng, db[j], best)[0]
+        db[j + 1] = _flip_bits(rng, da[r], best + gap)[0]
+    out["margin 16 / 15"] = (da, va, db, vb)
+    da, va, db, vb = case(64, 500, p_valid=1.0)
+    for r, best in enumerate((80, 79, 80, 79)):
+        da[r] = _flip_bits(rng, db[50 * r + 9], best)[0]
+    out["dist 80 / 79"] = (da, va, db, vb)
+    return out
+
+
+def pnp_refine_cases(seed=0):
+    """Inputs of the PnP refinement (K21's ``pnp_refine``), by name: (R0
+    [B, 3, 3], t0 [B, 3], X_w [N, 3] shared or [B, N, 3], x [B, N, 2]
+    normalized observations, mask [B, N] bool), numpy f64.  Poses about 0.2
+    rad from the identity see points 2-6 m ahead with 1e-3 noise, ~20% of
+    them masked, from a start rotated about a random axis and moved 5 cm:
+
+    - "at the truth": noise-free observations from the true pose, so every
+      step's w stays in so3_exp's small-angle branch (|w|^2 < 1e-12);
+    - "2 deg", "10 deg", "30 deg": starts that far off (B 2);
+    - "3 unmasked": only three points unmasked (six residuals for six
+      parameters: J^T J is square but ill-conditioned);
+    - "all masked": padded points at the origin with t0 = 0, all masked
+      (0/0 residuals: non-finite, as in the reference);
+    - "N 1", "N 6", "N 64", "N 100", "N 128": point counts (one point leaves
+      J^T J of rank 2 apart from the 1e-8);
+    - "shared X 11 x 128": the initializer's batch, one point set;
+      "per-problem X 4 x 100": a point set a problem."""
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+
+    def exp(w):
+        from .geometry import so3_exp_matrix
+
+        return so3_exp_matrix(torch.as_tensor(w, dtype=f64)).numpy()
+
+    def case(B, N, deg, shared=True, noise=1e-3, p_mask=0.2, exact_start=False):
+        X = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N),
+                      rng.uniform(2, 6, N)], 1)
+        R0s, t0s, Xs, xs, ms = [], [], [], [], []
+        for _ in range(B):
+            Xb = X if shared else X + rng.normal(0, 0.1, X.shape)
+            R, t = exp(rng.normal(0, 0.2, 3)), rng.normal(0, 0.3, 3)
+            Xc = Xb @ R.T + t
+            xs.append(Xc[:, :2] / Xc[:, 2:3] + rng.normal(0, noise, (N, 2)))
+            axis = rng.normal(size=3)
+            R0s.append(R if exact_start else exp(np.radians(deg) * axis / np.linalg.norm(axis)) @ R)
+            t0s.append(t if exact_start else t + rng.normal(0, 0.05, 3))
+            ms.append(rng.random(N) >= p_mask)
+            Xs.append(Xb)
+        return (np.stack(R0s), np.stack(t0s), X if shared else np.stack(Xs), np.stack(xs),
+                np.stack(ms))
+
+    out = {"at the truth": case(1, 64, 0.0, noise=0.0, p_mask=0.0, exact_start=True)}
+    for deg in (2, 10, 30):
+        out[f"{deg} deg"] = case(2, 64, float(deg))
+    R0, t0, X, x, m = case(1, 64, 10.0)
+    m[:] = False
+    m[0, [3, 17, 40]] = True
+    out["3 unmasked"] = (R0, t0, X, x, m)
+    out["all masked"] = (np.eye(3)[None], np.zeros((1, 3)), np.zeros((8, 3)),
+                         np.zeros((1, 8, 2)), np.zeros((1, 8), bool))
+    for n in (1, 6, 64, 100, 128):
+        out[f"N {n}"] = case(1, n, 10.0, p_mask=0.0 if n <= 6 else 0.2)
+    out["shared X 11 x 128"] = case(11, 128, 10.0)
+    out["per-problem X 4 x 100"] = case(4, 100, 10.0, shared=False)
+    return out
