@@ -118,7 +118,12 @@ Phases (any failure exits nonzero; there is no CPU path):
   equal to the bit.  Every vp_grid call of phases 5 and 6 is kept (by
   reference) and run again afterwards: equal to the bit.
   Phase 3 also holds loop closure's kernels against their plain twins at the
-  profile's sizes: K15 FAST + NMS and K16 BRIEF on a 752x480 frame (exact),
+  profile's sizes: K15 (detect_fast in two launches, fast_tiles and
+  fast_select; fast_score in one) on a 752x480 frame and on the images of
+  utils/synthetic.fast_cases at max_corners 1, 60 and 500 (xy, valid and the
+  score map exact, each call again equal to the bit, the candidate counts
+  logged; torch.topk of the kept map timed as the selection's partial
+  yardstick) and K16 BRIEF on the 752x480 frame (exact),
   K17's 64 x 500 Hamming match in both gate settings and on the cases of
   utils/synthetic.match_cases (exact, one launch a match, two calls equal;
   the distance table as one f16 matmul of the +-1 bits timed as its library
@@ -135,7 +140,11 @@ Phases (any failure exits nonzero; there is no CPU path):
   as its library call, the dense f64 solve beside it), every K19 call with
   H and every K18 call of phase 7 again afterwards (kept by reference),
   and K20 and K21: selector_info on 150 candidates of a staged 752x480 frame
-  with the horizon from the truth (1e-12 of each candidate's largest entry),
+  with the horizon from the truth and on the cases of
+  utils/synthetic.selector_info_cases (1e-12 of each candidate's largest
+  entry, one launch, two calls equal to the bit, N = 0 launching nothing;
+  torch.zeros of the output timed as its partial yardstick, N = 1,000 timed
+  beside it),
   selector_greedy at supports 12 (the main path's), 15 and 45, budgets 0,
   7, 30 and max_features 30, 60 (sets identical, gains 1e-9, two calls
   equal to the last bit; 30 rounds of batched slogdet on the 12x12 Schur
@@ -153,9 +162,11 @@ Phases (any failure exits nonzero; there is no CPU path):
   (one launch for a keyframe's 500 corners and 64 window points) against
   its twin, every bit, also on the cases of utils/synthetic.brief_cases,
   each set alone, twice and split in two.
-  Every detect call of phases 4-6 and 8 and every keyframe's descriptors of
-  phases 6-8 run again, equal to the bit, with one launch of each kernel a
-  call, against the twins (K3 as above, K16 every bit).
+  Every detect call of phases 4-6 and 8 and every keyframe's corners and
+  descriptors of phases 6-8 run again, equal to the bit, with one launch of
+  each kernel a call, against the twins (K3 as above, K15 and K16 every
+  bit), and every selector_info call of phase 8 (one launch, to the bit,
+  1e-12 of the twin).
   Phases 6-8 assert that no plain twin of K15-K21 ran.
   Phases 4-6 run the estimator through K11-K14 and assert that no plain twin
   of them (vmap of jvp, jacfwd, the plain assembly, Schur solve and
@@ -189,7 +200,12 @@ Phases (any failure exits nonzero; there is no CPU path):
   cases and every detect call of phases 4-6 and 8, and its K16 (the
   previous design: a full-frame blur and a descriptor launch, twice a
   keyframe) to the bit on phase 3's keyframe and cases and every keyframe
-  of phases 6-8; each is timed on the same inputs.
+  of phases 6-8, its K15 (the previous design: a score and an NMS launch,
+  then the stable sort and the glue) to the bit on phase 3's frame and
+  cases and every keyframe of phases 6-8, and its K20 selector_info (the
+  previous design: 64 threads a candidate, one thread's adjugate) to the
+  bit on phase 3's candidates and cases and every call of phase 8; each is
+  timed on the same inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -201,8 +217,9 @@ Phases (any failure exits nonzero; there is no CPU path):
   after phase 8: once the profiler has run, each later launch of the
   process costs more (so do the launch counts of one loop verification,
   one selector call, one detect call and one extract_keyframe_features
-  call, each beside the other tree's, taken under torch.profiler at the
-  end).
+  call, each beside the other tree's (the selector call with its
+  selector_info, the extraction with its K15 and K16), taken under
+  torch.profiler at the end).
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -341,7 +358,9 @@ def record(rec, name, err, fn, plain_fn, kernel_fn_name, bytes_moved, flops, lib
 # 512-thread CTA with a thread per anchor slot; a 128-thread CTA per PnP
 # hypothesis with one warp's cyclic Jacobi; a thread per 4x4 block of H,
 # both launches; K17's match on one CTA, its kernel alone; K21 with jets in
-# every lane), on phase 3's inputs, on an NVIDIA H100 80GB HBM3 at 700 W,
+# every lane; K15's score and NMS passes, a thread a pixel, without the sort
+# and glue after them; K20's selector_info with 64 threads a candidate), on
+# phase 3's inputs, on an NVIDIA H100 80GB HBM3 at 700 W,
 # for the log beside the new ones
 PREVIOUS_DEVICE_MS = {"corner_cells": 0.0089 + 0.0036, "brief_patch": 2 * 0.0098,
                       "pyramids": 0.0089, "klt_track": 3 * 0.0167,
@@ -351,7 +370,7 @@ PREVIOUS_DEVICE_MS = {"corner_cells": 0.0089 + 0.0036, "brief_patch": 2 * 0.0098
                       "simhash_signature": 0.1194, "selector_greedy": 4.8784,
                       "line_anchors": 0.0106, "line_select_grow": 0.0054, "line_vote": 0.0151,
                       "pnp_hypotheses": 0.2588, "pgo4": 0.1707, "hamming_match_tiles": 0.1023,
-                      "pnp_refine": 0.0483}
+                      "pnp_refine": 0.0483, "fast_tiles": 0.0073 + 0.0061, "selector_info": 0.0081}
 
 
 def device_times(rec):
@@ -390,7 +409,8 @@ def device_times(rec):
 
 
 # --against: another tree's K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3,
-# K16, K18 and K19, as functions of this tree's arguments (OtherTree)
+# K15, K16, K17's match, K18, K19, K20's selector_info and K21, as functions
+# of this tree's arguments (OtherTree)
 AGAINST = None
 # calls whose launches main counts under torch.profiler at the end:
 # {"detect": (this tree's, the other tree's or None), "extract": ...}
@@ -401,11 +421,11 @@ class OtherTree:
     """Kernels of another checkout (the parent commit's, say, unpacked with
     ``git archive``): its ``csrc/pyr_down.cu``, ``vp.cu``, ``klt.cu``,
     ``clahe.cu``, ``lines.cu``, ``line_match.cu``, ``corners.cu``,
-    ``brief.cu``, ``pgo4.cu`` and ``pnp.cu``, each built into a
-    library of its own beside this tree's
-    build (one nvcc a source, all started together), called with this
-    tree's arguments, so that the two designs run on the same inputs in one
-    process.  K1 comes as the previous design's one-level entry
+    ``brief.cu``, ``pgo4.cu``, ``pnp.cu``, ``hamming.cu``, ``pnp_refine.cu``,
+    ``fast.cu`` and ``selector.cu``, each built into a library of its own
+    beside this tree's build (one nvcc a source, all started together),
+    called with this tree's arguments, so that the two designs run on the
+    same inputs in one process.  K1 comes as the previous design's one-level entry
     (``vp_pyr_down``, a launch a level and image) or as this tree's
     ``vp_pyramids``; vp_score with this tree's arguments; K2 as the
     previous design's per-level entry (``vp_klt_track_level``, with
@@ -415,8 +435,10 @@ class OtherTree:
     this tree's ``vp_line_select_grow`` or as the previous design's
     ``vp_line_grow`` behind ``detect_lines``' sort and gathers, and K7 with
     this tree's masks or behind the previous design's conversions (the two
-    changed together); K3, K16, K18 and K19 through the same C entries and
-    arguments as this tree's."""
+    changed together); K15 as this design's two launches or as the previous
+    design's ``vp_fast`` behind ``_top_corners``' sort and gathers; K3,
+    K16, K18, K19, K20's selector_info (and K17's match and K21 as this
+    design's) through the same C entries and arguments as this tree's."""
 
     def __init__(self, tree):
         import ctypes
@@ -427,7 +449,7 @@ class OtherTree:
         self.tree = Path(tree).resolve()
         srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
                 for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match", "corners",
-                          "brief", "pgo4", "pnp", "hamming", "pnp_refine")}
+                          "brief", "pgo4", "pnp", "hamming", "pnp_refine", "fast", "selector")}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -451,11 +473,14 @@ class OtherTree:
         # as bytes (this design) or converted it with a launch (PR 6-15's).
         self.match_int64 = self.has("hamming", "vp_hamming_match_tiles")
         self.refine_u8_launch = not self.match_int64
-        from vplines_slam_tpu_torch.ops import mvg
+        from vplines_slam_tpu_torch.models import selector as sel
+        from vplines_slam_tpu_torch.ops import brief, mvg
 
+        # the wrappers as they are before any block swaps them for these
         self._refine = mvg.pnp_refine
-        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3, K16, K17's match, K18, "
-            f"K19 and K21: {self.tree}")
+        self._brief_pair, self._info = brief.describe_brief_pair, sel.feature_information
+        log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3, K15, K16, K17's match, "
+            f"K18, K19, K20's selector_info and K21: {self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -710,6 +735,81 @@ class OtherTree:
                    best_idx.data_ptr())
         return corners._top_cells(best_val, best_idx.long(), min_dist, max_corners, img.dtype)
 
+    def new_fast(self):
+        """Whether the other tree's K15 is this design (two launches: tiles,
+        selection)."""
+        return self.has("fast", "vp_fast_tiles")
+
+    def fast_score(self, img, thresh=0.05):
+        """The other tree's K15 score map: this design's score mode, or the
+        previous design's score launch (``vp_fast`` without the NMS)."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import brief
+
+        if self.new_fast():
+            return self._swapped(brief.FAST_TILES, "fast", lambda: brief._fast_cuda(img, thresh))
+        H, W = img.shape
+        img = img.contiguous()
+        score = torch.empty_like(img)
+        self._call("fast", "vp_fast", [kmod.P, kmod.I, kmod.I, kmod.F, kmod.I, kmod.P, kmod.P],
+                   img.data_ptr(), H, W, float(thresh), 0, score.data_ptr(), score.data_ptr())
+        return score
+
+    def detect_fast(self, img, max_corners=500, thresh=0.05, nms_radius=3):
+        """The other tree's ``detect_fast``: its two launches (this design),
+        or the previous design's score and NMS launches (``vp_fast``), then
+        the stable sort and the glue (``_top_corners``), as that design's
+        ``detect_fast`` ran them."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+        from vplines_slam_tpu_torch.ops import brief
+
+        if self.new_fast():
+            run = lambda: brief._fast_cuda(img, thresh, max_corners)
+            return self._swapped(brief.FAST_TILES, "fast", lambda: self._swapped(
+                brief.FAST_SELECT, "fast", run))
+        H, W = img.shape
+        img = img.contiguous()
+        score, out = torch.empty_like(img), torch.empty_like(img)
+        self._call("fast", "vp_fast", [kmod.P, kmod.I, kmod.I, kmod.F, kmod.I, kmod.P, kmod.P],
+                   img.data_ptr(), H, W, float(thresh), 1, score.data_ptr(), out.data_ptr())
+        return brief._top_corners(out, max_corners, img.dtype)
+
+    def selector_info(self, *args, **kwargs):
+        """The other tree's K20 selector_info (the same C entry and
+        arguments)."""
+        from vplines_slam_tpu_torch.models import selector as sel
+
+        return self._swapped(sel.SELECTOR_INFO, "selector", lambda: self._info(*args, **kwargs))
+
+    @contextlib.contextmanager
+    def keyframe_features(self):
+        """Keyframe extractions inside the block run the other tree's K15 and
+        K16."""
+        from vplines_slam_tpu_torch.ops import brief
+
+        saved = brief.detect_fast, brief.describe_brief_pair
+        brief.detect_fast, brief.describe_brief_pair = self.detect_fast, self.brief_pair
+        try:
+            yield
+        finally:
+            brief.detect_fast, brief.describe_brief_pair = saved
+
+    @contextlib.contextmanager
+    def selector(self):
+        """Selector calls inside the block run the other tree's selector_info."""
+        from vplines_slam_tpu_torch.models import selector as sel
+
+        saved = sel.feature_information
+        sel.feature_information = self.selector_info
+        try:
+            yield
+        finally:
+            sel.feature_information = saved
+
     def pgo_normal(self, x, db, ypr_vio, cfg):
         """The other tree's K19 with H: (r, H, g), the same C entry and
         argument struct."""
@@ -789,7 +889,7 @@ class OtherTree:
         from vplines_slam_tpu_torch.ops import brief
 
         if self.has("brief", "vp_brief_patch"):
-            return self._swapped(brief.BRIEF, "brief", lambda: brief.describe_brief_pair(
+            return self._swapped(brief.BRIEF, "brief", lambda: self._brief_pair(
                 img, xy, valid, xy2, valid2))
         H, W = img.shape
         pa, pb = brief._pattern_tensors(img.dtype, img.device)
@@ -1336,6 +1436,150 @@ def brief_frames_check(rec, store, where):
     if AGAINST is not None:
         extra[f"the other tree's K16 on {where}'s keyframes, per keyframe"] = (
             lambda: [AGAINST.brief_pair(*a) for a in calls], len(store), "brief_")
+
+
+@contextlib.contextmanager
+def recording_fast(store):
+    """Keep every ``brief.detect_fast`` call of the block (one a keyframe
+    extraction) in store, as references to its inputs and outputs with the
+    K15 launches it made (tiles, selection), for ``fast_frames_check``."""
+    from vplines_slam_tpu_torch.ops import brief
+
+    detect = brief.detect_fast
+
+    def rec(*args, **kwargs):
+        n0 = (brief.FAST_TILES.launches, brief.FAST_SELECT.launches)
+        out = detect(*args, **kwargs)
+        store.append(((args, kwargs), out, (brief.FAST_TILES.launches - n0[0],
+                                            brief.FAST_SELECT.launches - n0[1])))
+        return out
+
+    brief.detect_fast = rec
+    try:
+        yield store
+    finally:
+        brief.detect_fast = detect
+
+
+def fast_candidates(img, thresh=0.05):
+    """Kept pixels with score > 0 (the candidates K15's selection ranks),
+    from the plain twins."""
+    from vplines_slam_tpu_torch.ops import brief
+
+    return int((brief._nms_plain(brief.fast_score_plain(img, thresh), 3) > 0).sum())
+
+
+def fast_frames_check(rec, store, where):
+    """Every recorded keyframe's ``detect_fast``: two K15 launches (tiles,
+    selection), K15 again equal to the bit, the plain twin equal to the bit
+    (xy, valid); with --against the other tree's detect_fast (the previous
+    design: its two launches, the sort and the glue) equal to the bit.
+    Logs the candidate counts; adds K15's device time per call over these
+    calls to its record, the other tree's beside it."""
+    from vplines_slam_tpu_torch.ops import brief
+
+    if not store:
+        fail(f"{where}: no detect_fast call recorded")
+    launches = all(n == (1, 1) for _, _, n in store)
+    again = all(_equal(brief.detect_fast(*a, **kw), out) for (a, kw), out, _ in store)
+    plain = all(_equal(brief.detect_fast_plain(*a, **kw), out) for (a, kw), out, _ in store)
+    counts = [fast_candidates(a[0]) for (a, _), _, _ in store]
+    n_valid = [int(out[1].sum()) for _, out, _ in store]
+    ok, other = launches and again and plain, ""
+    if AGAINST is not None:
+        same = all(_equal(AGAINST.detect_fast(*a, **kw), out) for (a, kw), out, _ in store)
+        other = f"; the other tree's detect_fast equal to the bit {same}"
+        ok = ok and same
+    log(f"K15 detect_fast on {where}'s {len(store)} keyframes: two launches a call (tiles, "
+        f"selection) {launches}; again on each call's inputs, equal to the bit: {again}; equal "
+        f"to the plain twin (xy, valid) {plain}{other}; candidates (kept, score > 0) min "
+        f"{min(counts)}, median {int(np.median(counts))}, max {max(counts)}; valid corners min "
+        f"{min(n_valid)}, max {max(n_valid)}")
+    if not ok:
+        fail(f"K15 detect_fast on {where}'s keyframes")
+    calls = [(a, kw) for (a, kw), _, _ in store]
+    extra = rec["fast_tiles"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} detect_fast calls, both kernels, per call"] = (
+        lambda: [brief.detect_fast(*a, **kw) for a, kw in calls], len(store), "fast_")
+    if AGAINST is not None:
+        extra[f"the other tree's whole detect_fast on {where}'s calls, per call"] = (
+            lambda: [AGAINST.detect_fast(*a, **kw) for a, kw in calls], len(store))
+        extra[f"the other tree's K15 launches on {where}'s calls, per call"] = (
+            lambda: [AGAINST.detect_fast(*a, **kw) for a, kw in calls], len(store), "fast_")
+
+
+@contextlib.contextmanager
+def recording_info(store):
+    """Keep every ``selector.feature_information`` call of the block (one a
+    tracked frame with the selector on) in store, as references to its
+    inputs and output with the K20 selector_info launches it made, for
+    ``selector_info_frames_check``."""
+    from vplines_slam_tpu_torch.models import selector as sel
+
+    info = sel.feature_information
+
+    def rec(*args, **kwargs):
+        n0 = sel.SELECTOR_INFO.launches
+        out = info(*args, **kwargs)
+        store.append(((args, kwargs), out, sel.SELECTOR_INFO.launches - n0))
+        return out
+
+    sel.feature_information = rec
+    try:
+        yield store
+    finally:
+        sel.feature_information = info
+
+
+def info_rel_err(a, b):
+    """The largest |a - b| of each candidate over that candidate's largest
+    |b| entry."""
+    scale = b.abs().amax(dim=(1, 2)).clamp(min=1e-300)
+    return float(((a - b).abs().amax(dim=(1, 2)) / scale).max()) if a.shape[0] else 0.0
+
+
+def plain_info_args(rays, depths, track_valid, ps, qs, q_ic, p_ic, pix_sigma=None, img_fov=0.75,
+                    obs_frame=1):
+    """feature_information's arguments as feature_information_plain takes
+    them (no pix_sigma)."""
+    return rays, depths, track_valid, ps, qs, q_ic, p_ic, img_fov, obs_frame
+
+
+def selector_info_frames_check(rec, store, where):
+    """Every recorded selector_info call: one launch, again equal to the
+    bit, within 1e-12 of each candidate's largest entry of the plain twin;
+    with --against the other tree's kernel equal to the bit.  Adds the
+    device time per call over these calls to its record, the other tree's
+    beside it."""
+    from vplines_slam_tpu_torch.models import selector as sel
+
+    if not store:
+        fail(f"{where}: no selector_info call recorded")
+    launches = all(n == 1 for _, _, n in store)
+    again = all(_bits_equal((sel.feature_information(*a, **kw),), (out,))
+                for (a, kw), out, _ in store)
+    err = max(info_rel_err(out, sel.feature_information_plain(*plain_info_args(*a, **kw)))
+              for (a, kw), out, _ in store)
+    ok, other = launches and again and err <= 1e-12, ""
+    if AGAINST is not None:
+        same = all(_bits_equal((AGAINST.selector_info(*a, **kw),), (out,))
+                   for (a, kw), out, _ in store)
+        other = f"; the other tree's kernel equal to the bit {same}"
+        ok = ok and same
+    log(f"K20 selector_info on {where}'s {len(store)} calls ({store[0][1].shape[0]} candidates "
+        f"each): one launch a call {launches}; again equal to the bit {again}; max |kernel - "
+        f"plain| / the candidate's largest entry {err:.3e} (tol 1e-12){other}")
+    if not ok:
+        fail(f"K20 selector_info on {where}'s calls")
+    calls = [(a, kw) for (a, kw), _, _ in store]
+    extra = rec["selector_info"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} calls, per call"] = (
+        lambda: [sel.feature_information(*a, **kw) for a, kw in calls], len(store),
+        "selector_info")
+    if AGAINST is not None:
+        extra[f"the other tree's kernel on {where}'s calls, per call"] = (
+            lambda: [AGAINST.selector_info(*a, **kw) for a, kw in calls], len(store),
+            "selector_info")
 
 
 # ---------------------------------------------------------------------------
@@ -2599,10 +2843,12 @@ def marg_columns(H_dd, g_d, H_dp, h_p, g_p, H_dl, Hll_b, g_l, eps):
 def loop_kernels():
     """K15-K19 and K21, the kernels of a loop verification's path."""
     from vplines_slam_tpu_torch.models.pose_graph import PGO4
-    from vplines_slam_tpu_torch.ops.brief import BRIEF, FAST, HAMMING_MATCH, SIMHASH
+    from vplines_slam_tpu_torch.ops.brief import (BRIEF, FAST_SELECT, FAST_TILES, HAMMING_MATCH,
+                                                  SIMHASH)
     from vplines_slam_tpu_torch.ops.mvg import PNP_HYPOTHESES, PNP_REFINE
 
-    return [FAST, BRIEF, HAMMING_MATCH, SIMHASH, PNP_HYPOTHESES, PGO4, PNP_REFINE]
+    return [FAST_TILES, FAST_SELECT, BRIEF, HAMMING_MATCH, SIMHASH, PNP_HYPOTHESES, PGO4,
+            PNP_REFINE]
 
 
 def selector_kernels():
@@ -3013,26 +3259,82 @@ def phase_loop_kernels(rec, S):
     n_px = H * W
     F_, Wp = 500, 64
 
-    # K15 FAST-9 + 7x7 NMS: score map and detections exact
-    sk, sp = brief.fast_score(img0), brief.fast_score_plain(img0)
+    # K15: the score map (one launch) and detect_fast (two launches: tiles,
+    # selection) against the plain twins on phase 3's frame and on the
+    # images of utils/synthetic.fast_cases at max_corners 1, 60 and 500:
+    # exact, each call again equal to the bit, with --against the other
+    # tree's K15 (the previous design: its two launches, the sort and the
+    # glue) equal to the bit
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
+    def k15(img, k):
+        n0 = (brief.FAST_TILES.launches, brief.FAST_SELECT.launches)
+        out = brief.detect_fast(img, k)
+        two = (brief.FAST_TILES.launches - n0[0], brief.FAST_SELECT.launches - n0[1]) == (1, 1)
+        n1 = brief.FAST_TILES.launches
+        sk = brief.fast_score(img)
+        one = brief.FAST_TILES.launches - n1 == 1
+        plain = (_equal(out, brief.detect_fast_plain(img, k))
+                 and bool(torch.equal(sk, brief.fast_score_plain(img))))
+        again = (_equal(brief.detect_fast(img, k), out)
+                 and _bits_equal((brief.fast_score(img),), (sk,)))
+        other = AGAINST is None or (_equal(AGAINST.detect_fast(img, k), out)
+                                    and _bits_equal((AGAINST.fast_score(img),), (sk,)))
+        err = float((out[0] - brief.detect_fast_plain(img, k)[0]).abs().max())
+        return two and one and plain and again and other, err, int(out[1].sum())
+
+    ok15, err15, n_v = k15(img0, F_)
+    cnt0 = fast_candidates(img0)
+    log(f"K15 fast on phase 3's frame: {cnt0} candidates (kept, score > 0), {n_v} of {F_} "
+        f"valid; two launches, the score mode one, equal to the plain twins, again to the bit"
+        + ("" if AGAINST is None else ", the other tree's K15 equal to the bit")
+        + f": {ok15} (tol: exact)")
+    n_cases = 0
+    for name, img in syn.fast_cases(seed=SEED).items():
+        img_c = torch.from_numpy(img).to(dev)
+        res = [k15(img_c, k) for k in (1, 60, 500)]
+        ok_c = all(r[0] for r in res)
+        ok15 &= ok_c
+        err15 = max([err15] + [r[1] for r in res])
+        n_cases += 1
+        log(f"  case {name!r} {tuple(img.shape)}: {fast_candidates(img_c)} candidates, valid at "
+            f"k = 1, 60, 500: {[r[2] for r in res]}; as above: {ok_c}")
+    if not ok15:
+        fail("K15 fast disagrees with its plain twins, across calls or with the other tree's K15")
     xy_k, v_k = brief.detect_fast(img0, F_)
-    xy_p, v_p = brief.detect_fast_plain(img0, F_)
-    err15 = max(float((sk - sp).abs().max()), float((xy_k - xy_p).abs().max()))
-    same15 = bool(torch.equal(v_k, v_p)) and err15 == 0.0
-    log(f"K15 fast: score map max |kernel - plain| = {float((sk - sp).abs().max()):.3e}, "
-        f"detections {int(v_k.sum())} of {F_} equal: {same15} (tol: exact)")
-    if not same15:
-        fail("K15 fast disagrees with its plain version")
-    record(rec, "fast", err15, lambda: brief._fast_cuda(img0, 0.05, True),
-           lambda: brief._nms_plain(brief.fast_score_plain(img0), 3), "fast_",
-           4 * 2 * n_px, n_px * (16 * 8 + 40 + 49))
+    detect_k = lambda: brief.detect_fast(img0, F_)
+    detect_p = lambda: brief.detect_fast_plain(img0, F_)
+    # the work counted: the ring's 16 tests and margins (8
+    # operations each), the arc test (40) and the 7x7 window (49) a pixel;
+    # bytes: the image read once, each candidate's key written and read once,
+    # the outputs written once
+    ops15 = n_px * (16 * 8 + 40 + 49)
+    record(rec, "fast_tiles", err15, detect_k, detect_p, "fast_tiles_kernel",
+           4 * n_px + 8 * cnt0, ops15)
+    kept0 = brief._nms_plain(brief.fast_score_plain(img0), 3).reshape(-1)
+    record(rec, "fast_select", err15, detect_k, detect_p, "fast_select_kernel",
+           8 * cnt0 + 9 * F_, cnt0, library_fn=lambda: torch.topk(kept0, F_),
+           library_label="the top-k alone: torch.topk of the kept map, k = 500; its tie order "
+                         "is not lax.top_k's, a time only")
+    b_ms, b_by = bound(4 * n_px + 16 * cnt0 + 9 * F_, ops15)
+    rec["fast_tiles"]["whole_bound_ms"] = b_ms
+    log(f"K15's whole detect_fast: bound {b_ms:.5f} ms ({b_by}) on phase 3's frame")
+    extra = rec["fast_tiles"]["extra_device_of"] = {
+        "this tree's whole detect_fast, per call": (detect_k, 1),
+        "its score mode (fast_score), per call": (lambda: brief.fast_score(img0), 1)}
+    if AGAINST is not None:
+        other_k = lambda: AGAINST.detect_fast(img0, F_)
+        extra["the other tree's whole detect_fast (kernels, sort and glue), the same call"] = (
+            other_k, 1)
+        extra["the other tree's K15 launches, the same call"] = (other_k, 1, "fast_")
+        rec["fast_tiles"]["other_ms"] = time_ms(other_k)
+        log(f"K15 detect_fast per call (CUDA events): {rec['fast_tiles']['ms']:.4f} ms, the "
+            f"other tree's {rec['fast_tiles']['other_ms']:.4f} ms")
 
     # K16 BRIEF at the 500 corners and at 64 window points (corners moved by
     # up to 2 px, so most fall between pixels) in one launch, as a keyframe's
     # extraction calls it; then the cases of utils/synthetic.brief_cases
     # (each as float32 on the card), each set alone and split in two
-    from vplines_slam_tpu_torch.utils import synthetic as syn
-
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     wxy = xy_k[:Wp] + 4.0 * torch.rand(Wp, 2, generator=gen, device=dev) - 2.0
     wv = torch.rand(Wp, generator=gen, device=dev) < 0.9
@@ -3087,9 +3389,13 @@ def phase_loop_kernels(rec, S):
             f"tree's {rec['brief_patch']['other_ms']:.4f} ms")
     lift = lambda xy: cam_mod.lift(S["cam"], xy)
     pg_cfg = euroc_pose_graph()
-    PROBES["extract"] = (
-        lambda: pg_mod.extract_keyframe_features(img0, lift, pg_cfg, window_xy=(wxy, wv)),
-        AGAINST and (lambda: AGAINST.brief_pair(*pair_args)))
+    extract = lambda: pg_mod.extract_keyframe_features(img0, lift, pg_cfg, window_xy=(wxy, wv))
+
+    def extract_other():
+        with AGAINST.keyframe_features():
+            return extract()
+
+    PROBES["extract"] = (extract, AGAINST and extract_other)
 
     # K17 (a) match 64 x 500, the verification's gates and the default ones,
     # then the cases of utils/synthetic.match_cases: indices and distances
@@ -3463,20 +3769,65 @@ def phase_selector_kernels(rec, S):
     dev = I["rays"].device
     N, dim = I["rays"].shape[0], sel.DIM
     info_args = (I["rays"], I["depths"], I["new"], I["ps"], I["qs"], I["q_ic"], I["p_ic"])
+    n0 = sel.SELECTOR_INFO.launches
     Fk = sel.feature_information(*info_args)
+    one = sel.SELECTOR_INFO.launches - n0 == 1
     Fp = sel.feature_information_plain(*info_args)
-    scale = Fp.abs().amax(dim=(1, 2)).clamp(min=1e-300)
-    err20 = float(((Fk - Fp).abs().amax(dim=(1, 2)) / scale).max())
+    err20 = info_rel_err(Fk, Fp)
     live = int((Fp.abs().amax(dim=(1, 2)) > 0).sum())
+    again = _bits_equal((sel.feature_information(*info_args),), (Fk,))
+    other = AGAINST is None or _bits_equal((AGAINST.selector_info(*info_args),), (Fk,))
     log(f"K20 selector_info: {N} candidates of frame {SEL_FRAME} ({int(I['new'].sum())} new, "
         f"{live} with information), max |kernel - plain| / the candidate's largest entry = "
-        f"{err20:.3e} (tol 1e-12, f64)")
-    if not err20 <= 1e-12:
-        fail("K20 selector_info disagrees with its plain version")
+        f"{err20:.3e} (tol 1e-12, f64); one launch {one}, again equal to the bit {again}"
+        + ("" if AGAINST is None else f", the other tree's kernel equal to the bit {other}"))
+    if not (err20 <= 1e-12 and one and again and other):
+        fail("K20 selector_info disagrees with its plain version, across calls or with the "
+             "other tree's kernel")
+    # the cases of utils/synthetic.selector_info_cases: the same bars
+    T = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    case_args, ok_c = {}, True
+    for name, c in syn.selector_info_cases(seed=SEED).items():
+        a = tuple(T(c[k]) for k in ("rays", "depths", "track_valid", "ps", "qs", "q_ic",
+                                    "p_ic"))
+        kw = dict(obs_frame=c["obs_frame"])
+        case_args[name] = (a, kw)
+        n0 = sel.SELECTOR_INFO.launches
+        Fc = sel.feature_information(*a, **kw)
+        one_c = sel.SELECTOR_INFO.launches - n0 == 1
+        e_c = info_rel_err(Fc, sel.feature_information_plain(*a, **kw))
+        again_c = _bits_equal((sel.feature_information(*a, **kw),), (Fc,))
+        other_c = AGAINST is None or _bits_equal((AGAINST.selector_info(*a, **kw),), (Fc,))
+        ok = one_c and e_c <= 1e-12 and again_c and other_c
+        ok_c &= ok
+        err20 = max(err20, e_c)
+        log(f"  case {name!r}: {tuple(Fc.shape)}, max rel err {e_c:.3e}, one launch, again and "
+            f"the other tree's equal to the bit: {ok}")
+    n0 = sel.SELECTOR_INFO.launches
+    empty = sel.feature_information(*(x[:0] for x in info_args[:3]), *info_args[3:])
+    ok_c &= empty.shape == (0, dim, dim) and sel.SELECTOR_INFO.launches == n0
+    if not ok_c:
+        fail("K20 selector_info on the cases of utils/synthetic.selector_info_cases")
     record(rec, "selector_info", err20, lambda: sel.feature_information(*info_args),
            lambda: sel.feature_information_plain(*info_args), "selector_info_kernel",
            N * (3 + 1) * 8 + N + 5 * 7 * 8 + 7 * 8 + N * dim * dim * 8,
-           N * (5 * 420 + 60 + 5 * 45 + 25 * 9 * 6))
+           N * (5 * 420 + 60 + 5 * 45 + 25 * 9 * 6),
+           library_fn=lambda: torch.zeros(N, dim, dim, dtype=f64, device=dev),
+           library_label="the write alone: torch.zeros of the [N, 45, 45] f64 output")
+    a1k, kw1k = case_args["N 1000 nh 5 obs 1"]
+    n1k = a1k[0].shape[0]
+    rec["selector_info"]["bound_1000_ms"] = bound(
+        n1k * (3 + 1) * 8 + n1k + 5 * 7 * 8 + 7 * 8 + n1k * dim * dim * 8,
+        n1k * (5 * 420 + 60 + 5 * 45 + 25 * 9 * 6))[0]
+    extra = rec["selector_info"]["extra_device_of"] = {
+        "N = 1,000 (selector_info_cases), per call": (
+            lambda: sel.feature_information(*a1k, **kw1k), 1, "selector_info")}
+    if AGAINST is not None:
+        extra["the other tree's kernel, the same call"] = (
+            lambda: AGAINST.selector_info(*info_args), 1, "selector_info")
+        extra["the other tree's kernel at N = 1,000, per call"] = (
+            lambda: AGAINST.selector_info(*a1k, **kw1k), 1, "selector_info")
+        rec["selector_info"]["other_ms"] = time_ms(lambda: AGAINST.selector_info(*info_args))
 
     # greedy: budgets 0, 7, 30 at max_features 30 and 60 on the same matrices,
     # on the position support of the states a candidate is seen from (the
@@ -4766,7 +5117,8 @@ def main(argv=None):
     ap.add_argument("--against", "--vp-grid-against", dest="against", metavar="TREE",
                     help="another checkout (e.g. the parent commit unpacked with git "
                          "archive): build its K1, K8 (vp_grid, vp_score), K2, K9, K6, K7, K3, "
-                         "K16, K18 and K19 and run them on this tree's inputs in this process: "
+                         "K15, K16, K17, K18, K19, K20's selector_info and K21 and run them on "
+                         "this tree's inputs in this process: "
                          "K1 to "
                          "the bit on phase 3's frames and every track call of phases 4-6, "
                          "vp_grid and vp_score to the bit on phase 3's inputs and every lines "
@@ -4775,7 +5127,10 @@ def main(argv=None):
                          "phase 3's frames and cases and every lines frame of phases 5-6, K3 "
                          "(detect) to the bit on phase 3's calls and cases and every detect "
                          "call of phases 4-6 and 8, K16 to the bit on phase 3's keyframe and "
-                         "cases and every keyframe of phases 6-8, K19 to the bit on phase 3's "
+                         "cases and every keyframe of phases 6-8, K15 (detect_fast, the score "
+                         "map) to the bit on phase 3's frame and cases and every keyframe of "
+                         "phases 6-8, selector_info to the bit on phase 3's candidates and "
+                         "cases and every call of phase 8, K19 to the bit on phase 3's "
                          "database, the PGO cases, K = 1,024 and every PGO iteration of phase "
                          "7, K18's counts and inliers on every hypothesis whose pose is "
                          "determined and its chosen hypothesis where both choices are, on "
@@ -4841,7 +5196,7 @@ def main(argv=None):
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
     with (recording_vp([]) as vp6, recording_clahe([]) as cl6, recording_pyramids([]) as pyr6,
           recording_lines({"detect": [], "vote": []}) as ln6, recording_detect([]) as det6,
-          recording_brief([]) as br6):
+          recording_brief([]) as br6, recording_fast([]) as fa6):
         launches, cs = phase_cold_start(C, profile=args.profile)
     for where, counted, pyrs in (("phase 4", launches4, pyr4), ("phase 5", launches5, pyr5),
                                  ("phase 6", launches, pyr6)):
@@ -4857,25 +5212,30 @@ def main(argv=None):
     for where, store in (("phase 4", det4), ("phase 5", det5), ("phase 6", det6)):
         detect_frames_check(rec, store, where)
     brief_frames_check(rec, br6, "phase 6")
-    del det4, det5, det6, br6
+    fast_frames_check(rec, fa6, "phase 6")
+    del det4, det5, det6, br6, fa6
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
-    with recording_brief([]) as br7, recording_loop({"pgo": [], "pnp": [], "match": [],
-                                                     "refine": []}) as lp7:
+    with (recording_brief([]) as br7, recording_fast([]) as fa7,
+          recording_loop({"pgo": [], "pnp": [], "match": [], "refine": []}) as lp7):
         loop_launches, lc = phase_loop_circuit(dev)
     brief_frames_check(rec, br7, "phase 7")
+    fast_frames_check(rec, fa7, "phase 7")
     loop_calls_check(rec, lp7, "phase 7")
     loop_verification_check(rec, lp7, "phase 7")
-    del br7, lp7
+    del br7, fa7, lp7
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: the selector cold start")
     from vplines_slam_tpu_torch.utils.config import load_profile
 
     sel_cfg = load_profile(str(ROOT / "configs" / "euroc.yaml"), dtype=torch.float32,
                            device=dev).selector
-    with recording_detect([]) as det8, recording_brief([]) as br8:
+    with (recording_detect([]) as det8, recording_brief([]) as br8, recording_fast([]) as fa8,
+          recording_info([]) as in8):
         launches8, s8 = phase_cold_start(C, selector=sel_cfg)
     detect_frames_check(rec, det8, "phase 8")
     brief_frames_check(rec, br8, "phase 8")
-    del det8, br8
+    fast_frames_check(rec, fa8, "phase 8")
+    selector_info_frames_check(rec, in8, "phase 8")
+    del det8, br8, fa8, in8
     sel_launches = {k.name: launches8[k.name] for k in selector_kernels()}
     if args.cold_witness:
         log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
@@ -4900,6 +5260,13 @@ def main(argv=None):
                                            "verification")
     count_launches(s8["selector_probe"], 3, "phase 8, one selector call (_select_impl)",
                    table=args.profile)
+    if AGAINST is not None:
+        def selector_other():
+            with AGAINST.selector():
+                return s8["selector_probe"]()
+
+        count_launches(selector_other, 3, "the other tree's selector_info in the same selector "
+                                          "call")
     for key, label in (("detect", "one detect call (phase 3's frame 1 with its tracks)"),
                        ("extract", "one extract_keyframe_features call (phase 3's frame 0, "
                                    "500 corners, 64 window points)")):
@@ -4907,7 +5274,8 @@ def main(argv=None):
         count_launches(this, 3, label, table=args.profile)
         if other is not None:
             count_launches(other, 3, "the other tree's " + (
-                "detect, the same call" if key == "detect" else "K16 on that keyframe"))
+                "detect, the same call" if key == "detect" else
+                "K15 and K16 in the same extraction"))
     if args.profile:
         log(f"[{time.perf_counter() - t_start:.0f} s] profile of the points slice:")
         phase_profile(*prof_points)
@@ -4937,7 +5305,8 @@ def main(argv=None):
             library_device_ms=r["library_device_ms"],
             device_split=r["device_split"],
             **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms", "bound_45_ms",
-                                 "bound_1024_ms", "extra_device_ms", "other_ms") if k in r}))
+                                 "bound_1024_ms", "extra_device_ms", "other_ms",
+                                 "whole_bound_ms", "bound_1000_ms") if k in r}))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")

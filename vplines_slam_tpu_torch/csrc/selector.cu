@@ -14,14 +14,28 @@
 //   but each round is a chain of 12 dependent pivot steps and the rounds
 //   are sequential through the argmax, so latency sets the time.
 // Design:
-//   - selector_info: one block per candidate.  A thread per horizon state
-//     builds its bearing factor C_k = B^T B (B = [u]x R_cw) and visibility,
-//     thread 0 the landmark's W = (sum C + 1e-9 I)^-1 by the adjugate, a
-//     thread per state C_k W, then the block writes the 45x45 entries:
-//     C_i - C_i W C_i^T, -C_i W C_j^T on the position blocks, 0 elsewhere
-//     and for a candidate seen by fewer than 2 states.  Each product and
-//     sum is rounded on its own (__dmul_rn / __dadd_rn) in the order of the
-//     plain twin, feature_information_plain.
+//   - selector_info: a CTA of four warps per candidate.  Warp 0 does the
+//     candidate's geometry, four lanes per horizon state, each with the
+//     state's camera point, its inputs loaded up front in one trip to
+//     memory: three take a component of the bearing u, the fourth the
+//     visibility, so that no lane runs more than one division after the
+//     square root, and three write a row of the bearing factor C_k = B^T B
+//     (B = [u]x R_cw); then a lane per entry the sum of the C_k and, each
+//     lane with all nine cofactors, its entry of the adjugate and of W =
+//     (sum C + 1e-9 I)^-1 (nine divisions at once).  Meanwhile warps 1-3
+//     write every entry off the position blocks (0; 1,881 of the 2,025 at 5
+//     states), two a 16-byte store where the candidate's block is 16-byte
+//     aligned, stepping (row, column) along without a division per entry.
+//     After one barrier the CTA writes the position blocks, C_i - C_i W C_i^T
+//     and -C_i W C_j^T (each entry forming its row of C_i W), or 0 for a
+//     candidate seen by fewer than 2 states.  Each product and sum is rounded
+//     on its own (__dmul_rn / __dadd_rn) in the order of the previous kernel
+//     (one thread a state, one thread's adjugate, C_k W) and of the plain
+//     twin, feature_information_plain, so the output is the previous
+//     kernel's to the bit.  That kernel spent ~58% of its 12.6k cycles
+//     writing the 2,025 entries with 64 threads, each with a division by the
+//     run-time size, ~22% in one state's geometry and ~16% in one thread's
+//     adjugate (clock64() stamps); now the geometry is the critical path.
 //   - selector_greedy: one launch of a cluster of 16 CTAs for the whole
 //     pass, no host sync.  Every F_i is zero off the support S (the
 //     position rows and columns of the states that can see a candidate: 12
@@ -58,7 +72,7 @@
 namespace {
 
 constexpr int kMaxStates = 8;
-constexpr int kInfoThreads = 64;
+constexpr int kInfoThreads = 128;
 constexpr size_t kSmemLimit = 232448;  // a CTA's shared memory on the H100
 constexpr int kMaxThreads = 512;       // selector_greedy's CTA (its launch bounds)
 
@@ -107,91 +121,182 @@ __device__ __forceinline__ void mm3(const double* A, const double* B, double* C)
                          mul(A[3 * i + 2], B[6 + j]));
 }
 
+// A candidate's point in the camera of horizon state k, Xc, and that
+// camera's rotation q_cw, from values already in registers (the ray and its
+// depth, the extrinsic, the observation state's pose o, state k's): the
+// landmark in the world from pose o, then (q_cw, p_cw) = inverse(q_k (x)
+// q_ic, p_k + R_k p_ic).
+__device__ __forceinline__ void camera_point(const double* ray, double depth, const double* q_ic,
+                                             const double* p_ic, const double* qo,
+                                             const double* po, const double* qk,
+                                             const double* pk, double* Xc, double* qcw) {
+  double rd[3], a[3], b[3], Xw[3];
+  for (int i = 0; i < 3; ++i) rd[i] = mul(ray[i], depth);
+  qrot(q_ic, rd, a);
+  for (int i = 0; i < 3; ++i) a[i] = add(a[i], p_ic[i]);
+  qrot(qo, a, b);
+  for (int i = 0; i < 3; ++i) Xw[i] = add(b[i], po[i]);
+  double qwc[4], pwc[3], t[3], pcw[3];
+  qmul4(qk, q_ic, qwc);
+  qrot(qk, p_ic, t);
+  for (int i = 0; i < 3; ++i) pwc[i] = add(t[i], pk[i]);
+  qcw[0] = qwc[0];
+  for (int i = 1; i < 4; ++i) qcw[i] = -qwc[i];
+  qrot(qcw, pwc, t);
+  for (int i = 0; i < 3; ++i) pcw[i] = -t[i];
+  qrot(qcw, Xw, t);
+  for (int i = 0; i < 3; ++i) Xc[i] = add(t[i], pcw[i]);
+}
+
+// entry (r, c) of the n x n block lies on a position block (a, b < 3)
+__device__ __forceinline__ bool on_position(int r, int c) { return r % 9 < 3 && c % 9 < 3; }
+
 __global__ void __launch_bounds__(kInfoThreads)
 selector_info_kernel(const double* __restrict__ rays, const double* __restrict__ depths,
                      const uint8_t* __restrict__ valid, const double* __restrict__ ps,
                      const double* __restrict__ qs, const double* __restrict__ q_ic,
                      const double* __restrict__ p_ic, int nh, int o, double fov,
                      double* __restrict__ out) {
-  __shared__ double s_C[kMaxStates][9], s_CW[kMaxStates][9], s_W[9];
-  __shared__ int s_vis[kMaxStates], s_nvis;
-  const int f = blockIdx.x, n = 9 * nh;
-  for (int k = threadIdx.x; k < nh; k += blockDim.x) {
-    // the landmark in the world from the observation state's pose
-    double rd[3], a[3], b[3], Xw[3];
-    for (int i = 0; i < 3; ++i) rd[i] = mul(rays[3 * f + i], depths[f]);
-    qrot(q_ic, rd, a);
-    for (int i = 0; i < 3; ++i) a[i] = add(a[i], p_ic[i]);
-    qrot(qs + 4 * o, a, b);
-    for (int i = 0; i < 3; ++i) Xw[i] = add(b[i], ps[3 * o + i]);
-    // camera pose of state k: (q_cw, p_cw) = inverse(q_k (x) q_ic, p_k + R_k p_ic)
-    double qwc[4], pwc[3], qcw[4], t[3], pcw[3], Xc[3];
-    qmul4(qs + 4 * k, q_ic, qwc);
-    qrot(qs + 4 * k, p_ic, t);
-    for (int i = 0; i < 3; ++i) pwc[i] = add(t[i], ps[3 * k + i]);
-    qcw[0] = qwc[0];
-    for (int i = 1; i < 4; ++i) qcw[i] = -qwc[i];
-    qrot(qcw, pwc, t);
-    for (int i = 0; i < 3; ++i) pcw[i] = -t[i];
-    qrot(qcw, Xw, t);
-    for (int i = 0; i < 3; ++i) Xc[i] = add(t[i], pcw[i]);
-    const double z = Xc[2];
-    const bool vis = (k >= o) && (z > 0.2) && (fabs(Xc[0] / z) < fov) && (fabs(Xc[1] / z) < fov);
-    double nrm = sqrt(add(add(mul(Xc[0], Xc[0]), mul(Xc[1], Xc[1])), mul(Xc[2], Xc[2])));
-    nrm = nrm < 1e-9 ? 1e-9 : nrm;
-    double u[3], S[9], R[9], B[9], Bt[9], C[9];
-    for (int i = 0; i < 3; ++i) u[i] = Xc[i] / nrm;
-    S[0] = 0.0, S[1] = -u[2], S[2] = u[1];
-    S[3] = u[2], S[4] = 0.0, S[5] = -u[0];
-    S[6] = -u[1], S[7] = u[0], S[8] = 0.0;
-    q2r(qcw, R);
-    mm3(S, R, B);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) Bt[3 * i + j] = B[3 * j + i];
-    mm3(Bt, B, C);
-    const double w = (vis && valid[f]) ? 1.0 : 0.0;
-    for (int e = 0; e < 9; ++e) s_C[k][e] = mul(C[e], w);
-    s_vis[k] = vis;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int nv = 0;
-    double E[9];
-    for (int e = 0; e < 9; ++e) E[e] = s_C[0][e];
-    for (int k = 0; k < nh; ++k) nv += s_vis[k];
-    for (int k = 1; k < nh; ++k)
-      for (int e = 0; e < 9; ++e) E[e] = add(E[e], s_C[k][e]);
-    for (int i = 0; i < 3; ++i) E[4 * i] = add(E[4 * i], 1e-9);
-    // selector._inv3: the adjugate over the first-row expansion
-    const double a = E[0], b = E[1], c = E[2], d = E[3], e = E[4], f6 = E[5], g = E[6],
-                 h = E[7], i = E[8];
-    const double c00 = sub(mul(e, i), mul(f6, h)), c01 = sub(mul(c, h), mul(b, i)),
-                 c02 = sub(mul(b, f6), mul(c, e));
-    const double c10 = sub(mul(f6, g), mul(d, i)), c11 = sub(mul(a, i), mul(c, g)),
-                 c12 = sub(mul(c, d), mul(a, f6));
-    const double c20 = sub(mul(d, h), mul(e, g)), c21 = sub(mul(b, g), mul(a, h)),
-                 c22 = sub(mul(a, e), mul(b, d));
-    const double det = add(add(mul(a, c00), mul(b, c10)), mul(c, c20));
-    const double adj[9] = {c00, c01, c02, c10, c11, c12, c20, c21, c22};
-    for (int k = 0; k < 9; ++k) s_W[k] = adj[k] / det;
-    s_nvis = nv;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < nh; k += blockDim.x) mm3(s_C[k], s_W, s_CW[k]);
-  __syncthreads();
-  const bool keep = s_nvis >= 2;
+  __shared__ double s_C[kMaxStates][9], s_E[9], s_W[9];
+  __shared__ int s_keep;
+  const int f = blockIdx.x, n = 9 * nh, tid = threadIdx.x, lane = tid & 31;
   double* o_f = out + (size_t)f * n * n;
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    const int r = idx / n, c = idx % n;
-    const int si = r / 9, a = r % 9, sj = c / 9, b = c % 9;
+  if (tid < 32) {
+    // warp 0: four lanes a horizon state (nh <= 8), each with the state's
+    // camera point (the same chain in each: shuffling it from one lane
+    // measured slower); three take a bearing component Xc_j / |Xc| and the
+    // fourth the visibility (two divisions), so no lane runs more than one
+    // division after the square root; then three of them a row each of the
+    // factor, C = B^T B with B = [u]x R_cw
+    const int st = lane >> 2, part = lane & 3, grp = lane & ~3;
+    double Xc[3], qcw[4], u_j = 0.0;
+    bool vis = false, ok_f = false;
+    if (st < nh) {
+      // every input first, so that they come in one trip to memory (a load
+      // behind a branch, as the mask's was, waits a trip of its own)
+      double ray[3], qic[4], pic[3], qo[4], po[3], qk[4], pk[3];
+      for (int i = 0; i < 3; ++i) {
+        ray[i] = rays[3 * f + i];
+        pic[i] = p_ic[i];
+        po[i] = ps[3 * o + i];
+        pk[i] = ps[3 * st + i];
+      }
+      for (int i = 0; i < 4; ++i) {
+        qic[i] = q_ic[i];
+        qo[i] = qs[4 * o + i];
+        qk[i] = qs[4 * st + i];
+      }
+      const double depth = depths[f];
+      ok_f = valid[f] != 0;
+      camera_point(ray, depth, qic, pic, qo, po, qk, pk, Xc, qcw);
+      if (part == 3) {
+        const double z = Xc[2];
+        vis = (st >= o) && (z > 0.2) && (fabs(Xc[0] / z) < fov) && (fabs(Xc[1] / z) < fov);
+      } else {
+        double nrm = sqrt(add(add(mul(Xc[0], Xc[0]), mul(Xc[1], Xc[1])), mul(Xc[2], Xc[2])));
+        nrm = nrm < 1e-9 ? 1e-9 : nrm;
+        u_j = (part == 0 ? Xc[0] : part == 1 ? Xc[1] : Xc[2]) / nrm;
+      }
+    }
+    double u[3];
+    for (int i = 0; i < 3; ++i) u[i] = __shfl_sync(0xffffffffu, u_j, grp + i);
+    const bool vis_k = __shfl_sync(0xffffffffu, vis, grp + 3);
+    const int nv = __popc(__ballot_sync(0xffffffffu, part == 3 && vis));
+    if (st < nh && part < 3) {
+      double S[9], R[9], B[9], bt[3];
+      S[0] = 0.0, S[1] = -u[2], S[2] = u[1];
+      S[3] = u[2], S[4] = 0.0, S[5] = -u[0];
+      S[6] = -u[1], S[7] = u[0], S[8] = 0.0;
+      q2r(qcw, R);
+      mm3(S, R, B);
+      // row `part` of B^T, column `part` of B (selects: no local array)
+      for (int r = 0; r < 3; ++r)
+        bt[r] = part == 0 ? B[3 * r] : part == 1 ? B[3 * r + 1] : B[3 * r + 2];
+      const double w = (vis_k && ok_f) ? 1.0 : 0.0;
+      // selector._mm3(B^T, B), row part: ((0 + 1) + 2), times w
+      for (int c = 0; c < 3; ++c)
+        s_C[st][3 * part + c] =
+            mul(add(add(mul(bt[0], B[c]), mul(bt[1], B[3 + c])), mul(bt[2], B[6 + c])), w);
+    }
+    __syncwarp();
+    if (lane < 9) {
+      // E = sum_k C_k + 1e-9 I, a lane an entry, in state order
+      double e = s_C[0][lane];
+      for (int k = 1; k < nh; ++k) e = add(e, s_C[k][lane]);
+      s_E[lane] = lane % 4 == 0 ? add(e, 1e-9) : e;
+    }
+    __syncwarp();
+    if (lane < 9) {
+      // selector._inv3: the adjugate over the first-row expansion; every
+      // lane forms all nine cofactors (no divergent branch) and takes its
+      // own
+      const double a = s_E[0], b = s_E[1], c = s_E[2], d = s_E[3], e = s_E[4], f6 = s_E[5],
+                   g = s_E[6], h = s_E[7], i = s_E[8];
+      const double c00 = sub(mul(e, i), mul(f6, h)), c01 = sub(mul(c, h), mul(b, i)),
+                   c02 = sub(mul(b, f6), mul(c, e));
+      const double c10 = sub(mul(f6, g), mul(d, i)), c11 = sub(mul(a, i), mul(c, g)),
+                   c12 = sub(mul(c, d), mul(a, f6));
+      const double c20 = sub(mul(d, h), mul(e, g)), c21 = sub(mul(b, g), mul(a, h)),
+                   c22 = sub(mul(a, e), mul(b, d));
+      const double det = add(add(mul(a, c00), mul(b, c10)), mul(c, c20));
+      const double adj = lane == 0 ? c00 : lane == 1 ? c01 : lane == 2 ? c02
+                       : lane == 3 ? c10 : lane == 4 ? c11 : lane == 5 ? c12
+                       : lane == 6 ? c20 : lane == 7 ? c21 : c22;
+      s_W[lane] = adj / det;
+    }
+    if (lane == 0) s_keep = nv >= 2;
+  } else {
+    // the other warps meanwhile: every entry off the position blocks is 0,
+    // two a 16-byte store where the block is so aligned; (r, c) stepped
+    // along without a division per entry
+    const int zt = tid - 32, nz = blockDim.x - 32, nn = n * n;
+    const int head = (reinterpret_cast<uintptr_t>(o_f) & 15) ? 1 : 0;
+    // a misaligned block's first entry, (0, 0), lies on a position block
+    const int pairs = (nn - head) / 2;
+    int e = head + 2 * zt, r = e / n, c = e - r * n;
+    const int step = 2 * nz, dr = step / n, dc = step - dr * n;
+    for (int p = zt; p < pairs; p += nz) {
+      const int r2 = c + 1 == n ? r + 1 : r, c2 = c + 1 == n ? 0 : c + 1;
+      const bool z1 = !on_position(r, c), z2 = !on_position(r2, c2);
+      double* q = o_f + head + 2 * p;
+      if (z1 && z2) {
+        *reinterpret_cast<double2*>(q) = make_double2(0.0, 0.0);
+      } else if (z1) {
+        q[0] = 0.0;
+      } else if (z2) {
+        q[1] = 0.0;
+      }
+      r += dr;
+      c += dc;
+      if (c >= n) {
+        c -= n;
+        ++r;
+      }
+    }
+    if (zt == 0 && head + 2 * pairs < nn) {
+      const int t = nn - 1;
+      if (!on_position(t / n, t % n)) o_f[t] = 0.0;
+    }
+  }
+  __syncthreads();
+  // the position blocks: C_i - C_i W C_i^T, -C_i W C_j^T (0 unless >= 2 states see it)
+  const bool keep = s_keep;
+  for (int q = tid; q < 9 * nh * nh; q += blockDim.x) {
+    const int blk = q / 9, ab = q - 9 * blk, si = blk / nh, sj = blk - si * nh;
+    const int a = ab / 3, b = ab - 3 * a;
     double v = 0.0;
-    if (keep && a < 3 && b < 3) {
-      const double* cw = s_CW[si] + 3 * a;
+    if (keep) {
+      // row a of C_i W (selector._mm3: each entry ((0 + 1) + 2)), formed here
+      // by every entry that needs it rather than in a stage of its own
+      const double* ci = s_C[si] + 3 * a;
+      double cw[3];
+      for (int c = 0; c < 3; ++c)
+        cw[c] = add(add(mul(ci[0], s_W[c]), mul(ci[1], s_W[3 + c])), mul(ci[2], s_W[6 + c]));
       const double* cj = s_C[sj] + 3 * b;  // row b of C_j = column b of C_j^T
       const double d = add(add(mul(cw[0], cj[0]), mul(cw[1], cj[1])), mul(cw[2], cj[2]));
       v = sub(si == sj ? s_C[si][3 * a + b] : 0.0, d);
     }
-    o_f[idx] = v;
+    o_f[(size_t)(9 * si + a) * n + 9 * sj + b] = v;
   }
 }
 

@@ -177,8 +177,9 @@ def all_kernels():
     front-end's (K5-K8), then CLAHE (K9, both trackers with equalize), IMU
     preintegration (K10), the estimator's window linearization, block
     assembly, Schur solve and marginalization (K11-K14), then loop
-    closure's FAST (K15), BRIEF (K16), Hamming match and SimHash signature
-    (K17), PnP hypotheses (K18) and 4-DoF pose graph (K19), then the feature
+    closure's FAST (K15: the tiles' scores and keys, then the selection),
+    BRIEF (K16), Hamming match and SimHash signature (K17), PnP hypotheses
+    (K18) and 4-DoF pose graph (K19), then the feature
     selector's information and greedy log-det (K20) and the PnP Gauss-Newton
     refinement (K21)."""
     from .estimator import linearize
@@ -191,6 +192,6 @@ def all_kernels():
             lines.LINE_ANCHORS, lines.LINE_SELECT_GROW, line_match.LINE_VOTE, vp.VP_GRID,
             vp.VP_SCORE, image.CLAHE, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
-            marginalization.MARG_WINDOW, brief.FAST, brief.BRIEF, brief.HAMMING_MATCH,
-            brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4, selector.SELECTOR_INFO,
-            selector.SELECTOR_GREEDY, mvg.PNP_REFINE]
+            marginalization.MARG_WINDOW, brief.FAST_TILES, brief.FAST_SELECT, brief.BRIEF,
+            brief.HAMMING_MATCH, brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4,
+            selector.SELECTOR_INFO, selector.SELECTOR_GREEDY, mvg.PNP_REFINE]

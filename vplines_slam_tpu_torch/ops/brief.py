@@ -16,9 +16,13 @@ right shift ever sees a negative word.
 Three kernels, each a public function here that launches it on a CUDA
 tensor and runs its ``*_plain`` twin on a CPU tensor:
 
-- K15 (``csrc/fast.cu``): the FAST-9 score and the 7x7 max-NMS of
-  ``detect_fast``; the top-``max_corners`` stays a stable descending sort
-  (the order of ``lax.top_k``: the lower index first among equal scores);
+- K15 (``csrc/fast.cu``): the whole of ``detect_fast`` in two launches,
+  ``fast_tiles`` (the FAST-9 score, the 7x7 max-NMS and a 64-bit key for
+  each kept corner, a CTA a 32x32 tile, and a histogram of the keys) and
+  ``fast_select`` (one CTA: each of the top-``max_corners`` keys placed at
+  its bin's slots by its rank there, in the order of ``lax.top_k`` -- the
+  lower index first among equal scores -- and the zero-score fill, with no
+  sort); ``fast_score`` is ``fast_tiles`` alone;
 - K16 (``csrc/brief.cu``): the 256 bilinear pair tests of
   ``describe_brief``, each keypoint blurring (7 taps, sigma 2) only the
   patch they read, one launch for the two point sets of a keyframe
@@ -40,10 +44,15 @@ import torch.nn.functional as F
 from .. import kernels
 from .image import bilinear_sample, gaussian_blur, gaussian_kernel1d
 
-FAST = kernels.Kernel(
-    "vp_fast", "vplines_slam_tpu_torch/csrc/fast.cu", "vplines_slam_tpu/ops/brief.py:34",
-    [kernels.P, kernels.I, kernels.I, kernels.F, kernels.I, kernels.P, kernels.P],
+FAST_TILES = kernels.Kernel(
+    "vp_fast_tiles", "vplines_slam_tpu_torch/csrc/fast.cu", "vplines_slam_tpu/ops/brief.py:34",
+    [kernels.P, kernels.I, kernels.I, kernels.F, kernels.I, kernels.P, kernels.P, kernels.P],
 )
+FAST_SELECT = kernels.Kernel(
+    "vp_fast_select", "vplines_slam_tpu_torch/csrc/fast.cu", "vplines_slam_tpu/ops/brief.py:70",
+    [kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.P, kernels.P],
+)
+MAX_FAST_CORNERS = 4096  # fast_select's largest max_corners (csrc/fast.cu kMaxCorners)
 BRIEF = kernels.Kernel(
     "vp_brief_patch", "vplines_slam_tpu_torch/csrc/brief.cu", "vplines_slam_tpu/ops/brief.py:94",
     [kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
@@ -125,25 +134,65 @@ def _nms_plain(score, nms_radius):
     return torch.where(score >= mx, score, torch.zeros_like(score))
 
 
-def _fast_cuda(img, thresh, nms):
+_FAST_SCRATCH = {}
+FAST_STATE = 3 + 16384  # K15's state: count, bin range, histogram (csrc/fast.cu)
+
+
+def _fast_scratch(dev, n_px):
+    """The device and stream's scratch of K15: its state (the candidate
+    count, their bins' range and histogram; 0 between calls:
+    ``fast_select`` clears it) and one 64-bit key slot a pixel, so no image
+    can overflow it.  Made (one fill launch) the first time, or larger."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    s = _FAST_SCRATCH.get(key)
+    if s is None or s[1].numel() < n_px:
+        s = (torch.zeros(FAST_STATE, dtype=torch.int32, device=dev),
+             torch.empty(n_px, dtype=torch.int64, device=dev))
+        _FAST_SCRATCH[key] = s
+    return s
+
+
+def _fast_cuda(img, thresh, max_corners=None):
+    """K15 on a CUDA image: the score map (max_corners None, one launch), or
+    detect_fast's (xy, valid) in two launches.  Raises before any launch on
+    what the kernels do not take."""
     _f32_only("img", img)
     H, W = img.shape
+    n_px = H * W
     img = img.contiguous()
-    score = torch.empty_like(img)
-    out = torch.empty_like(img) if nms else score
-    FAST(kernels.check(img, "img", ndim=2), H, W, float(thresh), int(nms),
-         kernels.check(score, "score"), kernels.check(out, "out"))
-    return out
+    if max_corners is None:
+        score = torch.empty_like(img)
+        FAST_TILES(kernels.check(img, "img", ndim=2), H, W, float(thresh), 0,
+                   kernels.check(score, "score"), None, None)
+        return score
+    k = int(max_corners)
+    if not 1 <= k <= min(MAX_FAST_CORNERS, n_px) or n_px >= 2 ** 24:
+        raise ValueError(f"K15 takes 1 <= max_corners <= min({MAX_FAST_CORNERS}, H * W) and "
+                         f"H * W < 2**24, got max_corners {k} at {H}x{W}")
+    state, keys = _fast_scratch(img.device, n_px)
+    xy = torch.empty(k, 2, dtype=img.dtype, device=img.device)
+    valid = torch.empty(k, dtype=torch.bool, device=img.device)
+    FAST_TILES(kernels.check(img, "img", ndim=2), H, W, float(thresh), 1, None,
+               keys.data_ptr(), state.data_ptr())
+    try:
+        FAST_SELECT(keys.data_ptr(), state.data_ptr(), H, W, k, kernels.check(xy, "xy"),
+                    kernels.check(valid, "valid", torch.bool))
+    except RuntimeError:
+        state.zero_()  # the keys of this call must not reach the next one
+        raise
+    return xy, valid
 
 
 def fast_score(img, thresh=0.05):
-    """K15's score pass.  CPU tensor: ``fast_score_plain``."""
+    """K15's score mode (``fast_tiles`` alone).  CPU tensor:
+    ``fast_score_plain``."""
     if not img.is_cuda:
         return fast_score_plain(img, thresh)
-    return _fast_cuda(img, thresh, False)
+    return _fast_cuda(img, thresh)
 
 
 def _top_corners(score, max_corners, dtype):
+    """The plain top-k of a kept map: (xy [k, 2], valid [k])."""
     W = score.shape[1]
     # stable descending sort == lax.top_k's lower-index-first tie order
     top, idx = torch.sort(score.reshape(-1), descending=True, stable=True)
@@ -160,14 +209,14 @@ def detect_fast_plain(img, max_corners=500, thresh=0.05, nms_radius=3):
 
 def detect_fast(img, max_corners=500, thresh=0.05, nms_radius=3):
     """Top-``max_corners`` FAST corners after NMS.  Returns (xy [K, 2] in
-    img's dtype, valid [K]).  K15 runs the score and the NMS on a CUDA
-    tensor (its 7x7 window is built in), ``detect_fast_plain`` runs on a
-    CPU tensor."""
+    img's dtype, valid [K]).  CPU tensor: ``detect_fast_plain``.  CUDA
+    tensor: K15's two launches and nothing else (its 7x7 window is built
+    in)."""
     if not img.is_cuda:
         return detect_fast_plain(img, max_corners, thresh, nms_radius)
     if nms_radius != 3:
         raise ValueError("K15's NMS window is 7x7 (nms_radius=3)")
-    return _top_corners(_fast_cuda(img, thresh, True), max_corners, img.dtype)
+    return _fast_cuda(img, thresh, max_corners)
 
 
 # ---------------------------------------------------------------------------

@@ -855,3 +855,173 @@ def pnp_refine_cases(seed=0):
     out["shared X 11 x 128"] = case(11, 128, 10.0)
     out["per-problem X 4 x 100"] = case(4, 100, 10.0, shared=False)
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel check cases: FAST (K15) and the selector's information (K20)
+# ---------------------------------------------------------------------------
+
+
+def _dots(H, W, ys, xs, levels):
+    """A black [H, W] float32 image with single bright pixels at (ys, xs)."""
+    img = np.zeros((H, W), np.float32)
+    img[np.asarray(ys), np.asarray(xs)] = np.asarray(levels, np.float32)
+    return img
+
+
+def fast_cases(seed=0):
+    """Images of ``detect_fast`` (K15), by name, float32 [H, W] numpy.  A
+    lone bright pixel on black is a FAST corner whose score depends only on
+    its level (16 equal margins), so equal levels give equal scores:
+
+    - "ties over k": 768 dots 4 px apart (no dot in another's ring or 7x7
+      window) at four levels, so the 1st, 60th and 500th places fall inside
+      runs of equal scores;
+    - "fewer than k": 40 dots, so slots 40.. are the zero-score fill;
+    - "flat": a constant image, no corner: every slot is fill;
+    - "plateau": 2x2 bright blocks (four equal scores in one 7x7 window, all
+      kept) and 3x3 blocks (the centre's 16 margins beat the rest);
+    - "edge": dots on the first and last rows and columns outside the 16 px
+      border (16 and H - 17, 16 and W - 17) and just inside it (15, H - 16:
+      score 0);
+    - "33x40" (its scored pixels are one row of 8: three dots there, random
+      0/1 rows beyond their rings), "97x131" (a noisy texture): sizes no
+      multiple of K15's 32 px tile; "24x32": all border (no pixel scored);
+    - "two-level": a random 0/1 image, many equal scores;
+    - "frame 752x480": a noisy textured frame at the profile's size;
+    - "binary 752x480": a random 0/1 frame (~3,900 kept corners, as many as
+      a rendered keyframe's);
+    - "dots 752x480": 20,160 dots 4 px apart at four levels, more kept
+      corners than K15 stages in shared memory (16,384)."""
+    rng = np.random.default_rng(seed)
+    H, W = 128, 160
+    gy, gx = np.mgrid[16:H - 16:4, 16:W - 16:4]
+    levels = rng.choice(np.array([0.35, 0.55, 0.75, 0.95]), size=gy.size,
+                        p=[0.3, 0.3, 0.25, 0.15])
+    cases = {"ties over k": _dots(H, W, gy.ravel(), gx.ravel(), levels)}
+    pick = rng.choice(gy.size, 40, replace=False)
+    cases["fewer than k"] = _dots(H, W, gy.ravel()[pick], gx.ravel()[pick],
+                                  rng.uniform(0.2, 1.0, 40))
+    cases["flat"] = np.full((H, W), 0.5, np.float32)
+    plateau = np.zeros((H, W), np.float32)
+    for i, (y, x) in enumerate(((20, 20), (20, 60), (60, 100), (90, 30), (100, 130))):
+        s = 2 if i % 2 == 0 else 3
+        plateau[y:y + s, x:x + s] = 0.6
+    cases["plateau"] = plateau
+    ys = [16, 16, H - 17, H - 17, 16, H - 17, 70, 50, 15, H - 16, 60, 80]
+    xs = [16, W - 17, 16, W - 17, 80, 90, 16, W - 17, 40, 50, 15, W - 16]
+    cases["edge"] = _dots(H, W, ys, xs, np.linspace(0.4, 0.9, len(ys)))
+    noise = lambda h, w: np.clip(_textured(rng, h, w, n_blobs=max(4, h * w // 600))
+                                 + rng.uniform(-0.04, 0.04, (h, w)), 0, 1).astype(np.float32)
+    binary = lambda h, w: (rng.random((h, w)) < 0.5).astype(np.float32)
+    small = binary(33, 40)
+    small[13:20] = 0.0
+    small[16, [16, 20, 23]] = (0.5, 0.8, 0.8)
+    cases["33x40"] = small
+    cases["97x131"] = noise(97, 131)
+    cases["24x32"] = noise(24, 32)
+    cases["two-level"] = binary(96, 128)
+    cases["frame 752x480"] = noise(480, 752)
+    cases["binary 752x480"] = binary(480, 752)
+    gy, gx = np.mgrid[16:480 - 16:4, 16:752 - 16:4]
+    cases["dots 752x480"] = _dots(480, 752, gy.ravel(), gx.ravel(),
+                                  rng.choice(np.array([0.35, 0.55, 0.75, 0.95]), size=gy.size))
+    return cases
+
+
+def _quat_np(w):
+    """The unit quaternion [w, x, y, z] of the rotation vector w (numpy)."""
+    th = float(np.linalg.norm(w))
+    if th == 0.0:
+        return np.array([1.0, 0.0, 0.0, 0.0])
+    return np.concatenate([[np.cos(th / 2)], np.sin(th / 2) * np.asarray(w) / th])
+
+
+def selector_info_cases(seed=0):
+    """Inputs of the selector's information (K20's ``selector_info``,
+    ``feature_information``), by name: dict(rays [N, 3], depths [N],
+    track_valid [N] bool, ps [nh, 3], qs [nh, 4], q_ic [4], p_ic [3],
+    obs_frame), numpy f64.  A horizon of nh states ~0.1 m apart with small
+    rotations, a EuRoC-like extrinsic, candidates as a frame gives them (a
+    tenth far outside the field of view, a tenth within the 0.2 m depth
+    gate, a fifth with track_valid false):
+
+    - "N {1, 150} nh {2, 5, 8} obs {0, 1}", "N 1000 nh 5 obs 1": sizes (K20
+      takes nh <= 8; the one candidate of N 1 in view of every state);
+    - "seen by 1 / 2 states": identity extrinsic and rotations, states 0.5 m
+      apart along x: one landmark only state 1 sees, one states 1 and 2 see
+      (and one states 1-4);
+    - "track_valid false": every candidate's mask off;
+    - "behind, depth 0": landmarks behind every camera, and one at depth 0
+      (at the observing camera's centre: 0 / 0 in its visibility test);
+    - "visibility edges": identity extrinsic and rotations (every rotation
+      exact), the observing state at the origin and the others 0.25 m apart
+      along x, landmarks at z = 0.2 and at |x / z| = 0.75 exactly from the
+      observing state (both invisible there: the tests are strict) beside
+      ones just inside;
+    - "nearly parallel": landmarks 50 m to 100 km ahead over a 0.1 m
+      baseline, so sum C is near singular (only the 1e-9 I keeps it
+      invertible)."""
+    rng = np.random.default_rng(seed)
+    q_euroc = np.array([0.5, -0.5, 0.5, -0.5])
+    p_euroc = np.array([0.05, 0.02, 0.03])
+    ident = np.array([1.0, 0.0, 0.0, 0.0])
+
+    def horizon(nh):
+        ps = np.cumsum(rng.normal(0.0, 0.03, (nh, 3)) + [0.1, 0.0, 0.02], axis=0)
+        qs = np.stack([_quat_np(rng.normal(0.0, 0.05, 3)) for _ in range(nh)])
+        return ps, qs
+
+    def candidates(N):
+        if N == 1:  # one candidate, in view of every state at 4 m
+            return np.array([[0.1, -0.05, 1.0]]) / np.sqrt(1.0125), np.array([4.0]), [True]
+        xy = rng.uniform(-0.8, 0.8, (N, 2))
+        xy[: N // 10] = rng.uniform(2.0, 5.0, (N // 10, 2))
+        rays = np.concatenate([xy, np.ones((N, 1))], 1)
+        rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+        depths = rng.uniform(1.5, 8.0, N)
+        depths[N // 10: N // 5] = rng.uniform(0.05, 0.2, N // 10)
+        return rays, depths, rng.uniform(size=N) >= 0.2
+
+    def case(rays, depths, valid, ps, qs, q_ic=q_euroc, p_ic=p_euroc, obs=1):
+        return dict(rays=np.asarray(rays, np.float64), depths=np.asarray(depths, np.float64),
+                    track_valid=np.asarray(valid, bool), ps=np.asarray(ps, np.float64),
+                    qs=np.asarray(qs, np.float64), q_ic=np.asarray(q_ic, np.float64),
+                    p_ic=np.asarray(p_ic, np.float64), obs_frame=obs)
+
+    out = {}
+    for N in (1, 150):
+        for nh in (2, 5, 8):
+            for obs in (0, 1):
+                out[f"N {N} nh {nh} obs {obs}"] = case(*candidates(N), *horizon(nh), obs=obs)
+    out["N 1000 nh 5 obs 1"] = case(*candidates(1000), *horizon(5))
+    # states 0.5 m apart along x looking along z: the landmark at x = 0
+    # (from state 1: -0.5) only state 1 sees, at x = 0.5 states 1 and 2
+    ps_x = np.array([[0.5 * k, 0.0, 0.0] for k in range(5)])
+    qs_1 = np.tile(ident, (5, 1))
+    X1 = np.array([[-0.5, 0.1, 1.0], [0.0, -0.1, 1.0], [0.5, 0.0, 2.0]])
+    d1 = np.linalg.norm(X1, axis=1)
+    out["seen by 1 / 2 states"] = case(X1 / d1[:, None], d1, [True] * 3, ps_x, qs_1, ident,
+                                       np.zeros(3))
+    r, d, _ = candidates(150)
+    out["track_valid false"] = case(r, d, np.zeros(150, bool), *horizon(5))
+    ps5, qs5 = horizon(5)
+    back = np.concatenate([rng.uniform(-0.5, 0.5, (6, 2)), -np.ones((6, 1))], 1)
+    back /= np.linalg.norm(back, axis=1, keepdims=True)
+    out["behind, depth 0"] = case(np.concatenate([back, [[0.0, 0.0, 1.0], [0.6, 0.0, 0.8]]]),
+                                  np.concatenate([rng.uniform(1.0, 5.0, 6), [0.0, 0.0]]),
+                                  [True] * 8, ps5, qs5)
+    # exact edges: z = 0.2 (ray * 1.0 = the point), |x / z| = 0.75, |y / z| =
+    # 0.75, and points just inside them
+    edge = np.array([[0.1, 0.0, 0.2], [0.75, 0.0, 1.0], [-0.75, 0.25, 1.0], [0.0, 0.75, 1.0],
+                     [0.0, -1.5, 2.0], [0.1, 0.0, 0.20000000000000004],
+                     [0.7499999999999999, 0.0, 1.0], [0.0, -0.7499999, 1.0], [0.25, 0.5, 2.0]])
+    ps_e = np.array([[0.25 * (k - 1), 0.0, 0.0] for k in range(5)])
+    out["visibility edges"] = case(edge, np.ones(len(edge)), [True] * len(edge), ps_e,
+                                   np.tile(ident, (5, 1)), ident, np.zeros(3))
+    far = np.concatenate([rng.uniform(-0.05, 0.05, (5, 2)), np.ones((5, 1))], 1)
+    far /= np.linalg.norm(far, axis=1, keepdims=True)
+    ps_b = np.array([[0.025 * k, 0.0, 0.0] for k in range(5)])
+    out["nearly parallel"] = case(far, [50.0, 1e3, 1e4, 1e5, 3e3], [True] * 5, ps_b,
+                                  np.tile(ident, (5, 1)), ident, np.zeros(3))
+    return out
