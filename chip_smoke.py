@@ -39,13 +39,18 @@ Phases (any failure exits nonzero; there is no CPU path):
      ATE < 0.25 m;
   5. lines slice: the lines-on device loop (configs/euroc.yaml's estimator and
      line_frontend, equalize off): undistortion remap, line tracker (EDLine,
-     matching, VPs) and the line/VP factors, in the same room and landmarks
-     with the grid drawn as wide dark bands on a faint texture (in the
-     default texture no line stays tracked over line_min_obs = 5 keyframes),
-     from where the figure-8 runs sideways to the camera; truth-seeded
-     warm-up with both trackers, then 24 frames with every kernel's launch
-     count read around that run; asserts as phase 4, plus solved lines > 0.
-     Phase 3 checks the line kernels on these frames.  Every K2 track call
+     matching, VPs) and the line/VP factors, among the same landmarks with
+     the grid drawn as wide dark bands on a faint texture in a room of 3 m
+     radius (LINES_ROOM: the line front end keeps a track a few frames, so
+     a track reaches line_min_obs = 5 keyframes only where keyframes come
+     about every frame; in the 8 m room no track first seen after the
+     warm-up did), from t = 5 s of the figure-8; truth-seeded warm-up with
+     both trackers, then 24 frames with every kernel's launch count read
+     around that run; asserts as phase 4, plus solved lines > 0 at the end,
+     one of them first seen after the warm-up.
+     Phase 3 checks the line kernels on frames of the same textures in the
+     8 m room (LINE_WORLD) from t = 2.5 s, where the figure-8 moves
+     sideways to the camera.  Every K2 track call
      of phases 4-5 runs again on track_plain: ok agreement >= 0.99, max
      |pts1 diff| 1e-3 px in point mode and GAIN_BIAS_TRACK_TOL_PX (0.05 px)
      in gain/bias mode.  Phases 4-5 keep CLAHE
@@ -155,6 +160,22 @@ Phases (any failure exits nonzero; there is no CPU path):
   at one point the f64 twin on the f32 inputs 1e-6; two calls equal to the
   bit; one 6x6 solve_ex timed as its library call; every call of phase 7
   again afterwards, to the bit).
+  Phase 3 holds K4, the whole ransac_essential with the tracker's gate in
+  one launch (k4_check), on frame 0 -> 1 (32 x 150), on the cases of
+  utils/synthetic.ransac_cases at f32 and f64 (the initializer's 64 x 128
+  among them): one launch, two calls equal to the bit; in the call's own
+  dtype every count and flag exactly K4's rounded Sampson test of its own
+  E (sampson_rounded) and E, inl, n exactly the plain pick and choice on
+  its own hypotheses and refit; at f64 each determined hypothesis's E
+  (essential_determined) within 1e-9 of an f64 SVD of A and within the f64
+  plain path's own eps/gap error of it, every count and flag exactly
+  sampson_score_plain of its own E, the final outputs where winner and
+  refit are determined; the f32 call's fits (and its refit where the
+  winners' inliers agree) the f64 call's rounded to the bit; undetermined
+  winners counted; times it
+  beside torch.linalg.eigh on the [32, 9, 9] A^T A batch and counts host
+  syncs a call.  Every ransac_essential call of phases 4-6 and 8 runs
+  again through k4_check, each one launch and equal to the bit.
   Phase 3 holds K3 (detect: two launches, corner_cells and corner_topk)
   against its plain twin (the same valid positions, scores 1e-6) on frame 1
   with frame 0's tracks, on frame 0 and on the cases of
@@ -204,8 +225,11 @@ Phases (any failure exits nonzero; there is no CPU path):
   then the stable sort and the glue) to the bit on phase 3's frame and
   cases and every keyframe of phases 6-8, and its K20 selector_info (the
   previous design: 64 threads a candidate, one thread's adjugate) to the
-  bit on phase 3's candidates and cases and every call of phase 8; each is
-  timed on the same inputs.
+  bit on phase 3's candidates and cases and every call of phase 8, and its
+  whole ransac_essential (the previous design: the tracker's host gate, the
+  plain glue with batched eigh and svd around its vp_sampson_score) on
+  phase 3's calls and every call of phases 4-6 and 8 (the calls with the
+  same inliers counted); each is timed on the same inputs.
   --kernels-only stops after phase 3; --profile adds a torch.profiler run of
   4 extra frames of phases 4-6 (device busy share, launches per frame, top
   ops); --cold-witness runs phase 6 again with the plain twins of K9/K10,
@@ -247,7 +271,11 @@ N_STEADY = 44  # steady-state frames of the points slice driven through run()
 N_STEADY_LINES = 24  # steady-state frames of the lines slice
 N_SYNC = 4  # extra frames run afterwards with sync debugging on
 LINE_WORLD = dict(tex_gain=0.1, grid_band=0.2, grid_dark=0.0)  # BlobWorldRenderer settings
-LINE_T0 = 2.5  # s: the figure-8 moves sideways to the camera, so lines get parallax
+LINE_T0 = 2.5  # s: phase 3's line frames, where the figure-8 moves sideways to the camera
+# phase 5's room: 3 m to the wall, so keyframes come about every frame and
+# tracks that the line front end keeps for a few frames reach line_min_obs
+LINES_ROOM = dict(LINE_WORLD, wall_radius=3.0, grid_band=0.35)
+LINES_T0 = 5.0  # s: phase 5's start on the figure-8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FLOP_PER_S = 67e12  # H100 SXM: f32 outside the tensor cores, and f64 on them
 FRAME_HZ, IMU_HZ = 10, 200
@@ -387,8 +415,9 @@ def device_times(rec):
         label = r.pop("library_label")
         lib_s = ("" if lib is None else f", library call{f' ({label})' if label else ''} "
                  f"{r['library_ms']:.4f} ms/call (device {r['library_device_ms']:.4f} ms)")
+        b_ms = f"{r['bound_ms']:.5f}" if r["bound_ms"] >= 1e-4 else f"{r['bound_ms']:.2e}"
         log(f"  {name}: kernel {r['ms']:.4f} ms/call (device {dms}), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib_s}")
+            f"{r['plain_ms']:.4f} ms, bound {b_ms} ms ({r['bound_by']}){lib_s}")
         if len(r["device_split"]) > 1 or name in PREVIOUS_DEVICE_MS:
             log(f"    its kernels' device ms: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in r["device_split"].items())
@@ -422,7 +451,9 @@ class OtherTree:
     ``git archive``): its ``csrc/pyr_down.cu``, ``vp.cu``, ``klt.cu``,
     ``clahe.cu``, ``lines.cu``, ``line_match.cu``, ``corners.cu``,
     ``brief.cu``, ``pgo4.cu``, ``pnp.cu``, ``hamming.cu``, ``pnp_refine.cu``,
-    ``fast.cu`` and ``selector.cu``, each built into a library of its own
+    ``fast.cu``, ``selector.cu`` and ``ransac.cu`` (or the previous
+    design's ``sampson.cu``, K4's scoring alone, behind the plain glue and the
+    tracker's host gate), each built into a library of its own
     beside this tree's build (one nvcc a source, all started together),
     called with this tree's arguments, so that the two designs run on the
     same inputs in one process.  K1 comes as the previous design's one-level entry
@@ -447,9 +478,14 @@ class OtherTree:
         from vplines_slam_tpu_torch import kernels as kmod
 
         self.tree = Path(tree).resolve()
-        srcs = {n: self.tree / "vplines_slam_tpu_torch" / "csrc" / f"{n}.cu"
+        csrc = self.tree / "vplines_slam_tpu_torch" / "csrc"
+        # K4: this design's ransac.cu, or the previous design's scoring kernel
+        # (sampson.cu)
+        self.k4 = "ransac" if (csrc / "ransac.cu").exists() else "sampson"
+        srcs = {n: csrc / f"{n}.cu"
                 for n in ("pyr_down", "vp", "klt", "clahe", "lines", "line_match", "corners",
-                          "brief", "pgo4", "pnp", "hamming", "pnp_refine", "fast", "selector")}
+                          "brief", "pgo4", "pnp", "hamming", "pnp_refine", "fast", "selector",
+                          self.k4)}
         libs, procs = {}, {}
         kmod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n, src in srcs.items():
@@ -480,7 +516,7 @@ class OtherTree:
         self._refine = mvg.pnp_refine
         self._brief_pair, self._info = brief.describe_brief_pair, sel.feature_information
         log(f"the other tree's K1, vp_grid, vp_score, K2, K9, K6, K7, K3, K15, K16, K17's match, "
-            f"K18, K19, K20's selector_info and K21: {self.tree}")
+            f"K18, K19, K20's selector_info, K21 and K4 ({self.k4}.cu): {self.tree}")
 
     def _fn(self, lib, name, argtypes):
         import ctypes
@@ -817,6 +853,47 @@ class OtherTree:
 
         return self._swapped(pg.PGO4, "pgo4",
                              lambda: pg._pgo_normal_cuda(x, db, ypr_vio, cfg, True))
+
+    def _sampson_score(self, Es, x1, x2, mask, threshold):
+        """The previous design's K4 wrapper, ``sampson_score``: a CTA a hypothesis, the
+        mask converted and the inliers returned as bool by launches."""
+        import torch
+
+        from vplines_slam_tpu_torch import kernels as kmod
+
+        Hn, N = Es.shape[0], x1.shape[0]
+        Es, x1, x2 = Es.contiguous(), x1.contiguous(), x2.contiguous()
+        m8 = mask.to(torch.uint8).contiguous()
+        counts = torch.empty(Hn, dtype=torch.int32, device=Es.device)
+        inl = torch.empty(Hn, N, dtype=torch.uint8, device=Es.device)
+        P, I = kmod.P, kmod.I
+        self._call("sampson", "vp_sampson_score", [P, P, P, P, I, I, kmod.F, P, P],
+                   Es.data_ptr(), x1.data_ptr(), x2.data_ptr(), m8.data_ptr(), Hn, N,
+                   float(threshold) ** 2, counts.data_ptr(), inl.data_ptr())
+        return counts, inl.bool()
+
+    def ransac_essential(self, x1, x2, mask, draws, threshold, min_valid=0):
+        """The other tree's whole ransac_essential with the tracker's gate:
+        this design's one launch through the same C entry, or the previous
+        design's: the gate read on the host (the tracker's ``int(sum(ok))
+        >= 12``), then the plain glue (the stable argsort, the scatter,
+        batched eigh and svd, twice) around its scoring kernel, twice."""
+        import torch
+
+        from vplines_slam_tpu_torch.ops import mvg
+
+        if self.k4 == "ransac":
+            return self._swapped(mvg.RANSAC_ESSENTIAL, "ransac", lambda: mvg.ransac_essential(
+                x1, x2, mask, draws, threshold, min_valid))
+        if min_valid and int(torch.sum(mask)) < min_valid:
+            return (torch.zeros(3, 3, dtype=x1.dtype, device=x1.device), mask.clone(),
+                    torch.sum(mask.to(torch.int32), dtype=torch.int32))
+        saved = mvg.sampson_score_plain
+        mvg.sampson_score_plain = self._sampson_score
+        try:
+            return mvg.ransac_essential_plain(x1, x2, mask, draws, threshold)
+        finally:
+            mvg.sampson_score_plain = saved
 
     def pnp_hypotheses(self, X_w, x, mask, idx, threshold):
         """The other tree's K18: (Rs, ts, counts, inls), the same C entry."""
@@ -1381,6 +1458,73 @@ def detect_frames_check(rec, store, where):
 
 
 @contextlib.contextmanager
+def recording_ransac(store):
+    """Keep every ``mvg.ransac_essential`` call of the block (the tracker's,
+    gate included, and the initializer's) in store, as references to its
+    inputs and outputs with the K4 launches it made (no copy, no sync), for
+    ``ransac_frames_check``."""
+    from vplines_slam_tpu_torch.ops import mvg
+
+    fn = mvg.ransac_essential
+
+    def rec(x1, x2, mask, sample_idx, threshold=3.0 / 460.0, min_valid=0,
+            return_hypotheses=False):
+        n0 = mvg.RANSAC_ESSENTIAL.launches
+        out = fn(x1, x2, mask, sample_idx, threshold, min_valid, return_hypotheses)
+        store.append(((x1, x2, mask, sample_idx, threshold, min_valid), out,
+                      mvg.RANSAC_ESSENTIAL.launches - n0))
+        return out
+
+    mvg.ransac_essential = rec
+    try:
+        yield store
+    finally:
+        mvg.ransac_essential = fn
+
+
+def ransac_frames_check(rec, store, where):
+    """Every recorded ransac_essential call: one K4 launch and ``k4_check``
+    on its inputs (again to the bit and equal to the path's outputs, the
+    f64 checks); with --against the other tree's whole call on the same
+    inputs, the calls with the same inliers counted (that design fits at
+    f32).  Adds K4's device time per call over these calls to its record,
+    and the other tree's whole calls' beside it."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import mvg
+
+    if not store:
+        fail(f"{where}: no ransac_essential call recorded")
+    launches = all(n == 1 for _, _, n in store)
+    ok, err, counts, shapes = launches, 0.0, collections.Counter(), collections.Counter()
+    for a, out, _ in store:
+        ok_c, st, text = k4_check(f"  {where}'s call", *a, out=out)
+        if not ok_c:
+            log(text)
+        ok, err = ok and ok_c, max(err, st["e_ref"])
+        counts.update(k for k in ("gated", "final", "undetermined") if st[k])
+        shapes[f"{a[3].shape[0]} x {a[0].shape[0]}"] += 1
+    other = ""
+    if AGAINST is not None:
+        same = sum(bool(torch.equal(AGAINST.ransac_essential(*a)[1], out[1]))
+                   for a, out, _ in store)
+        other = f"; the other tree's whole call gives the same inliers on {same}"
+    log(f"K4 ransac_essential on {where}'s {len(store)} calls ({dict(shapes)}): one launch a "
+        f"call {launches}; k4_check on each {ok}, E max err {err:.2e} to the SVD reference; "
+        f"{counts['gated']} gated, final outputs compared on {counts['final']}, winners "
+        f"undetermined on {counts['undetermined']}{other}")
+    if not ok:
+        fail(f"K4 ransac_essential on {where}'s calls")
+    calls = [a for a, _, _ in store]
+    extra = rec["ransac_essential"].setdefault("extra_device_of", {})
+    extra[f"{where}'s {len(store)} calls, per call"] = (
+        lambda: [mvg.ransac_essential(*a) for a in calls], len(store), "ransac_kernel")
+    if AGAINST is not None:
+        extra[f"the other tree's whole calls on {where}'s (kernels and glue), per call"] = (
+            lambda: [AGAINST.ransac_essential(*a) for a in calls], len(store))
+
+
+@contextlib.contextmanager
 def recording_brief(store):
     """Keep every ``brief.describe_brief_pair`` call of the block (one a
     keyframe extraction) in store, as references to its inputs and outputs
@@ -1742,6 +1886,112 @@ def klt_fused_check(rec, name, img0, img1, pts0, valid, kcfg, cost):
     return k
 
 
+def count_syncs(fn, n=3):
+    """Host syncs per call of fn (``torch.cuda.set_sync_debug_mode("warn")``
+    over n calls after one more) and their call sites."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's own notice, "Synchronization debug mode is a prototype
+    # feature ...", is no sync)
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()
+             and not str(w.message).startswith("Synchronization debug mode")]
+    sites = collections.Counter(f"{Path(w.filename).parent.name}/{Path(w.filename).name}:"
+                                f"{w.lineno}" for w in syncs)
+    return len(syncs) / n, dict(sites)
+
+
+def phase3_k4(rec, S, xy0, pts1, ok1):
+    """K4, the whole ransac_essential in one launch, held by ``k4_check`` on
+    phase 3's frame 0 -> 1 (32 hypotheses over 150 tracks, the tracker's 1 px
+    gate and min_valid 12), on every case of utils/synthetic.ransac_cases at
+    f32 and at f64, and its initializer's shape (64 x 128, the cases'
+    "initializer 64 x 128", 3 px); two calls and more, each to the bit.
+    Timed with its plain path and, as its partial yardstick, torch.linalg.eigh
+    on the hypotheses' [32, 9, 9] A^T A batch (the eigensolve alone); host
+    syncs and (at the end) launches a call counted, with --against beside
+    the other tree's whole call, its gate included."""
+    import torch
+
+    from vplines_slam_tpu_torch.models import camera as cam_mod
+    from vplines_slam_tpu_torch.ops import mvg
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
+    cfg, dev = S["tcfg"], xy0.device
+    n0 = cam_mod.lift(S["cam"], xy0)[:, :2]
+    n1 = cam_mod.lift(S["cam"], pts1)[:, :2]
+    thr, draws = cfg.f_threshold / 460.0, S["ridx"][0]
+    ok, st, text = k4_check("K4 ransac_essential on phase 3's frame (32 x 150, min_valid 12)", n0,
+                            n1, ok1, draws, thr, 12)
+    log(text)
+    err, n_undet = st["e_ref"], int(st["undetermined"])
+    cases = syn.ransac_cases()
+    card = {}
+    for name, c in cases.items():
+        for dt in (torch.float32, torch.float64):
+            x1, x2 = (torch.as_tensor(c[k], dtype=dt, device=dev) for k in ("x1", "x2"))
+            m = torch.as_tensor(c["mask"], device=dev)
+            d = torch.as_tensor(c["idx"], device=dev)
+            card[name, dt] = (x1, x2, m, d, c["threshold"], c["min_valid"])
+            ok_c, st_c, text = k4_check(f"  ransac_cases '{name}' at {dt}", *card[name, dt])
+            log(text)
+            ok, err, n_undet = ok and ok_c, max(err, st_c["e_ref"]), n_undet + st_c["undetermined"]
+    log(f"  K4 on phase 3's calls: winners undetermined on {n_undet} of {1 + 2 * len(cases)}")
+    if not ok:
+        fail("K4 ransac_essential disagrees with its plain path")
+    ix1, ix2, im, idr, ithr, _ = card["initializer 64 x 128", torch.float32]
+    fn = lambda: mvg.ransac_essential(n0, n1, ok1, draws, thr, 12)
+    fn_init = lambda: mvg.ransac_essential(ix1, ix2, im, idr, ithr)
+    # the yardstick: the hypotheses' A^T A batches at f32, as the plain path forms them
+    ata = lambda x1, x2, m, d: (lambda A: A.transpose(-1, -2) @ A)(
+        syn.essential_rows(x1, x2, syn.essential_samples(m, d)[1]).float())
+    ata_frame, ata_init = ata(n0, n1, ok1, draws), ata(ix1, ix2, im, idr)
+    N, Ni = n0.shape[0], ix1.shape[0]
+    nbytes = lambda n, nh: 2 * n * 2 * 4 + n + nh * 8 * 8 + 9 * 4 + n + 4
+    record(rec, "ransac_essential", err, fn,
+           lambda: mvg.ransac_essential_plain(n0, n1, ok1, draws, thr, 12), "ransac_kernel",
+           nbytes(N, draws.shape[0]), ransac_ops(draws.shape[0], N, int(fn()[2])),
+           library_fn=lambda: torch.linalg.eigh(ata_frame),
+           library_label="the eigensolve alone: torch.linalg.eigh on the [32, 9, 9] A^T A batch")
+    r = rec["ransac_essential"]
+    r["init_ms"], r["init_plain_ms"] = time_ms(fn_init), time_ms(
+        lambda: mvg.ransac_essential_plain(ix1, ix2, im, idr, ithr))
+    r["init_bound_ms"] = bound(nbytes(Ni, idr.shape[0]),
+                               ransac_ops(idr.shape[0], Ni, int(fn_init()[2])))[0]
+    log(f"K4 bound: {r['bound_ms']:.2e} ms at 32 x 150, {r['init_bound_ms']:.2e} ms at 64 x "
+        f"128 ({r['bound_by']})")
+    r["init_library_ms"] = time_ms(lambda: torch.linalg.eigh(ata_init))
+    extra = r["extra_device_of"] = {
+        "the initializer's 64 x 128, per call": (fn_init, 1, "ransac_kernel"),
+        "eigh on the initializer's [64, 9, 9] batch": (lambda: torch.linalg.eigh(ata_init), 1)}
+    syncs = {"32 x 150 with the gate": count_syncs(fn), "64 x 128": count_syncs(fn_init)}
+    probes = [(fn, None), (fn_init, None)]
+    if AGAINST is not None:
+        o_fn = lambda: AGAINST.ransac_essential(n0, n1, ok1, draws, thr, 12)
+        o_init = lambda: AGAINST.ransac_essential(ix1, ix2, im, idr, ithr)
+        r["other_ms"], r["other_init_ms"] = time_ms(o_fn), time_ms(o_init)
+        extra["the other tree's whole call with the gate (kernels and glue), 32 x 150"] = (o_fn, 1)
+        extra["the other tree's whole call (kernels and glue), 64 x 128"] = (o_init, 1)
+        syncs["the other tree's 32 x 150 with the gate"] = count_syncs(o_fn)
+        syncs["the other tree's 64 x 128"] = count_syncs(o_init)
+        probes = [(fn, o_fn), (fn_init, o_init)]
+        log(f"K4 per call (CUDA events): 32 x 150 {r['ms']:.4f} ms, the other tree's "
+            f"{r['other_ms']:.4f} ms; 64 x 128 {r['init_ms']:.4f} ms, the other tree's "
+            f"{r['other_init_ms']:.4f} ms")
+    for label, (n_sync, sites) in syncs.items():
+        log(f"K4 host syncs a call, {label}: {n_sync:.1f} (call sites {sites})")
+    PROBES["ransac"], PROBES["ransac_init"] = probes
+
+
 def k6_frame_check(img, dcfg, label):
     """K6 on one frame against its twins on the card: line_anchors' fields
     within 1e-6, best positions agreeing on >= 0.99 of the twin's cells with
@@ -1837,8 +2087,7 @@ def phase_kernels(S, SL):
     import torch.nn.functional as F
 
     from vplines_slam_tpu_torch import kernels as kmod
-    from vplines_slam_tpu_torch.models import camera as cam_mod
-    from vplines_slam_tpu_torch.ops import corners, image, klt, line_match, lines, mvg, vp
+    from vplines_slam_tpu_torch.ops import corners, image, klt, line_match, lines, vp
 
     rec = {}
     img0, img1 = S["imgs"][0].contiguous(), S["imgs"][1].contiguous()
@@ -2041,28 +2290,7 @@ def phase_kernels(S, SL):
             f"tree's detect {rec['corner_cells']['other_ms']:.4f} ms")
     PROBES["detect"] = (detect_k, AGAINST and (lambda: AGAINST.detect(*det_args, **det_kw)))
 
-    # K4 Sampson scoring: 32 hypotheses over the 150 tracks of frame 0 -> 1
-    cam = S["cam"]
-    n0 = cam_mod.lift(cam, xy0)[:, :2].contiguous()
-    n1 = cam_mod.lift(cam, pts1)[:, :2].contiguous()
-    order = torch.argsort((~ok1).to(torch.int8), stable=True)
-    n_valid = torch.clamp(ok1.sum(), min=8)
-    idx = order[S["ridx"][0] % n_valid]
-    sm = torch.zeros(cfg.ransac_hyps, xy0.shape[0], dtype=torch.bool,
-                     device=img1.device).scatter(1, idx, True) & ok1
-    Es = mvg.eight_point_essential(n0, n1, sm).contiguous()
-    thr = cfg.f_threshold / 460.0
-    c_k, i_k = mvg.sampson_score(Es, n0, n1, ok1, thr)
-    c_p, i_p = mvg.sampson_score_plain(Es, n0, n1, ok1, thr)
-    dcount = int((c_k - c_p).abs().max())
-    log(f"K4 sampson_score: max per-hypothesis count diff = {dcount} (tol 1), "
-        f"inlier-flag agreement {float((i_k == i_p).float().mean()):.4f}")
-    if dcount > 1:
-        fail("K4 sampson_score disagrees with its plain version")
-    nh, nt = Es.shape[0], n0.shape[0]
-    record(rec, "sampson_score", dcount, lambda: mvg.sampson_score(Es, n0, n1, ok1, thr),
-           lambda: mvg.sampson_score_plain(Es, n0, n1, ok1, thr), "sampson_kernel",
-           4 * (9 * nh + 4 * nt) + nt + 4 * nh + nh * nt, 40 * nh * nt)
+    phase3_k4(rec, S, xy0, pts1, ok1)
 
     # ---- the line front-end's kernels, on the lines slice's undistorted frames
     lcfg, plan = SL["lcfg"], SL["plan"]
@@ -2859,13 +3087,13 @@ def selector_kernels():
 
 
 def loop_twin_check(where):
-    """No plain twin of K15-K21 ran."""
+    """No plain twin of K4 or K15-K21 ran."""
     from vplines_slam_tpu_torch.kernels import TWIN_CALLS
 
     calls = dict(TWIN_CALLS)
-    log(f"  calls of the plain twins of K15-K21: {calls}")
+    log(f"  calls of the plain twins of K4 and K15-K21: {calls}")
     if any(calls.values()):
-        fail(f"{where}: the card path called a plain twin of K15-K21: {calls}")
+        fail(f"{where}: the card path called a plain twin of K4 or K15-K21: {calls}")
 
 
 def euroc_pose_graph():
@@ -2997,6 +3225,167 @@ def pnp_determined(X_w, x, mask, idx):
     sign_ok = depths.sum(-1).abs() > 1e-4 * depths.abs().sum(-1)
     sv = torch.linalg.svdvals(P[:, :, :3])
     return full, full & (gap > 1e-10) & sign_ok & (sv[:, 2] > 1e-4 * sv[:, 0])
+
+
+def essential_svd_reference(x1, x2, sm):
+    """The E of each sample mask row of sm [n, N] from the f64 SVD of its A
+    (the last right singular vector: the null vector without A^T A's squared
+    condition, good to ~eps / sqrt(gap)), projected to sigma = (1, 1, 0) by
+    an SVD."""
+    import torch
+
+    from vplines_slam_tpu_torch.utils.synthetic import essential_rows
+
+    Vh = torch.linalg.svd(essential_rows(x1, x2, sm), full_matrices=True)[2]
+    U, _, Wt = torch.linalg.svd(Vh[:, -1].reshape(-1, 3, 3))
+    return (U * torch.tensor([1.0, 1.0, 0.0], dtype=U.dtype, device=U.device)) @ Wt
+
+
+def essential_err(E, ref):
+    """max |E - s ref| / max |ref| per matrix of [..., 3, 3], s = +-1 the
+    closer (E is defined up to sign)."""
+    import torch
+
+    E, ref = E.double(), ref.double()
+    s = torch.sign((E * ref).sum((-1, -2)))[..., None, None]
+    return (E - s * ref).abs().amax((-1, -2)) / ref.abs().amax((-1, -2))
+
+
+K4_E_TOL = 1e-9  # each determined E against the f64 SVD reference, of its largest entry
+
+
+def ransac_ops(n_hyp, N, n_inl, sweeps=6):
+    """Operations of one ransac_essential call: per hypothesis the
+    Householder QR of the 9x8 A^T (~810), Q e_9 (~290), the rows (9) and the
+    rank-2 projection (a 3x3 Jacobi, ~1,000); the refit's 45 sums over its
+    n_inl rows (3 each), its 10x10 Jacobi (sweeps x 45 rotations x ~160)
+    and projection; the Sampson test (34 a track) of every hypothesis and
+    of the refit."""
+    return (n_hyp * (810 + 290 + 9 + 1000) + 45 * 3 * n_inl + sweeps * 45 * 160 + 1000
+            + 34 * (n_hyp + 1) * N)
+
+
+def sampson_rounded(Es, x1, x2, mask, thr):
+    """K4's Sampson test of each E of Es [n, 3, 3] in the inputs' dtype, every
+    operation rounded on its own in the kernel's order (each torch operation
+    here is one rounding; no contraction into FMAs): (counts [n] int32, inl
+    [n, N] bool)."""
+    import torch
+
+    E = Es.reshape(-1, 9)[:, :, None]
+    u1, v1, u2, v2 = (c[None] for c in (x1[:, 0], x1[:, 1], x2[:, 0], x2[:, 1]))
+    row = lambda a, b, c, x, y: (E[:, a] * x + E[:, b] * y) + E[:, c]
+    e0, e1, e2 = row(0, 1, 2, u1, v1), row(3, 4, 5, u1, v1), row(6, 7, 8, u1, v1)
+    f0, f1 = row(0, 3, 6, u2, v2), row(1, 4, 7, u2, v2)
+    num = (u2 * e0 + v2 * e1) + e2
+    den = (((e0 * e0 + e1 * e1) + f0 * f0) + f1 * f1) + 1e-18
+    thr2 = torch.tensor(thr * thr, dtype=torch.float64, device=x1.device).to(x1.dtype)
+    inl = ((num * num) / den < thr2) & mask.bool()
+    return inl.sum(1, dtype=torch.int32), inl
+
+
+def k4_check(label, x1, x2, mask, draws, thr, min_valid=0, out=None):
+    """K4 on one ransac_essential call's inputs (x1, x2 on the card in the
+    main path's dtype): one launch, again equal to the bit (and to out, the
+    call's recorded outputs); under the gate inl = mask, n = n_valid, E = 0.
+    In the call's own dtype: every count and flag exactly K4's rounded
+    Sampson test (``sampson_rounded``) of its own E, and the final (E, inl,
+    n) exactly the plain pick, score and ``better`` choice applied to its own
+    hypotheses and refit.  The kernel at f64 on the inputs cast to f64
+    against the plain path at f64: each determined hypothesis's E
+    (``essential_determined``) within K4_E_TOL of the f64 SVD reference and
+    within the plain path's own error, 1e-9 + 10 eps / gap, of the plain
+    path's; every count and flag exactly ``sampson_score_plain`` of the
+    kernel's own E; where both winners and the refit are determined, the
+    final E within those bounds and the inliers and count exact.  The main
+    path's call fits as the f64 call does (its hypotheses' E, and its refit's
+    where the two winners' inliers agree, are the f64 call's rounded, to the
+    bit); its counts against the f32 plain path are printed.  Returns (ok,
+    stats, text)."""
+    import torch
+
+    from vplines_slam_tpu_torch.ops import mvg
+    from vplines_slam_tpu_torch.utils import synthetic as syn
+
+    eps = float(torch.finfo(torch.float64).eps)
+    n0 = mvg.RANSAC_ESSENTIAL.launches
+    k = mvg.ransac_essential(x1, x2, mask, draws, thr, min_valid, return_hypotheses=True)
+    one = mvg.RANSAC_ESSENTIAL.launches - n0 == 1
+    again = _bits_equal(mvg.ransac_essential(x1, x2, mask, draws, thr, min_valid, True), k)
+    same = out is None or _bits_equal(out, k[:3])
+    st = dict(gated=False, undetermined=False, final=False, e_ref=0.0, e_plain=0.0, ratio=0.0,
+              dcount=0, n_det=0)
+    text = f"{label}: one launch {one}, again equal to the bit {again}"
+    if out is not None:
+        text += f", equal to the path's outputs {same}"
+    if int(mask.sum()) < min_valid:
+        st["gated"] = True
+        gate = (torch.equal(k[1], mask.bool()) and int(k[2]) == int(mask.sum())
+                and not bool(k[0].any()))
+        return one and again and same and gate, st, text + f"; gated: inl = mask etc. {gate}"
+    # the call in its own dtype: flags, pick, refit score and choice
+    counts_r, inls_r = sampson_rounded(k[3], x1, x2, mask, thr)
+    own_flags = torch.equal(counts_r, k[4]) and torch.equal(inls_r, k[5])
+    b = int(torch.argmax(k[4]))
+    n_ref, inl_ref = sampson_rounded(k[6][None], x1, x2, mask, thr)
+    better = int(n_ref[0]) >= int(k[4][b])
+    pick = (k[6] if better else k[3][b], inl_ref[0] if better else k[5][b],
+            torch.maximum(n_ref[0], k[4][b]))
+    own_pick = _bits_equal(k[:3], pick)
+    f64 = torch.float64
+    x1d, x2d = x1.to(f64), x2.to(f64)
+    kd = k if x1.dtype == f64 else mvg.ransac_essential(x1d, x2d, mask, draws, thr, min_valid,
+                                                       True)
+    pd = mvg.ransac_essential_plain(x1d, x2d, mask, draws, thr, min_valid, True)
+    idx, sm = syn.essential_samples(mask, draws)
+    full, det = syn.essential_determined(x1, x2, mask, idx)
+    gap = syn.essential_fit_determined(x1, x2, sm)[1]
+    bound = 1e-9 + 10 * eps / gap.clamp(min=1e-300)
+    err_ref, err_plain = essential_err(kd[3], essential_svd_reference(x1, x2, sm)), essential_err(
+        kd[3], pd[3])
+    if bool(det.any()):
+        st.update(e_ref=float(err_ref[det].max()), e_plain=float(err_plain[det].max()),
+                  ratio=float((err_plain / bound)[det].max()), n_det=int(det.sum()))
+    hyp_ok = st["e_ref"] <= K4_E_TOL and st["ratio"] <= 1.0
+    cs, is_ = mvg.sampson_score_plain(kd[3], x1d, x2d, mask, thr)
+    flags = torch.equal(cs, kd[4]) and torch.equal(is_, kd[5])
+    bk, bp = int(torch.argmax(kd[4])), int(torch.argmax(pd[4]))
+    # the refit is the f64 call's where both calls refit the same inliers
+    same_refit = b == bk and torch.equal(k[5][b], kd[5][bk])
+    fits32 = _bits_equal((k[3],) + ((k[6],) if same_refit else ()),
+                         (kd[3].to(x1.dtype),) + ((kd[6].to(x1.dtype),) if same_refit else ()))
+    if x1.dtype != f64:
+        st["dcount"] = int((k[4] - mvg.ransac_essential_plain(x1, x2, mask, draws, thr,
+                                                              min_valid, True)[4]).abs().max())
+    final_ok = True
+    if bool(det[bk]) and bool(det[bp]):
+        inl_w = kd[5][bk][None]
+        refit_det, refit_gap = syn.essential_fit_determined(x1, x2, inl_w)
+        if bool(refit_det[0]):
+            st["final"] = True
+            tol = 1e-9 + 10 * eps / float(torch.minimum(refit_gap[0], gap[bk]))
+            e_svd = min(float(essential_err(kd[0], essential_svd_reference(x1, x2, inl_w))[0]),
+                        float(err_ref[bk]))
+            final_ok = (bk == bp and torch.equal(kd[1], pd[1]) and int(kd[2]) == int(pd[2])
+                        and float(essential_err(kd[0], pd[0])) <= tol and e_svd <= K4_E_TOL)
+    else:
+        st["undetermined"] = True
+    ok = (one and again and same and own_flags and own_pick and hyp_ok and flags and fits32
+          and final_ok)
+    text += (f"; {x1.dtype}: counts and flags = K4's rounded Sampson test of its own E "
+             f"{own_flags}, E/inl/n = the plain pick and choice on its own hypotheses and refit "
+             f"{own_pick} (better {better}); f64: {st['n_det']} of {draws.shape[0]} hypotheses "
+             f"determined ({int(full.sum())} full-rank), E max err {st['e_ref']:.2e} to the SVD "
+             f"reference (tol {K4_E_TOL}), {st['e_plain']:.2e} to the plain path "
+             f"({st['ratio']:.2f} of its eps/gap bound); counts and flags = the plain scoring of "
+             f"its E {flags}; winner {bk} (plain {bp}"
+             + (", undetermined" if st["undetermined"] else "") + "), final "
+             + (f"equal {final_ok}" if st["final"] else "not compared")
+             + f"; main path's fits = the f64 call's rounded {fits32} (refit "
+             + ("included" if same_refit else "left out: the winners' inliers differ")
+             + f"), counts against the {x1.dtype} plain path max |diff| {st['dcount']}; "
+             f"n {int(k[2])}")
+    return ok, st, text
 
 
 def pnp_normal_matrices(X_w, x, sm):
@@ -4415,6 +4804,7 @@ def _lines(S, plain, imu_twin, klt_twin):
     torch.cuda.synchronize()
     log(f"lines warm-up: {nf - 1} frames in {time.perf_counter() - t0:.2f} s, "
         f"{int((data.pt_id >= 0).sum())} point tracks, {int((data.ln_id >= 0).sum())} line tracks")
+    warm_next = int(ln.next_id)  # line ids from here on are first seen after the warm-up
 
     loop = make_device_loop(S["cam"], tcfg, cfg, S["params"], line_cfg=lcfg, map_xy=S["map_xy"])
     carry = loop.init_carry(fe, state, data, ln)
@@ -4456,6 +4846,10 @@ def _lines(S, plain, imu_twin, klt_twin):
     data = carry[3]
     solved = int(data.ln_solved.sum())
     vp_live = int((data.ln_vp_mask & (data.ln_solved & (data.ln_id >= 0))[:, None]).sum())
+    # the tracks first seen after the warm-up: with line_min_obs observations, and solved
+    fresh = data.ln_id >= warm_next
+    fresh_obs = int((fresh & (data.ln_mask.sum(1) >= cfg.line_min_obs)).sum())
+    fresh_solved = int((fresh & data.ln_solved).sum())
 
     p, q, v, is_kf, failure, cost = (o.cpu() for o in outs)
     per = SPANS.per_frame_ms()
@@ -4472,7 +4866,8 @@ def _lines(S, plain, imu_twin, klt_twin):
     log(f"  keyframes {int(is_kf.sum())}/{n}, failures {int(failure.sum())}, "
         f"ba_cost median {float(cost.median()):.4f}; at the end: {solved} solved lines, "
         f"{int((data.ln_id >= 0).sum())} line tracks, {vp_live} VP-valid observations of "
-        f"solved lines")
+        f"solved lines; of the tracks first seen after the warm-up, {fresh_obs} with "
+        f"line_min_obs = {cfg.line_min_obs} observations and {fresh_solved} solved")
 
     e0, e1 = s1, s1 + N_SYNC
     extra = (S["imgs"][e0:e1], tuple(b[e0 - 1: e1 - 1] for b in S["batches"]), dts(N_SYNC),
@@ -4504,9 +4899,12 @@ def _lines(S, plain, imu_twin, klt_twin):
         fail(f"lines ATE {ate:.4f} m >= 0.25 m")
     if solved == 0:
         fail("no line was solved in the lines run")
+    if fresh_solved == 0:
+        fail("no line track first seen after the warm-up is solved at the end of the lines run")
     return launches, dict(ms_frame=ms_frame, fe_ms=float(np.median(fe_ms[st])),
                           ln_ms=float(np.median(ln_ms[st])), be_ms=float(np.median(be_ms[st])),
-                          ate=ate, syncs=len(syncs) / N_SYNC, solved=solved, vp_live=vp_live), (
+                          ate=ate, syncs=len(syncs) / N_SYNC, solved=solved, vp_live=vp_live,
+                          fresh_solved=fresh_solved), (
         lambda: loop.run(carry, *extra), N_SYNC, np.median(fe_ms[st] + ln_ms[st] + be_ms[st]))
 
 
@@ -5162,10 +5560,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     S = stage(dev, nf - 1 + N_STEADY + N_SYNC)
     SL = stage(dev, nf - 1 + N_STEADY_LINES + N_SYNC, world=LINE_WORLD, t0=LINE_T0)
+    S5 = stage(dev, nf - 1 + N_STEADY_LINES + N_SYNC, world=LINES_ROOM, t0=LINES_T0)
     n_cold = N_INIT_MAX + N_TRACK + 1 + N_SYNC * (2 if args.profile else 1)
     C = None if args.kernels_only else stage_cold(dev, n_cold, world=LINE_WORLD)
     torch.cuda.synchronize()
-    log(f"staged {S['imgs'].shape[0]} + {SL['imgs'].shape[0]} + "
+    log(f"staged {S['imgs'].shape[0]} + {SL['imgs'].shape[0]} + {S5['imgs'].shape[0]} + "
         f"{0 if C is None else C['imgs'].shape[0]} frames {W}x{H} + IMU in "
         f"{time.perf_counter() - t0:.2f} s")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 3: kernels against their plain twins")
@@ -5187,16 +5586,17 @@ def main(argv=None):
         return
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: points slice")
     with (recording_klt([]) as klt4, recording_pyramids([]) as pyr4,
-          recording_detect([]) as det4):
+          recording_detect([]) as det4, recording_ransac([]) as ra4):
         launches4, sl, prof_points = phase_slice(S)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: lines slice")
     with (recording_vp([]) as vp5, recording_klt([]) as klt5, recording_pyramids([]) as pyr5,
-          recording_lines({"detect": [], "vote": []}) as ln5, recording_detect([]) as det5):
-        launches5, ll, prof_lines = phase_lines(SL)
+          recording_lines({"detect": [], "vote": []}) as ln5, recording_detect([]) as det5,
+          recording_ransac([]) as ra5):
+        launches5, ll, prof_lines = phase_lines(S5)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: cold start")
     with (recording_vp([]) as vp6, recording_clahe([]) as cl6, recording_pyramids([]) as pyr6,
           recording_lines({"detect": [], "vote": []}) as ln6, recording_detect([]) as det6,
-          recording_brief([]) as br6, recording_fast([]) as fa6):
+          recording_brief([]) as br6, recording_fast([]) as fa6, recording_ransac([]) as ra6):
         launches, cs = phase_cold_start(C, profile=args.profile)
     for where, counted, pyrs in (("phase 4", launches4, pyr4), ("phase 5", launches5, pyr5),
                                  ("phase 6", launches, pyr6)):
@@ -5213,7 +5613,9 @@ def main(argv=None):
         detect_frames_check(rec, store, where)
     brief_frames_check(rec, br6, "phase 6")
     fast_frames_check(rec, fa6, "phase 6")
-    del det4, det5, det6, br6, fa6
+    for where, store in (("phase 4", ra4), ("phase 5", ra5), ("phase 6", ra6)):
+        ransac_frames_check(rec, store, where)
+    del det4, det5, det6, br6, fa6, ra4, ra5, ra6
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: the loop-closure circuit")
     with (recording_brief([]) as br7, recording_fast([]) as fa7,
           recording_loop({"pgo": [], "pnp": [], "match": [], "refine": []}) as lp7):
@@ -5229,23 +5631,24 @@ def main(argv=None):
     sel_cfg = load_profile(str(ROOT / "configs" / "euroc.yaml"), dtype=torch.float32,
                            device=dev).selector
     with (recording_detect([]) as det8, recording_brief([]) as br8, recording_fast([]) as fa8,
-          recording_info([]) as in8):
+          recording_info([]) as in8, recording_ransac([]) as ra8):
         launches8, s8 = phase_cold_start(C, selector=sel_cfg)
     detect_frames_check(rec, det8, "phase 8")
     brief_frames_check(rec, br8, "phase 8")
     fast_frames_check(rec, fa8, "phase 8")
     selector_info_frames_check(rec, in8, "phase 8")
-    del det8, br8, fa8, in8
+    ransac_frames_check(rec, ra8, "phase 8")
+    del det8, br8, fa8, in8, ra8
     sel_launches = {k.name: launches8[k.name] for k in selector_kernels()}
     if args.cold_witness:
         log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 witness runs")
         phase_cold_witness(C)
     if args.estimator_witness:
-        phase_estimator_witness(S, SL, C, sl, ll, cs, t_start)
+        phase_estimator_witness(S, S5, C, sl, ll, cs, t_start)
     if args.imu_witness:
-        phase_imu_witness(S, SL, sl, ll, t_start)
+        phase_imu_witness(S, S5, sl, ll, t_start)
     if args.klt_witness:
-        phase_klt_witness(S, SL, sl, ll, t_start)
+        phase_klt_witness(S, S5, sl, ll, t_start)
     # profiler sessions last: they slow every later launch of the process
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel device times (torch.profiler)")
     device_times(rec)
@@ -5267,15 +5670,19 @@ def main(argv=None):
 
         count_launches(selector_other, 3, "the other tree's selector_info in the same selector "
                                           "call")
-    for key, label in (("detect", "one detect call (phase 3's frame 1 with its tracks)"),
-                       ("extract", "one extract_keyframe_features call (phase 3's frame 0, "
-                                   "500 corners, 64 window points)")):
+    for key, label, other_label in (
+            ("detect", "one detect call (phase 3's frame 1 with its tracks)",
+             "detect, the same call"),
+            ("extract", "one extract_keyframe_features call (phase 3's frame 0, 500 corners, "
+                        "64 window points)", "K15 and K16 in the same extraction"),
+            ("ransac", "one ransac_essential call with the tracker's gate (phase 3's frame, "
+                       "32 x 150)", "whole ransac_essential with the gate, the same call"),
+            ("ransac_init", "one ransac_essential call at the initializer's 64 x 128",
+             "whole ransac_essential, the same call")):
         this, other = PROBES[key]
         count_launches(this, 3, label, table=args.profile)
         if other is not None:
-            count_launches(other, 3, "the other tree's " + (
-                "detect, the same call" if key == "detect" else
-                "K15 and K16 in the same extraction"))
+            count_launches(other, 3, "the other tree's " + other_label)
     if args.profile:
         log(f"[{time.perf_counter() - t_start:.0f} s] profile of the points slice:")
         phase_profile(*prof_points)
@@ -5306,14 +5713,17 @@ def main(argv=None):
             device_split=r["device_split"],
             **{k: r[k] for k in ("solve_ms", "solve_device_ms", "solve_bound_ms", "bound_45_ms",
                                  "bound_1024_ms", "extra_device_ms", "other_ms",
-                                 "whole_bound_ms", "bound_1000_ms") if k in r}))
+                                 "whole_bound_ms", "bound_1000_ms", "init_ms", "init_plain_ms",
+                                 "init_bound_ms", "init_library_ms", "other_init_ms")
+               if k in r}))
     log(f"summary (points): {sl['ms_frame']:.2f} ms/frame, front end {sl['fe_ms']:.2f} ms, "
         f"track_step {sl['be_ms']:.2f} ms, {sl['syncs']:.1f} host syncs/frame, "
         f"ATE {sl['ate']:.4f} m")
     log(f"summary (lines): {ll['ms_frame']:.2f} ms/frame, point front end {ll['fe_ms']:.2f} ms, "
         f"remap + line tracker {ll['ln_ms']:.2f} ms, track_step {ll['be_ms']:.2f} ms, "
         f"{ll['syncs']:.1f} host syncs/frame, ATE {ll['ate']:.4f} m, {ll['solved']} solved "
-        f"lines, {ll['vp_live']} VP-valid observations")
+        f"lines ({ll['fresh_solved']} first seen after the warm-up), {ll['vp_live']} VP-valid "
+        f"observations")
     sp = cs["split"]
     log(f"summary (cold start): initialized at frame {cs['init_frame']} in "
         f"{cs['init_s']:.2f} s, {cs['ms_frame']:.2f} ms/frame over {cs['n_tracked']} tracked "

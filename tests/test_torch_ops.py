@@ -282,7 +282,7 @@ def test_sampson_and_eight_point_match_jax():
                                                jnp.asarray(sm)))
     tE = tmvg.eight_point_essential(T(x1), T(x2), T(sm)).numpy()
     close(jE, np.sign(np.sum(jE * tE)) * tE, atol=1e-10)
-    counts, inl = tmvg.sampson_score(T(np.stack([jE, -jE])), T(x1), T(x2), T(mask), 1e-3)
+    counts, inl = tmvg.sampson_score_plain(T(np.stack([jE, -jE])), T(x1), T(x2), T(mask), 1e-3)
     h1 = np.concatenate([x1, np.ones((len(x1), 1))], 1)
     h2 = np.concatenate([x2, np.ones((len(x2), 1))], 1)
     Ex1, Etx2 = h1 @ jE.T, h2 @ jE

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 // Launch through a macro, so that the estimator kernels' sources read the
 // same under nvcc and under a host C++ compiler with a serial stand-in (their
@@ -79,38 +80,127 @@
 
 namespace vp {
 
-__device__ __forceinline__ float warp_sum(float v) {
+// ---------------------------------------------------------------------------
+// A parallel-ordered Jacobi eigensolve of a symmetric kN x kN matrix (kN even,
+// <= 32) in one warp's registers (K4's refit, K18's hypotheses): lane r holds
+// row r of A (a) and of the eigenvectors V (v); lanes past kN repeat row
+// kN - 1 and their results are not read.  A matrix of odd size is padded with
+// a zero row and column, which no rotation touches.
+// ---------------------------------------------------------------------------
+
+constexpr int kJacobiMaxSweeps = 30;
+
+// the partner of index i in step s of the round-robin (circle method): index
+// kN - 1 stays, the others pair as (s + k, s - k) mod kN - 1
+template <int kN>
+__host__ __device__ constexpr int jacobi_partner(int s, int i) {
+  return i == kN - 1 ? s : (i == s ? kN - 1 : (2 * s - i + 2 * (kN - 1)) % (kN - 1));
+}
+
+// a[i] for an index i that differs between lanes: a chain of selects, so that
+// a stays in registers
+template <int n>
+__device__ __forceinline__ double pick(const double (&a)[n], int i) {
+  double v = a[0];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int c = 1; c < n; ++c) v = i == c ? a[c] : v;
   return v;
 }
 
-// Sum K values over the whole block (blockDim.x a multiple of 32, <= 1024).
-// scratch holds K*32 floats.  Every thread gets the totals; the summation
-// order is fixed, so the result is deterministic run to run.
-template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float* scratch) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+__device__ __forceinline__ double warp_sum64(double v) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) scratch[k * 32 + wid] = v[k];
+  for (int o = 16; o > 0; o >>= 1) v += VP_SHFL_XOR(v, o);
+  return v;
+}
+
+// one step of the parallel-ordered Jacobi: the kN / 2 rotations of round s.
+template <int kN, int s>
+__device__ __forceinline__ void jacobi_step(double (&a)[kN], double (&v)[kN], int r) {
+  const int pr = jacobi_partner<kN>(s, r);
+  const double d = pick(a, r), apq = pick(a, pr);
+  const double d_pr = VP_SHFL_IDX(d, pr);
+  const bool lo = r < pr;
+  // the pair's smaller lane forms the rotation zeroing A[p][q] (p < q):
+  // with h = |(aqq - app, 2 apq)|, cos 2phi = |aqq - app| / h,
+  // c = sqrt((1 + cos 2phi) / 2), s = sin 2phi / (2 c), |phi| <= pi / 4
+  double c = 1.0, sn = 0.0;
+  if (apq != 0.0) {
+    const double app = lo ? d : d_pr, aqq = lo ? d_pr : d;
+    const double dd = aqq - app, e = 2.0 * apq;
+    const double rh = rsqrt(dd * dd + e * e);
+    const double w = 0.5 + 0.5 * (fabs(dd) * rh);
+    const double ic = rsqrt(w);
+    c = w * ic;
+    sn = (dd >= 0.0 ? 0.5 : -0.5) * (e * rh) * ic;
   }
-  __syncthreads();
-  if (wid == 0) {
+  // columns: A <- A J, V <- V J, every pair in registers, each pair's
+  // rotation from its smaller lane
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float x = lane < nwarps ? scratch[k * 32 + lane] : 0.f;
-      x = warp_sum(x);
-      if (lane == 0) scratch[k * 32] = x;
+  for (int p = 0; p < kN; ++p) {
+    const int q = jacobi_partner<kN>(s, p);
+    if (p < q) {
+      const double cp = VP_SHFL_IDX(c, p), sp = VP_SHFL_IDX(sn, p);
+      const double ap = a[p], aq = a[q], vp = v[p], vq = v[q];
+      a[p] = cp * ap - sp * aq;
+      a[q] = sp * ap + cp * aq;
+      v[p] = cp * vp - sp * vq;
+      v[q] = sp * vp + cp * vq;
     }
   }
-  __syncthreads();
+  // rows: A <- J^T A, the partner's row by shuffles
+  const int p_of_r = lo ? r : pr;
+  const double cr = VP_SHFL_IDX(c, p_of_r), sr = VP_SHFL_IDX(sn, p_of_r);
+  const double ss = lo ? -sr : sr;
 #pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = scratch[k * 32];
-  __syncthreads();
+  for (int k = 0; k < kN; ++k) {
+    const double b = VP_SHFL_IDX(a[k], pr);
+    a[k] = ss * b + cr * a[k];
+  }
+}
+
+template <int kN, int s>
+__device__ __forceinline__ void jacobi_steps(double (&a)[kN], double (&v)[kN], int r) {
+  jacobi_step<kN, s>(a, v, r);
+  if constexpr (s + 1 < kN - 1) jacobi_steps<kN, s + 1>(a, v, r);
+}
+
+// sweeps until the off-diagonal mass is 1e-32 of the diagonal's or, below
+// 1e-20 of it, a sweep no longer halves it (the rounding floor); the whole
+// warp calls it with r = min(lane, kN - 1)
+template <int kN>
+__device__ __forceinline__ void jacobi_eig(double (&a)[kN], double (&v)[kN], int r, int lane) {
+  const bool row_lane = lane < kN;
+  double prev = INFINITY;
+  for (int sweep = 0; sweep < kJacobiMaxSweeps; ++sweep) {
+    double off = 0.0;
+#pragma unroll
+    for (int c = 0; c < kN; ++c) off += c == r ? 0.0 : a[c] * a[c];
+    const double dr = pick(a, r);
+    off = warp_sum64(row_lane ? off : 0.0);
+    const double diag = warp_sum64(row_lane ? dr * dr : 0.0);
+    if (off <= 1e-32 * diag || off == 0.0 || (off <= 1e-20 * diag && off >= 0.5 * prev)) break;
+    prev = off;
+    jacobi_steps<kN, 0>(a, v, r);
+  }
+}
+
+// the index of the smallest eigenvalue among the first n_live (the lowest
+// index on a tie), in every lane
+template <int kN>
+__device__ __forceinline__ int jacobi_min_index(const double (&a)[kN], int r, int lane,
+                                                int n_live) {
+  double best = lane < n_live ? pick(a, r) : INFINITY;
+  int kmin = r;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const double ob = VP_SHFL_XOR(best, o);
+    const int ok = VP_SHFL_XOR(kmin, o);
+    if (ob < best || (ob == best && ok < kmin)) {
+      best = ob;
+      kmin = ok;
+    }
+  }
+  return kmin;
 }
 
 // Order-preserving map float -> int so atomicMax on ints is a float max.

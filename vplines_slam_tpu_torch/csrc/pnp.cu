@@ -17,8 +17,9 @@
 //   point not at all.  Lane r < 12 holds row r of A^T A (built from the
 //   sample's rows r0 = [X 1 0 -uX -u], r1 = [0 X 1 -vX -v] only) and row r of
 //   the eigenvectors V, in registers.  The eigensolve is a parallel-ordered
-//   Jacobi: round-robin pairing (the circle method: 12 indices, 11 steps a
-//   sweep, every pair once), six disjoint rotations a step -- the pair's
+//   Jacobi (vp::jacobi_eig in common.cuh, shared with K4's refit):
+//   round-robin pairing (the circle method: 12 indices, 11 steps a sweep,
+//   every pair once), six disjoint rotations a step -- the pair's
 //   smaller lane forms (c, s) from two rsqrt (no division, no sqrt), the
 //   columns rotate in every lane's registers, the rows by one shuffle of
 //   the partner lane's row -- until the off-diagonal mass is 1e-32 of the
@@ -43,84 +44,9 @@ namespace {
 
 constexpr int kWarps = 2;  // hypotheses a CTA
 constexpr int kN = 12;     // unknowns of the DLT
-constexpr int kMaxSweeps = 30;
 constexpr int kPolarSteps = 16;
 
 __device__ __forceinline__ double sgn(double v) { return (v > 0.0) - (v < 0.0); }
-
-// the partner of index i in step s of the round-robin (circle method): index
-// 11 stays, the others pair as (s + k, s - k) mod 11
-__host__ __device__ constexpr int partner(int s, int i) {
-  return i == kN - 1 ? s : (i == s ? kN - 1 : (2 * s - i + 2 * (kN - 1)) % (kN - 1));
-}
-
-// a[i] for an index i that differs between lanes: a chain of selects, so that
-// a stays in registers
-template <int n>
-__device__ __forceinline__ double pick(const double (&a)[n], int i) {
-  double v = a[0];
-#pragma unroll
-  for (int c = 1; c < n; ++c) v = i == c ? a[c] : v;
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum64(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += VP_SHFL_XOR(v, o);
-  return v;
-}
-
-// one step of the parallel-ordered Jacobi: the six rotations of round s.
-// Lane r holds row r of A (a) and of V (v).
-template <int s>
-__device__ __forceinline__ void jacobi_step(double (&a)[kN], double (&v)[kN], int r) {
-  const int pr = partner(s, r);
-  const double d = pick(a, r), apq = pick(a, pr);
-  const double d_pr = VP_SHFL_IDX(d, pr);
-  const bool lo = r < pr;
-  // the pair's smaller lane forms the rotation zeroing A[p][q] (p < q):
-  // with h = |(aqq - app, 2 apq)|, cos 2phi = |aqq - app| / h,
-  // c = sqrt((1 + cos 2phi) / 2), s = sin 2phi / (2 c), |phi| <= pi / 4
-  double c = 1.0, sn = 0.0;
-  if (apq != 0.0) {
-    const double app = lo ? d : d_pr, aqq = lo ? d_pr : d;
-    const double dd = aqq - app, e = 2.0 * apq;
-    const double rh = rsqrt(dd * dd + e * e);
-    const double w = 0.5 + 0.5 * (fabs(dd) * rh);
-    const double ic = rsqrt(w);
-    c = w * ic;
-    sn = (dd >= 0.0 ? 0.5 : -0.5) * (e * rh) * ic;
-  }
-  // columns: A <- A J, V <- V J, every pair in registers, each pair's
-  // rotation from its smaller lane
-#pragma unroll
-  for (int p = 0; p < kN; ++p) {
-    const int q = partner(s, p);
-    if (p < q) {
-      const double cp = VP_SHFL_IDX(c, p), sp = VP_SHFL_IDX(sn, p);
-      const double ap = a[p], aq = a[q], vp = v[p], vq = v[q];
-      a[p] = cp * ap - sp * aq;
-      a[q] = sp * ap + cp * aq;
-      v[p] = cp * vp - sp * vq;
-      v[q] = sp * vp + cp * vq;
-    }
-  }
-  // rows: A <- J^T A, the partner's row by shuffles
-  const int p_of_r = lo ? r : pr;
-  const double cr = VP_SHFL_IDX(c, p_of_r), sr = VP_SHFL_IDX(sn, p_of_r);
-  const double ss = lo ? -sr : sr;
-#pragma unroll
-  for (int k = 0; k < kN; ++k) {
-    const double b = VP_SHFL_IDX(a[k], pr);
-    a[k] = ss * b + cr * a[k];
-  }
-}
-
-template <int s>
-__device__ __forceinline__ void jacobi_steps(double (&a)[kN], double (&v)[kN], int r) {
-  jacobi_step<s>(a, v, r);
-  if constexpr (s + 1 < kN - 1) jacobi_steps<s + 1>(a, v, r);
-}
 
 // 3x3 cofactor matrix of X (row-major): X^-T = cof / det
 __device__ __forceinline__ void cofactor3(const double (&X)[9], double (&C)[9]) {
@@ -177,44 +103,21 @@ pnp_kernel(const T* __restrict__ X, const T* __restrict__ x,
                            -u * xh[0], -u * xh[1], -u * xh[2], -u * xh[3]};
     const double r1[kN] = {0.0, 0.0, 0.0, 0.0, xh[0], xh[1], xh[2], xh[3],
                            -w * xh[0], -w * xh[1], -w * xh[2], -w * xh[3]};
-    const double c0 = pick(r0, r), c1 = pick(r1, r);
+    const double c0 = vp::pick(r0, r), c1 = vp::pick(r1, r);
 #pragma unroll
     for (int c = 0; c < kN; ++c) a[c] += c0 * r0[c] + c1 * r1[c];
   }
   // the eigensolve
-  const bool row_lane = lane < kN;
-  double prev = INFINITY;
-  for (int sweep = 0; sweep < kMaxSweeps; ++sweep) {
-    double off = 0.0;
-#pragma unroll
-    for (int c = 0; c < kN; ++c) off += c == r ? 0.0 : a[c] * a[c];
-    const double dr = pick(a, r);
-    off = warp_sum64(row_lane ? off : 0.0);
-    const double diag = warp_sum64(row_lane ? dr * dr : 0.0);
-    // converged, or near the rounding floor where a sweep no longer halves it
-    if (off <= 1e-32 * diag || off == 0.0 || (off <= 1e-20 * diag && off >= 0.5 * prev)) break;
-    prev = off;
-    jacobi_steps<0>(a, v, r);
-  }
+  vp::jacobi_eig<kN>(a, v, r, lane);
   // the smallest eigenvalue's column (the lowest index on a tie)
-  double best = row_lane ? pick(a, r) : INFINITY;
-  int kmin = r;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const double ob = VP_SHFL_XOR(best, o);
-    const int ok = VP_SHFL_XOR(kmin, o);
-    if (ob < best || (ob == best && ok < kmin)) {
-      best = ob;
-      kmin = ok;
-    }
-  }
-  const double pe = pick(v, kmin);  // P[r / 4][r % 4] in lane r < 12
+  const int kmin = vp::jacobi_min_index<kN>(a, r, lane, kN);
+  const double pe = vp::pick(v, kmin);  // P[r / 4][r % 4] in lane r < 12
   double P[kN];
 #pragma unroll
   for (int c = 0; c < kN; ++c) P[c] = VP_SHFL_IDX(pe, c);
   // sign: the summed depths of the sample points positive
   const double dep = live ? P[8] * px + P[9] * py + P[10] * pz + P[11] : 0.0;
-  const double sign = sgn(warp_sum64(dep) + 1e-30);
+  const double sign = sgn(vp::warp_sum64(dep) + 1e-30);
 #pragma unroll
   for (int c = 0; c < kN; ++c) P[c] *= sign;
   // R: the orthogonal polar factor of M = P[:, :3] by scaled Newton steps
@@ -257,8 +160,8 @@ pnp_kernel(const T* __restrict__ X, const T* __restrict__ x,
   for (int k = 0; k < 9; ++k) R[k] = Q[k] * sd;
 #pragma unroll
   for (int i = 0; i < 3; ++i) t[i] = P[4 * i + 3] / scale;
-  if (lane < 9) Rs[(size_t)h * 9 + lane] = pick(R, lane);
-  if (lane < 3) ts[(size_t)h * 3 + lane] = pick(t, lane);
+  if (lane < 9) Rs[(size_t)h * 9 + lane] = vp::pick(R, lane);
+  if (lane < 3) ts[(size_t)h * 3 + lane] = vp::pick(t, lane);
   // the inliers over all points, a lane a point
   int count = 0;
   for (int n0 = 0; n0 < N; n0 += 32) {

@@ -35,10 +35,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-# calls of the plain twins of K15-K21 on any device, by name ("fast", "nms",
-# "brief", "match", "signature", "pnp", "pgo4", "selector_info",
-# "selector_greedy", "pnp_refine"); a run on the card reads 0 for each (the
-# twins of K11-K14 count in solver/lm.TWIN_CALLS)
+# calls of the plain twins of K4 and K15-K21 on any device, by name
+# ("ransac", "fast", "nms", "brief", "match", "signature", "pnp", "pgo4",
+# "selector_info", "selector_greedy", "pnp_refine"); a run on the card reads
+# 0 for each (the twins of K11-K14 count in solver/lm.TWIN_CALLS)
 TWIN_CALLS = collections.Counter()
 
 P = ctypes.c_void_p
@@ -173,7 +173,8 @@ def as_u8(mask):
 
 
 def all_kernels():
-    """Every kernel of the package: the point front-end's (K1-K4), the line
+    """Every kernel of the package: the point front-end's (K1-K3, and K4 the
+    whole essential-matrix RANSAC, also the initializer's), the line
     front-end's (K5-K8), then CLAHE (K9, both trackers with equalize), IMU
     preintegration (K10), the estimator's window linearization, block
     assembly, Schur solve and marginalization (K11-K14), then loop
@@ -188,7 +189,7 @@ def all_kernels():
     from .solver import lm, marginalization
 
     return [image.PYRAMIDS, klt.KLT_TRACK, corners.CORNER_CELLS,
-            corners.CORNER_TOPK, mvg.SAMPSON_SCORE, image.REMAP_STATIC,
+            corners.CORNER_TOPK, mvg.RANSAC_ESSENTIAL, image.REMAP_STATIC,
             lines.LINE_ANCHORS, lines.LINE_SELECT_GROW, line_match.LINE_VOTE, vp.VP_GRID,
             vp.VP_SCORE, image.CLAHE, imu.PREINTEGRATE,
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,

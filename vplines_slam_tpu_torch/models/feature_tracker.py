@@ -85,10 +85,11 @@ def step(state: TrackerState, img, cam: cam_mod.CameraModel, cfg: TrackerConfig,
     # ---- essential-matrix outlier rejection (virtual focal plane) ----------
     norm0 = cam_mod.lift(cam, state.xy)[:, 0:2]
     norm1 = cam_mod.lift(cam, pts1)[:, 0:2]
-    if int(torch.sum(ok)) >= 12:  # host sync: the reference's lax.cond
-        _, inl, _ = mvg.ransac_essential(
-            norm0, norm1, ok, ransac_idx, threshold=cfg.f_threshold / 460.0)
-        ok = ok & inl
+    # below 12 tracks the inliers are ok itself (the reference's lax.cond),
+    # decided inside K4's launch on the card
+    _, inl, _ = mvg.ransac_essential(norm0, norm1, ok, ransac_idx,
+                                     threshold=cfg.f_threshold / 460.0, min_valid=12)
+    ok = ok & inl
 
     # ---- survivor compaction + top-up detection ---------------------------
     xy_cur = torch.where(ok[:, None], pts1, state.xy)

@@ -11,9 +11,12 @@ zero rows, so padding never changes results.
 RANSAC takes its sample indices as an argument (``[n_hyp, 8]`` long, drawn
 in ``[0, N)``): torch generators cannot reproduce ``jax.random`` draws, so
 the tests feed the JAX draws and callers on the card draw with a seeded
-``torch.Generator``.  The hypothesis scoring is kernel K4
-(``csrc/sampson.cu``); the 8-point fits stay ``torch.linalg`` (batched eigh
-9x9 and svd 3x3), as the reference left them to XLA.  ``ransac_pnp`` takes
+``torch.Generator``.  ``ransac_essential`` on CUDA tensors is kernel K4
+(``csrc/ransac.cu``): the sample masks, the 8-point fits (f64 inside
+whatever the input type), the Sampson scores, the pick, the refit and the
+tracker's gate in one launch; on CPU tensors ``ransac_essential_plain``
+(``torch.linalg`` eigh 9x9 and svd 3x3, as the reference left them to XLA).
+``ransac_pnp`` takes
 its draws the same way (``[n_hyp, 6]``); its hypotheses -- a six-point DLT
 pose each and its reprojection inliers -- are kernel K18
 (``csrc/pnp.cu``, f64 inside whatever the input type), the choice of the
@@ -33,12 +36,14 @@ from torch.func import jacfwd
 from .. import kernels
 from ..utils.geometry import so3_exp_matrix
 
-SAMPSON_SCORE = kernels.Kernel(
-    "vp_sampson_score", "vplines_slam_tpu_torch/csrc/sampson.cu",
-    "vplines_slam_tpu/ops/mvg.py:307",
-    [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I,
-     kernels.F, kernels.P, kernels.P],
+RANSAC_ESSENTIAL = kernels.Kernel(
+    "vp_ransac_essential", "vplines_slam_tpu_torch/csrc/ransac.cu",
+    "vplines_slam_tpu/ops/mvg.py:278",
+    [kernels.P, kernels.I, kernels.P, kernels.I, kernels.P, kernels.P, kernels.I, kernels.I,
+     ctypes.c_double, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
+     kernels.P, kernels.P],
 )
+RANSAC_MAX_HYP, RANSAC_MAX_N = 64, 1024  # K4's limits: one CTA, eight lanes a hypothesis
 
 PNP_HYPOTHESES = kernels.Kernel(
     "vp_pnp_hypotheses", "vplines_slam_tpu_torch/csrc/pnp.cu",
@@ -116,52 +121,96 @@ def sampson_score_plain(Es, x1, x2, mask, threshold):
     return torch.sum(inl.to(torch.int32), dim=-1, dtype=torch.int32), inl
 
 
-def sampson_score(Es, x1, x2, mask, threshold):
-    """K4.  CPU tensors: ``sampson_score_plain``.  CUDA tensors: one block per
-    hypothesis, one thread per track."""
-    if not Es.is_cuda:
-        return sampson_score_plain(Es, x1, x2, mask, threshold)
-    Hn, N = Es.shape[0], x1.shape[0]
-    Es, x1, x2 = Es.contiguous(), x1.contiguous(), x2.contiguous()
-    m8 = mask.to(torch.uint8).contiguous()
-    counts = torch.empty(Hn, dtype=torch.int32, device=Es.device)
-    inl = torch.empty(Hn, N, dtype=torch.uint8, device=Es.device)
-    SAMPSON_SCORE(
-        kernels.check(Es, "Es", shape=(Hn, 3, 3)), kernels.check(x1, "x1", shape=(N, 2)),
-        kernels.check(x2, "x2", shape=(N, 2)), kernels.check(m8, "mask", torch.uint8, shape=(N,)),
-        Hn, N, float(threshold) ** 2,
-        kernels.check(counts, "counts", torch.int32),
-        kernels.check(inl, "inl", torch.uint8),
-    )
-    return counts, inl.bool()
-
-
-def ransac_essential(x1, x2, mask, sample_idx, threshold=3.0 / 460.0):
-    """Fixed-trial batched RANSAC for the essential matrix.
-
-    sample_idx: [n_hyp, 8] long draws in [0, N) (the reference draws
-    ``jax.random.randint(key, (n_hyp, 8), 0, N)``); they are remapped onto
-    the valid entries exactly as the reference does.
-    Returns (E_best, inlier_mask, n_inliers)."""
-    N = x1.shape[0]
+def ransac_essential_plain(x1, x2, mask, sample_idx, threshold=3.0 / 460.0, min_valid=0,
+                           return_hypotheses=False):
+    """K4's twin, the reference's ``ransac_essential``: draw i -> the (draw
+    % max(n_valid, 8))-th entry of the stable valid-first order, the sample
+    masks (sets: repeats collapse, invalid entries drop), their 8-point E
+    and Sampson scores, the first best, its least-squares refit on all its
+    inliers, kept only if it does not lose inliers.  Below min_valid valid
+    entries (the tracker's gate, decided on the host here) it returns
+    (zeros, mask, n_valid) and computes nothing.  With return_hypotheses
+    also (Es, counts, inls) of every hypothesis and the refit's E_ref
+    (zeros under the gate)."""
+    kernels.TWIN_CALLS["ransac"] += 1
+    n_hyp, N = sample_idx.shape[0], x1.shape[0]
+    if min_valid > 0 and int(torch.sum(mask.to(torch.int64))) < min_valid:
+        z = torch.zeros(n_hyp, 3, 3, dtype=x1.dtype, device=x1.device)
+        out = (z[0], mask.clone(), torch.sum(mask.to(torch.int32), dtype=torch.int32))
+        hyps = (z, torch.zeros(n_hyp, dtype=torch.int32, device=x1.device),
+                torch.zeros(n_hyp, N, dtype=torch.bool, device=x1.device), z[0])
+        return out + hyps if return_hypotheses else out
     order = torch.argsort((~mask).to(torch.int8), stable=True)  # valid first
     n_valid = torch.clamp(torch.sum(mask.to(torch.int64)), min=8)
     idx = order[sample_idx % n_valid]
-    n_hyp = idx.shape[0]
     sm = torch.zeros(n_hyp, N, dtype=torch.bool, device=x1.device)
     sm = sm.scatter(1, idx, True) & mask
     Es = eight_point_essential(x1, x2, sm)
-    counts, inls = sampson_score(Es, x1, x2, mask, threshold)
+    counts, inls = sampson_score_plain(Es, x1, x2, mask, threshold)
     best = torch.argmax(counts)
     # least-squares refit on all inliers of the best minimal hypothesis, kept
     # only if it does not lose inliers
     E_ref = eight_point_essential(x1, x2, inls[best])
-    n_ref, inl_ref = sampson_score(E_ref[None], x1, x2, mask, threshold)
+    n_ref, inl_ref = sampson_score_plain(E_ref[None], x1, x2, mask, threshold)
     n_ref, inl_ref = n_ref[0], inl_ref[0]
     better = n_ref >= counts[best]
     E_out = torch.where(better, E_ref, Es[best])
     inl_out = torch.where(better, inl_ref, inls[best])
-    return E_out, inl_out, torch.maximum(n_ref, counts[best])
+    out = (E_out, inl_out, torch.maximum(n_ref, counts[best]))
+    return out + (Es, counts, inls, E_ref) if return_hypotheses else out
+
+
+def ransac_essential(x1, x2, mask, sample_idx, threshold=3.0 / 460.0, min_valid=0,
+                     return_hypotheses=False):
+    """Fixed-trial batched RANSAC for the essential matrix.
+
+    x1, x2 [N, 2] normalized points (f32 or f64; rows may be strided, e.g.
+    a column slice of ``lift``'s output); mask [N]; sample_idx [n_hyp, 8]
+    long draws in [0, N) (the reference draws ``jax.random.randint(key,
+    (n_hyp, 8), 0, N)``), remapped onto the valid entries as the reference
+    does.  Below min_valid valid entries (the tracker passes 12, the
+    reference's ``lax.cond``) the inliers are the mask itself, E is zero and
+    n is the count of valid entries.  Returns (E_best, inlier_mask,
+    n_inliers), with return_hypotheses also (Es, counts, inls) of every
+    hypothesis and the refit's E_ref.
+
+    CPU tensors: ``ransac_essential_plain``.  CUDA tensors: K4, one launch
+    and no host sync, the fits in f64 whatever the input type, the scores in
+    the input type; n_hyp <= 64 and N <= 1024, else it raises."""
+    if not x1.is_cuda:
+        return ransac_essential_plain(x1, x2, mask, sample_idx, threshold, min_valid,
+                                      return_hypotheses)
+    n_hyp, N = sample_idx.shape[0], x1.shape[0]
+    dt, dev = x1.dtype, x1.device
+    if dt not in (torch.float32, torch.float64) or x2.dtype != dt:
+        raise ValueError(f"K4 takes float32 or float64 points, got {dt} and {x2.dtype}")
+    if not (1 <= n_hyp <= RANSAC_MAX_HYP and 1 <= N <= RANSAC_MAX_N):
+        raise ValueError(f"K4 takes 1-{RANSAC_MAX_HYP} hypotheses and 1-{RANSAC_MAX_N} "
+                         f"points, got {n_hyp} and {N}")
+    rows = []
+    for name, x in (("x1", x1), ("x2", x2)):
+        if x.device != dev or tuple(x.shape) != (N, 2) or x.stride(1) != 1:
+            raise ValueError(f"{name}: expected [{N}, 2] on {dev} with adjacent columns, got "
+                             f"shape {tuple(x.shape)} on {x.device}, strides {x.stride()}")
+        rows.append(x.stride(0))
+    m8 = kernels.as_u8(mask)
+    E = torch.empty(3, 3, dtype=dt, device=dev)
+    inl = torch.empty(N, dtype=torch.bool, device=dev)
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    hyps = ((torch.empty(n_hyp, 3, 3, dtype=dt, device=dev),
+             torch.empty(n_hyp, dtype=torch.int32, device=dev),
+             torch.empty(n_hyp, N, dtype=torch.bool, device=dev),
+             torch.empty(3, 3, dtype=dt, device=dev)) if return_hypotheses else None)
+    RANSAC_ESSENTIAL(
+        x1.data_ptr(), rows[0], x2.data_ptr(), rows[1],
+        kernels.check(m8, "mask", torch.uint8, shape=(N,)),
+        kernels.check(sample_idx, "sample_idx", torch.int64, shape=(n_hyp, 8)), n_hyp, N,
+        float(threshold), int(min_valid), int(dt == torch.float64), kernels.check(E, "E", dt),
+        kernels.check(inl, "inl", torch.bool), kernels.check(n, "n", torch.int32),
+        *((None,) * 4 if hyps is None else (
+            kernels.check(hyps[0], "Es", dt), kernels.check(hyps[1], "counts", torch.int32),
+            kernels.check(hyps[2], "inls", torch.bool), kernels.check(hyps[3], "E_ref", dt))))
+    return (E, inl, n) + (() if hyps is None else hyps)
 
 
 def decompose_essential(E, x1, x2, mask):

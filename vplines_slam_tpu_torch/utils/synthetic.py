@@ -1025,3 +1025,175 @@ def selector_info_cases(seed=0):
     out["nearly parallel"] = case(far, [50.0, 1e3, 1e4, 1e5, 3e3], [True] * 5, ps_b,
                                   np.tile(ident, (5, 1)), ident, np.zeros(3))
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel check cases: the essential-matrix RANSAC (K4)
+# ---------------------------------------------------------------------------
+
+
+def _two_view(rng, N, noise, outliers, R=None, t=None):
+    """N points 3-8 m ahead of camera 1 seen by camera 2 (x2 ~ R x1 + t) with
+    Gaussian noise on x2 and a fraction of outliers moved up to 0.2 away:
+    (x1 [N, 2], x2 [N, 2]) normalized, numpy f64."""
+    if R is None:
+        R = ypr_to_rot(torch.tensor([4.0, -2.0, 1.5], dtype=torch.float64)).numpy()
+        t = np.array([0.3, 0.05, 0.02])
+    X = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2, 2, N), rng.uniform(3, 8, N)], 1)
+    X2 = X @ R.T + t
+    x1, x2 = X[:, :2] / X[:, 2:3], X2[:, :2] / X2[:, 2:3] + rng.normal(0, noise, (N, 2))
+    bad = rng.random(N) < outliers
+    x2[bad] += rng.uniform(-0.2, 0.2, (bad.sum(), 2))
+    return x1, x2
+
+
+def ransac_cases(seed=0):
+    """Inputs of the essential-matrix RANSAC (K4's ``ransac_essential``), by
+    name: dict(x1 [N, 2], x2 [N, 2] normalized points, mask [N] bool, idx
+    [n_hyp, 8] int64 draws in [0, N), threshold, min_valid), numpy f64.
+    Draw i takes the (draw % max(n_valid, 8))-th valid entry, so with every
+    entry valid a draw is the index itself.
+
+    - "tracker 32 x 150": a tracked frame's shape, 15 tracks masked, 10%
+      outliers, 0.25 px of noise, the tracker's 1 px gate, random draws;
+    - "initializer 64 x 128": the initializer's shape and its 3 px gate;
+    - "repeated draws": rows that draw an entry two or three times (a sample
+      is a set: fewer than 8 distinct rows, no unique fit);
+    - "fewer than 8 valid": 6 valid entries (draws past them drop);
+    - "exactly 8 valid": noise-free, every row a permutation of the 8 (one
+      fit, every count tied) or with repeats;
+    - "draws on invalid entries": 5 valid entries and every draw mapped past
+      them, so every sample is empty;
+    - "tie": noise-free points of two motions, 20 each, a 1e-4 gate; row 3
+      samples motion B, row 5 motion A, the others both: rows 3 and 5 tie
+      and the first (B) wins;
+    - "refit loses": a scene whose least-squares refit on the winner's
+      inliers scores fewer than the winner (better is false);
+    - "all outliers": x2 unrelated to x1;
+    - "11 valid, gated" and "12 valid": the tracker's gate (min_valid 12) on
+      either side."""
+    rng = np.random.default_rng(seed)
+
+    def draws(n_hyp, pool, k=8):
+        return np.stack([rng.choice(pool, k, replace=False) for _ in range(n_hyp)])
+
+    def case(x1, x2, mask, idx, thr, min_valid=0):
+        return dict(x1=x1, x2=x2, mask=mask, idx=idx.astype(np.int64), threshold=thr,
+                    min_valid=min_valid)
+
+    out = {}
+    x1, x2 = _two_view(rng, 150, 5e-4, 0.1)
+    mask = np.ones(150, bool)
+    mask[rng.choice(150, 15, replace=False)] = False
+    out["tracker 32 x 150"] = case(x1, x2, mask, rng.integers(0, 150, (32, 8)), 1.0 / 460.0)
+    x1, x2 = _two_view(rng, 128, 5e-4, 0.05)
+    mask = rng.random(128) >= 0.2
+    out["initializer 64 x 128"] = case(x1, x2, mask, rng.integers(0, 128, (64, 8)), 3.0 / 460.0)
+    x1, x2 = _two_view(rng, 40, 1e-3, 0.1)
+    idx = draws(16, 40)
+    idx[::2, 1] = idx[::2, 0]
+    idx[1::4, 2:5] = idx[1::4, 0:1]
+    out["repeated draws"] = case(x1, x2, np.ones(40, bool), idx, 1.0 / 460.0)
+    x1, x2 = _two_view(rng, 40, 0.0, 0.0)
+    mask = np.zeros(40, bool)
+    mask[rng.choice(40, 6, replace=False)] = True
+    out["fewer than 8 valid"] = case(x1, x2, mask, rng.integers(0, 40, (16, 8)), 1.0 / 460.0)
+    x1, x2 = _two_view(rng, 40, 0.0, 0.0)
+    mask = np.zeros(40, bool)
+    mask[rng.choice(40, 8, replace=False)] = True
+    idx = np.stack([rng.permutation(8) + 8 * rng.integers(0, 5, 8) for _ in range(16)])
+    idx[8:, 0] = idx[8:, 1]
+    out["exactly 8 valid"] = case(x1, x2, mask, idx, 1.0 / 460.0)
+    x1, x2 = _two_view(rng, 40, 1e-3, 0.0)
+    mask = np.zeros(40, bool)
+    mask[rng.choice(40, 5, replace=False)] = True
+    out["draws on invalid entries"] = case(x1, x2, mask,
+                                           5 + rng.integers(0, 3, (16, 8)) + 8 * rng.integers(
+                                               0, 4, (16, 8)), 1.0 / 460.0)
+    xa1, xa2 = _two_view(rng, 20, 0.0, 0.0)
+    R_b = ypr_to_rot(torch.tensor([-6.0, 3.0, -2.0], dtype=torch.float64)).numpy()
+    xb1, xb2 = _two_view(rng, 20, 0.0, 0.0, R_b, np.array([-0.1, 0.25, 0.05]))
+    idx = np.concatenate([draws(16, 20, 4), 20 + draws(16, 20, 4)], 1)
+    idx[3], idx[5] = 20 + draws(1, 20)[0], draws(1, 20)[0]
+    out["tie"] = case(np.concatenate([xa1, xb1]), np.concatenate([xa2, xb2]), np.ones(40, bool),
+                      idx, 1e-4)
+    out["refit loses"] = _refit_loses(rng)
+    x1, x2 = rng.uniform(-0.6, 0.6, (40, 2)), rng.uniform(-0.6, 0.6, (40, 2))
+    out["all outliers"] = case(x1, x2, np.ones(40, bool), rng.integers(0, 40, (16, 8)),
+                               1.0 / 460.0)
+    x1, x2 = _two_view(rng, 40, 1e-3, 0.2)
+    for n in (11, 12):
+        mask = np.zeros(40, bool)
+        mask[:n] = True
+        out[f"{n} valid" + (", gated" if n < 12 else "")] = case(
+            x1, x2, mask, rng.integers(0, 40, (16, 8)), 1.0 / 460.0, min_valid=12)
+    return out
+
+
+def essential_rows(x1, x2, sm):
+    """The 8-point rows kron(h2, h1) at f64, masked by each row of sm [n, N]:
+    [n, N, 9]."""
+    h1 = torch.cat([x1.double(), torch.ones_like(x1[:, :1], dtype=torch.float64)], 1)
+    h2 = torch.cat([x2.double(), torch.ones_like(x2[:, :1], dtype=torch.float64)], 1)
+    return (h2[:, :, None] * h1[:, None, :]).reshape(-1, 9) * sm.double()[..., None]
+
+
+def essential_fit_determined(x1, x2, sm):
+    """Per sample mask row of sm [n, N], whether its 8-point E is determined
+    by the data rather than by an eigensolver's rounding: A^T A (f64) has a
+    relative gap above 1e-10 between its two smallest eigenvalues and the E
+    of its smallest eigenvector has sigma_2 above 1e-4 sigma_1 (the rank-2
+    projection is unique).  Returns (determined, the relative gap); an
+    eigenvector of A^T A is good to ~eps / gap."""
+    A = essential_rows(x1, x2, sm)
+    lam, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    gap = (lam[:, 1] - lam[:, 0]) / lam[:, -1]
+    sv = torch.linalg.svdvals(V[:, :, 0].reshape(-1, 3, 3))
+    return (gap > 1e-10) & (sv[:, 1] > 1e-4 * sv[:, 0]), gap
+
+
+def essential_samples(mask, draws):
+    """The reference's remap of RANSAC draws [n_hyp, 8]: draw i -> the (draw
+    % max(n_valid, 8))-th entry of the stable valid-first order (an index
+    past the valid ones lands on an invalid entry).  Returns (idx [n_hyp,
+    8], sample masks [n_hyp, N])."""
+    order = torch.argsort((~mask).to(torch.int8), stable=True)
+    idx = order[draws % torch.clamp(mask.sum(), min=8)]
+    sm = torch.zeros(draws.shape[0], mask.shape[0], dtype=torch.bool, device=mask.device)
+    return idx, sm.scatter(1, idx, True) & mask
+
+
+def essential_determined(x1, x2, mask, idx):
+    """Per sample row of idx [n_hyp, 8] (indices into the N points, after
+    ``essential_samples``' remap), whether its hypothesis is determined:
+    eight distinct valid rows (``full``) whose fit ``essential_fit_determined``
+    accepts.  Returns (full, determined)."""
+    srt = torch.sort(idx, dim=1).values
+    full = (srt[:, 1:] != srt[:, :-1]).all(1) & mask[idx].all(1)
+    sm = torch.zeros(idx.shape[0], mask.shape[0], dtype=torch.bool, device=mask.device)
+    sm = sm.scatter(1, idx, True) & mask
+    return full, full & essential_fit_determined(x1, x2, sm)[0]
+
+
+
+def _refit_loses(rng, tries=200):
+    """The first of ``tries`` noisy scenes (2 px of noise, 40 points, a 3 px
+    gate, 16 hypotheses of distinct draws) whose refit on the winner's
+    inliers scores fewer inliers than the winner, as ``ransac_cases``
+    entry."""
+    from ..ops import mvg
+
+    T = lambda a: torch.from_numpy(np.asarray(a))
+    for _ in range(tries):
+        x1, x2 = _two_view(rng, 40, 4e-3, 0.15)
+        idx = np.stack([rng.choice(40, 8, replace=False) for _ in range(16)])
+        mask = np.ones(40, bool)
+        thr = 3.0 / 460.0
+        _, _, n, Es, counts, inls, E_ref = mvg.ransac_essential_plain(
+            T(x1), T(x2), T(mask), T(idx), thr, return_hypotheses=True)
+        best = int(torch.argmax(counts))
+        n_ref = int(mvg.sampson_score_plain(E_ref[None], T(x1), T(x2), T(mask), thr)[0][0])
+        if n_ref < int(counts[best]):
+            return dict(x1=x1, x2=x2, mask=mask, idx=idx.astype(np.int64), threshold=thr,
+                        min_valid=0)
+    raise RuntimeError("no scene whose refit loses inliers")
