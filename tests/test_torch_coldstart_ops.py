@@ -448,8 +448,6 @@ def _unported():
         return tconfig.load_profile(str(tmp / "mei.yaml"), device=CPU)
 
     return {
-        "vio.estimate_extrinsic=2": engine(estimate_extrinsic=2),
-        "vio.estimate_td": engine(estimate_td=True),
         "vio.mesh": engine(mesh=object()),
         "system.fusion": system(fusion_cfg=object()),
         "system.fetch_every": system(fetch_every=2),
@@ -466,3 +464,32 @@ def test_unported_modes_raise(name, tmp_path):
     fn = _unported()[name]
     with pytest.raises(NotImplementedError):
         fn(tmp_path) if name == "config.non_pinhole" else fn()
+
+
+@pytest.mark.parametrize("where", ["engine", "system"])
+@pytest.mark.parametrize("mode", ["estimate_extrinsic=2", "estimate_td"])
+def test_online_calibration_modes_construct_and_fill(mode, where):
+    """Online calibration is ported: the VioEngine, or a SlamSystem passing
+    the flag through, constructs on the CPU in each mode and takes two fill
+    frames (the second runs the calibration's frame pair)."""
+    cfg = twin.WindowConfig(window=2, max_points=8, max_lines=2, max_imu=4)
+    kw = (dict(q_ic=None, p_ic=None) if mode == "estimate_extrinsic=2"
+          else dict(q_ic=np.array([1.0, 0, 0, 0]), p_ic=np.zeros(3), estimate_td=True))
+    if where == "engine":
+        eng = tvio.VioEngine(cfg, device=CPU, **kw)
+    else:
+        cam = tcam.pinhole(100.0, 100.0, 8.0, 6.0, width=16, height=12, device=CPU)
+        eng = tsys.SlamSystem(cam, cfg, tft.TrackerConfig(max_features=4),
+                              use_loop_closure=False, device=CPU, **kw).vio
+    assert (eng.estimate_extrinsic, eng.estimate_td) == (
+        (2, False) if mode == "estimate_extrinsic=2" else (1, True))
+    rng = np.random.default_rng(0)
+    ids = np.r_[np.arange(6), -1, -1]
+    for k in range(2):
+        for i in range(5):
+            eng.add_imu(0.1 * k + 0.02 * i, np.array([0.0, 0.0, 9.81]), np.array([0.0, 0.0, 0.1]))
+        rays = np.c_[rng.uniform(-0.3, 0.3, (8, 2)), np.ones(8)]
+        assert eng.add_frame(0.1 * k, ids, rays) is None
+    assert eng.frame_count == 2 and eng.calibrating()
+    if mode == "estimate_td":
+        assert int(eng._td_acc.n_cam) == 1 and int(eng._td_acc.n_imu) > 0

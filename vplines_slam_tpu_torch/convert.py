@@ -4,14 +4,16 @@
 ``TrackData`` with its ``Preintegration`` and ``Prior``, ``TrackerState``,
 ``LineTrackerState``, ``ImuParams``, ``CameraModel``, loop closure's
 ``KeyframeDB``, ``PoseGraphConfig`` and ``LoopResult``, the selector's
-``SelectorConfig``) or a plain tuple such
+``SelectorConfig``, online calibration's ``ExtrinsicCalib`` and
+``TimeOffsetCalib``) or a plain tuple such
 as the IMU batch ``(dts, accs, gyrs, mask, has_imu)``, with leaves given as
 numpy arrays (or anything ``np.asarray`` accepts), and returns the port's
 NamedTuple of the same name with tensors on ``device``.  Integer arrays
 (ids, slots, counters) become int64, the index type torch wants, except the
 database's uint32 descriptors (``desc``, ``wdesc``), which become int32 bit
-for bit; floats keep their dtype unless ``dtype`` is given (frame stamps
-become f64 and signatures stay f32 whatever ``dtype`` says).  A
+for bit; floats keep their dtype unless ``dtype`` is given (frame stamps and
+the time-offset curves become f64 and signatures stay f32 whatever
+``dtype`` says).  A
 ``PoseGraphConfig`` or ``SelectorConfig`` holds Python numbers and crosses
 as it is.
 ``from_torch`` goes back: numpy leaves, int64 -> int32 and the descriptors
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .estimator.online_calib import ExtrinsicCalib, TimeOffsetCalib
 from .estimator.window import TrackData, WindowState
 from .models.camera import CameraModel
 from .models.feature_tracker import TrackerState
@@ -34,7 +37,8 @@ from .solver.marginalization import Prior
 
 PORT_TYPES = {cls.__name__: cls for cls in (
     WindowState, TrackData, Preintegration, Prior, TrackerState, LineTrackerState, ImuParams,
-    CameraModel, KeyframeDB, LoopResult, PoseGraphConfig, SelectorConfig)}
+    CameraModel, KeyframeDB, LoopResult, PoseGraphConfig, SelectorConfig, ExtrinsicCalib,
+    TimeOffsetCalib)}
 # NamedTuples of Python numbers, crossing as they are
 _CONFIG_TYPES = {"PoseGraphConfig", "SelectorConfig"}
 # NamedTuple fields that are static Python ints, not arrays
@@ -45,6 +49,8 @@ _STAMP_FIELDS = {"frame_t", "relo_stamp"}
 _U32_FIELDS = {"desc", "wdesc"}
 # float32 whatever dtype says
 _F32_FIELDS = {"sig"}
+# NamedTuples whose floats are f64 whatever dtype says
+_F64_TYPES = {"TimeOffsetCalib"}
 
 
 def _leaf_to_torch(x, device, dtype):
@@ -74,7 +80,8 @@ def to_torch(obj, device=torch.device("cuda"), dtype=None):
                 return cls(*obj)
             kids = [int(np.asarray(v)) if f in _STATIC_FIELDS
                     else _u32_to_torch(v, device) if name == "KeyframeDB" and f in _U32_FIELDS
-                    else to_torch(v, device, torch.float64 if f in _STAMP_FIELDS
+                    else to_torch(v, device, torch.float64
+                                  if f in _STAMP_FIELDS or name in _F64_TYPES
                                   else torch.float32 if f in _F32_FIELDS else dtype)
                     for f, v in zip(obj._fields, obj)]
             return cls(*kids)

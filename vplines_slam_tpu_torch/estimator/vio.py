@@ -5,10 +5,10 @@ Port of ``vplines_slam_tpu/estimator/vio.py``: ``StepOutput``,
 ``pack_output``, ``unpack_output``, ``_propagate_interval``,
 ``_failure_detection``, ``track_step`` (points only, or with the line
 channel) and ``VioEngine`` (fill / init / track; its jitted closures are
-plain methods; ``set_relo`` arms fast relocalization for loop closure).
-Not ported, and raising when asked for: online calibration
-(``estimate_extrinsic=2``, ``estimate_td=True``) and the distributed BA
-(``mesh=``).
+plain methods; ``set_relo`` arms fast relocalization for loop closure;
+``_online_calibration`` runs the hand-eye extrinsic rotation, mode 2, and
+the time offset during the fill phase, ``estimator/online_calib``).  Not
+ported, and raising when asked for: the distributed BA (``mesh=``).
 
 The reference's ``lax.cond`` between the keyframe and non-keyframe slides is
 a Python branch on one ``bool()``: one host sync per frame.
@@ -25,6 +25,7 @@ from .. import native as native_mod
 from ..models import imu as imu_mod
 from ..utils.geometry import quat_conj, quat_mul, quat_rotate, quat_to_rot, rot_to_ypr
 from . import initializer as init_mod
+from . import online_calib as oc_mod
 from .slide import (
     _set_row,
     ingest_frame,
@@ -183,19 +184,22 @@ class VioEngine:
     The first cfg.nf frames fill the window; then the visual-inertial
     initializer runs on every frame until it succeeds (a failed attempt
     drops the oldest frame); then every frame is one ``track_step``.  The
-    random draws (the initializer's essential-matrix RANSAC) come from the
-    engine's ``torch.Generator`` through ``sfm_draws``."""
+    random draws (the essential-matrix RANSAC of the initializer and of the
+    calibration's frame pairs) come from the engine's ``torch.Generator``
+    through ``sfm_draws``.
+
+    Online calibration (the reference's estimator.cpp:141-173 hooks): with
+    no q_ic the extrinsic rotation is unknown (mode 2) and hand-eye pairs
+    accumulate over the fill phase; with estimate_td the camera and IMU yaw
+    curves accumulate and, from 60 camera samples, their ICP gives td, which
+    then shifts the IMU alignment.  The window holds (drops its oldest
+    frame) until both have converged."""
 
     def __init__(self, cfg: WindowConfig = WindowConfig(),
                  params: Optional[imu_mod.ImuParams] = None, q_ic=None, p_ic=None,
                  dtype=torch.float64, use_lines: bool = False, seed: int = 0,
                  estimate_extrinsic: Optional[int] = None, estimate_td: bool = False,
                  mesh=None, device=torch.device("cuda")):
-        if estimate_extrinsic is None:
-            estimate_extrinsic = 1 if q_ic is not None else 2
-        if estimate_extrinsic >= 2 or estimate_td:
-            raise NotImplementedError(
-                "online calibration (estimate_extrinsic=2, estimate_td=True) is not ported")
         if mesh is not None:
             raise NotImplementedError("the distributed BA (mesh=) is not ported")
         self.cfg = cfg
@@ -221,11 +225,28 @@ class VioEngine:
         self._imu_gyr: list = []
         self.last_frame_time = None  # the stamp of the last frame taken
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # extrinsic mode (parameters.h ESTIMATE_EXTRINSIC): 1 = given a priori
+        # and refined in BA; 2 = unknown rotation, hand-eye during the fill
+        # phase gates initialization
+        if estimate_extrinsic is None:
+            estimate_extrinsic = 1 if q_ic is not None else 2
+        self.estimate_extrinsic = estimate_extrinsic
+        self.extrinsic_ok = estimate_extrinsic < 2
+        # online temporal calibration: estimated once from the rotation-curve
+        # ICP, then applied as the measurement-alignment shift
+        self.estimate_td = estimate_td
+        self.td = 0.0
+        self._td_solved = False
+        self._ex_acc = oc_mod.empty_extrinsic_calib(dtype=dtype, device=self.device)
+        self._ex_prev = None
+        self._ex_stable = 0
+        self._td_acc = oc_mod.empty_td_calib(device=self.device) if estimate_td else None
+        self._td_n_cam = 0  # host mirror of _td_acc.n_cam
 
     # ------------------------------------------------------------- draws
     def sfm_draws(self):
         """[64, 8] RANSAC sample draws in [0, max_points) of one
-        initialization attempt."""
+        initialization attempt or one calibration frame pair."""
         return torch.randint(0, self.cfg.max_points, (64, 8), generator=self._gen,
                              device=self.device)
 
@@ -312,19 +333,34 @@ class VioEngine:
         t = lambda a: torch.from_numpy(a).to(device=self.device, dtype=self.dtype)
         return (t(dts), t(accs), t(gyrs), torch.from_numpy(mask).to(self.device), bool(has))
 
+    def _push_imu_angles(self, batch_t, k, gyrs, mask):
+        """Extend the time-offset IMU curve by this interval's k steps
+        (stamps batch_t[:k + 1], zero-padded to I + 1)."""
+        I = self.cfg.max_imu
+        ts_pad = np.zeros(I + 1)
+        ts_pad[: k + 1] = batch_t[: k + 1]
+        tg = torch.from_numpy(np.concatenate([ts_pad, gyrs.reshape(-1)])).to(self.device)
+        self._td_acc = oc_mod.push_imu_angles(self._td_acc, tg[: I + 1],
+                                              tg[I + 1:].view(I + 1, 3), mask)
+
     def _pack_imu(self, frame_t=None):
         """Pad the IMU buffered since the previous frame to capacity.  The
-        alignment boundary is frame_t (the time offset td is 0: its online
-        calibration is not ported): samples up to it join this interval, an
-        interpolated boundary sample closes it and seeds the next one.  Uses
-        the native synchronizer when loaded; frame_t=None consumes
-        everything buffered."""
+        alignment boundary is frame_t + td, the time offset td applied on
+        top of the frame_t the caller passes (add_frame passes its stamp +
+        td, as the reference does, so the cut falls at stamp + 2 td on both
+        routes): samples up to it join this interval, an interpolated
+        boundary sample closes it and seeds the next one.  Uses the native
+        synchronizer when loaded; frame_t=None consumes everything
+        buffered.  While td is being calibrated, the interval's gyro
+        samples extend its IMU yaw curve."""
         I = self.cfg.max_imu
         dts = np.zeros(I)
         accs = np.zeros((I + 1, 3))
         gyrs = np.zeros((I + 1, 3))
         mask = np.zeros(I, bool)
+        push = None  # (stamps, steps) of the td curve's extension
         if self._sync is not None and frame_t is not None:
+            self._sync.set_td(self.td)
             res = self._sync.drain_frame(float(frame_t), max_out=4 * I, allow_partial=True)
             has = False
             if res is not None:
@@ -343,11 +379,12 @@ class VioEngine:
                     accs[: k + 1] = ba[: k + 1]
                     gyrs[: k + 1] = bg_[: k + 1]
                     self._bound_sample = (bt[k], ba[k].copy(), bg_[k].copy())
+                    push = (bt, k)
                 elif len(bt) == 1:
                     self._bound_sample = (bt[0], ba[0].copy(), bg_[0].copy())
-            return self._to_batch(dts, accs, gyrs, mask, has)
+            return self._batch_and_push(dts, accs, gyrs, mask, has, push)
 
-        t_boundary = None if frame_t is None else float(frame_t)
+        t_boundary = None if frame_t is None else float(frame_t) + self.td
         ts_all = np.asarray(self._imu_times)
         acc_all = np.stack(self._imu_acc) if self._imu_acc else np.zeros((0, 3))
         gyr_all = np.stack(self._imu_gyr) if self._imu_gyr else np.zeros((0, 3))
@@ -375,7 +412,14 @@ class VioEngine:
             self._imu_times = [batch_t[-1]] + list(ts_all[j:])
             self._imu_acc = [batch_a[-1]] + list(acc_all[j:])
             self._imu_gyr = [batch_g[-1]] + list(gyr_all[j:])
-        return self._to_batch(dts, accs, gyrs, mask, has)
+            push = (batch_t, k)
+        return self._batch_and_push(dts, accs, gyrs, mask, has, push)
+
+    def _batch_and_push(self, dts, accs, gyrs, mask, has, push):
+        batch = self._to_batch(dts, accs, gyrs, mask, has)
+        if push is not None and self._td_acc is not None and not self._td_solved:
+            self._push_imu_angles(*push, gyrs, batch[3])
+        return batch
 
     def _pack_lines(self, ln_ids, ln_obs, ln_vps, ln_vp_valid):
         if not self.use_lines or ln_ids is None:
@@ -392,7 +436,7 @@ class VioEngine:
         return (t(ln_ids, torch.int64), t(ln_obs, d), vps, vpv)
 
     def _frame_inputs(self, t, pt_ids, pt_rays, ln_ids, ln_obs, ln_vps, ln_vp_valid):
-        imu_batch = self._pack_imu(float(t))
+        imu_batch = self._pack_imu(float(t) + self.td)
         pt_ids = torch.as_tensor(pt_ids).to(device=self.device, dtype=torch.int64)
         pt_rays = torch.as_tensor(pt_rays).to(device=self.device, dtype=self.dtype)
         ln_args = self._pack_lines(ln_ids, ln_obs, ln_vps, ln_vp_valid)
@@ -411,7 +455,13 @@ class VioEngine:
         if not self.initialized:
             self.fill_step(self.frame_count, pt_ids, pt_rays, ln_args, imu_batch, t)
             self.frame_count += 1
+            self._online_calibration(t, self.frame_count - 1)
             if self.frame_count < nf:
+                return None
+            if self.calibrating():
+                # calibration still converging: keep collecting frames
+                self.state, self.data = self.init_drop_oldest(self.state, self.data)
+                self.frame_count = nf - 1
                 return None
             state2, data2, ok = self.try_init(self.state, self.data, self.sfm_draws())
             self.frame_count = nf - 1
@@ -454,6 +504,61 @@ class VioEngine:
             self.state, self.data, pt_ids, pt_rays, imu_batch, self.cfg, self.params,
             t=float(t), ln_args=ln_args, use_lines=self.use_lines)
         return pack_output(out) if packed else out
+
+    def calibrating(self):
+        """Whether online calibration still holds the fill phase."""
+        return ((self.estimate_extrinsic >= 2 and not self.extrinsic_ok)
+                or (self.estimate_td and not self._td_solved))
+
+    def _online_calibration(self, t, idx):
+        """Hand-eye extrinsic rotation (mode 2) and time-offset accumulation
+        on the fill frame at window slot idx, against slot idx - 1.
+
+        The extrinsic converges at the reference's excitation gate (σ₃ >
+        0.25 with >= 12 pairs) or when successive solves agree within 0.5°
+        over 8 frames with >= 20 pairs.  A camera sample joins the td curve
+        as valid only if its pair rotation's angle is within 0.005 rad of
+        the gyro's; from 60 samples each frame solves for td until the
+        solve is finite.  One host transfer a frame for each."""
+        need_ex = self.estimate_extrinsic >= 2 and not self.extrinsic_ok
+        need_td = self.estimate_td and not self._td_solved
+        if idx <= 0 or not (need_ex or need_td):
+            return
+        d = self.data
+        q_cam, okp = oc_mod.pair_rotation(d.pt_obs[:, idx - 1], d.pt_obs[:, idx],
+                                          d.pt_mask[:, idx - 1], d.pt_mask[:, idx], d.pt_id,
+                                          self.sfm_draws())
+        dq_imu = d.imu_pre.delta_q[idx - 1]
+        if need_ex:
+            self._ex_acc = oc_mod.push_rotation_pair(self._ex_acc, q_cam, dq_imu, okp)
+            q_ic, conv, _ = oc_mod.solve_extrinsic(self._ex_acc)
+            h = torch.cat([q_ic.to(torch.float64), conv.to(torch.float64).reshape(1),
+                           self._ex_acc.count.to(torch.float64).reshape(1)]).cpu().numpy()
+            q_np, conv_h, count = h[:4], bool(h[4]), int(h[5])
+            if self._ex_prev is not None and count >= 20:
+                dot = min(1.0, abs(float(np.dot(q_np, self._ex_prev))))
+                self._ex_stable = self._ex_stable + 1 if np.degrees(
+                    2.0 * np.arccos(dot)) < 0.5 else 0
+            self._ex_prev = q_np
+            if conv_h or self._ex_stable >= 8:
+                self.state = self.state._replace(q_ic=q_ic.to(self.dtype))
+                self.extrinsic_ok = True
+        if need_td:
+            # gate visual pairs against the gyro increment: small-baseline
+            # decompositions have heavy-tailed rotation errors that would
+            # skew the cumulative curve for good
+            angle = lambda q: 2.0 * torch.arccos(torch.clamp(torch.abs(q[0]), 0.0, 1.0))
+            ok_td = okp & (torch.abs(angle(q_cam) - angle(dq_imu)) < 0.005)
+            self._td_acc = oc_mod.push_cam_angle(self._td_acc, float(t), q_cam,
+                                                 self.state.q_ic, ok_td, dq_imu)
+            self._td_n_cam = min(self._td_n_cam + 1, self._td_acc.t_cam.shape[0])
+            if self._td_n_cam >= 60:
+                td, _, okt = oc_mod.solve_time_offset(self._td_acc)
+                td_h, ok_h = torch.stack([td.to(torch.float64),
+                                          okt.to(torch.float64)]).cpu().tolist()
+                if ok_h:
+                    self.td = td_h
+                    self._td_solved = True
 
     def set_relo(self, match_ids, match_obs, old_p, old_q, kf_stamp=None):
         """Arm fast relocalization for the next solve.

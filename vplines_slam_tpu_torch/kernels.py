@@ -35,10 +35,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-# calls of the plain twins of K4 and K15-K21 on any device, by name
+# calls of the plain twins of K4 and K15-K24 on any device, by name
 # ("ransac", "fast", "nms", "brief", "match", "signature", "pnp", "pgo4",
-# "selector_info", "selector_greedy", "pnp_refine"); a run on the card reads
-# 0 for each (the twins of K11-K14 count in solver/lm.TWIN_CALLS)
+# "selector_info", "selector_greedy", "pnp_refine", "gyro_yaw", "time_offset",
+# "hand_eye"); a run on the card reads 0 for each (the twins of K11-K14 count
+# in solver/lm.TWIN_CALLS)
 TWIN_CALLS = collections.Counter()
 
 P = ctypes.c_void_p
@@ -182,9 +183,10 @@ def all_kernels():
     BRIEF (K16), Hamming match and SimHash signature (K17), PnP hypotheses
     (K18) and 4-DoF pose graph (K19), then the feature
     selector's information and greedy log-det (K20) and the PnP Gauss-Newton
-    refinement (K21)."""
+    refinement (K21), then online calibration's gyro yaw curve (K22),
+    time-offset ICP (K23) and hand-eye rotation (K24)."""
     from .estimator import linearize
-    from .models import imu, pose_graph, selector
+    from .models import calibration, imu, pose_graph, selector
     from .ops import brief, corners, image, klt, line_match, lines, mvg, vp
     from .solver import lm, marginalization
 
@@ -195,4 +197,5 @@ def all_kernels():
             linearize.WINDOW_LIN, lm.WINDOW_BLOCKS, lm.SCHUR_SOLVE,
             marginalization.MARG_WINDOW, brief.FAST_TILES, brief.FAST_SELECT, brief.BRIEF,
             brief.HAMMING_MATCH, brief.SIMHASH, mvg.PNP_HYPOTHESES, pose_graph.PGO4,
-            selector.SELECTOR_INFO, selector.SELECTOR_GREEDY, mvg.PNP_REFINE]
+            selector.SELECTOR_INFO, selector.SELECTOR_GREEDY, mvg.PNP_REFINE,
+            calibration.GYRO_YAW, calibration.TIME_OFFSET, calibration.HAND_EYE]

@@ -37,6 +37,7 @@ def load():
     lib.vpl_sync_create.restype = ctypes.c_void_p
     lib.vpl_sync_create.argtypes = [ctypes.c_int]
     lib.vpl_sync_destroy.argtypes = [ctypes.c_void_p]
+    lib.vpl_sync_set_td.argtypes = [ctypes.c_void_p, ctypes.c_double]
     lib.vpl_sync_push_imu.argtypes = [ctypes.c_void_p, ctypes.c_double, dp, dp]
     lib.vpl_sync_push_imu.restype = ctypes.c_int
     lib.vpl_sync_drain_frame_partial.argtypes = [
@@ -70,13 +71,17 @@ class MeasurementSync:
             self._lib.vpl_sync_destroy(self._h)
             self._h = None
 
+    def set_td(self, td):
+        """The camera-IMU time offset: drain_frame cuts at frame_t + td."""
+        self._lib.vpl_sync_set_td(self._h, float(td))
+
     def push_imu(self, t, acc, gyr):
         acc = np.ascontiguousarray(acc, np.float64)
         gyr = np.ascontiguousarray(gyr, np.float64)
         return self._lib.vpl_sync_push_imu(self._h, float(t), _as_dp(acc), _as_dp(gyr))
 
     def drain_frame(self, frame_t, max_out=1024, allow_partial=False):
-        """All IMU samples in (previous frame, frame_t], the boundary
+        """All IMU samples in (previous frame, frame_t + td], the boundary
         sample interpolated; allow_partial clamps the boundary to the newest
         sample when IMU lags.  Returns (t [n], acc [n, 3], gyr [n, 3]), or
         None when IMU has not caught up (and not allow_partial)."""

@@ -324,7 +324,8 @@ class SlamSystem:
         self.stats.update(p_corr, bool(out.is_keyframe), loop_closed, ba_cost=cost)
         st = self.stats
         if st.print_every and st.frames % st.print_every == 0:
-            st.maybe_print(p_ic=self.vio.state.p_ic.cpu(), q_ic=self.vio.state.q_ic.cpu())
+            st.maybe_print(p_ic=self.vio.state.p_ic.cpu(), q_ic=self.vio.state.q_ic.cpu(),
+                           td=self.vio.td)
         return SystemOutput(t=t, p_vio=p_vio, q_vio=q_vio, p_corrected=p_corr,
                             q_corrected=q_corr, is_keyframe=bool(out.is_keyframe),
                             loop_closed=loop_closed, timings=dict(st.timers.last),

@@ -1,7 +1,7 @@
 """Rotation / quaternion / SE(3) algebra on batched tensors.
 
 Port of ``vplines_slam_tpu/utils/geometry.py`` (the functions the device
-loop and the initializer use).  Quaternions are Hamilton, stored ``[w, x, y, z]``; every
+loop, the initializer and online calibration use).  Quaternions are Hamilton, stored ``[w, x, y, z]``; every
 function broadcasts over leading dimensions and is safe under
 ``torch.func.jvp``/``vmap`` (no in-place writes).
 """
@@ -146,6 +146,24 @@ def quat_log(q):
 
 def so3_exp_matrix(theta):
     return quat_to_rot(so3_exp_quat(theta))
+
+
+def quat_left(q):
+    """Left-multiplication matrix: quat_mul(q, p) == quat_left(q) @ p."""
+    w, v = q[..., 0, None, None], q[..., 1:4]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    top = torch.cat([w, -v[..., None, :]], dim=-1)
+    bottom = torch.cat([v[..., :, None], w * eye + skew(v)], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def quat_right(p):
+    """Right-multiplication matrix: quat_mul(q, p) == quat_right(p) @ q."""
+    w, v = p[..., 0, None, None], p[..., 1:4]
+    eye = torch.eye(3, dtype=p.dtype, device=p.device)
+    top = torch.cat([w, -v[..., None, :]], dim=-1)
+    bottom = torch.cat([v[..., :, None], w * eye - skew(v)], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def quat_from_two_vectors(a, b):
